@@ -14,19 +14,29 @@ non-zero:
 3. kernels -- each kernel against its plain PyTorch version at the main
    path's shapes (n = m = 1002, the paper's pr1002, and n = m = 2392, the
    paper's pr2392), an odd n and a masked n_actual, all three selection
-   modes; times each (CUDA events) beside its plain version and its bound;
+   modes, a float32 and a quantised (int8, bf16) tau; the 2-opt reduction
+   in both move rules on operands from real tours at m = n = 1002, k = 30,
+   unmasked and masked; times each (CUDA events) beside its plain version
+   and its bound;
 4. small   -- the one-rounding multiply-add (``torch.addcmul``) and the
-   per-step draw on the card against the CPU, bitwise; a small colony on
-   the card's kernel route against the same colony on the CPU (plain
-   versions), and no worse than the nearest-neighbour tour;
+   per-step draw on the card against the CPU, bitwise; small colonies on
+   the card's kernel route (plain MMAS and AS, MMAS + 2-opt/Or-opt, MMAS
+   over a stochastic int8 store) against the same colonies on the CPU
+   (plain versions), and no worse than the nearest-neighbour tour;
 5. main    -- ``aco.run`` at n = m = 1002: AS, MMAS and ACS on the fused
-   kernel route and AS on ``construction="pallas"``; one AS iteration at
-   n = m = 2392 (the paper's pr2392).  Launch counts are zeroed before
-   each run and checked after it.  MMAS runs until its best tour is no
-   worse than the nearest-neighbour tour; the shorter runs are held to
-   1.2 x that tour;
+   kernel route, AS on ``construction="pallas"``, MMAS + 2-opt, ACS +
+   2-opt/Or-opt (first improvement, every 2nd iteration), MMAS over an
+   int8 store and AS over a bf16 store; one AS iteration at n = m = 2392
+   (the paper's pr2392).  Launch counts are zeroed before each run and
+   checked after it (2-opt reductions: one per local-search round that
+   ``localsearch.improve`` reports).  MMAS and MMAS + 2-opt run until the
+   best tour is no worse than the nearest-neighbour tour, and MMAS +
+   2-opt is no worse than plain MMAS after the first iteration; the
+   shorter runs are held to 1.2 x that tour;
 6. profile -- device busy time and idle share of one AS iteration at
-   n = 1002, and the kernels that take most of it;
+   n = 1002, and the kernels that take most of it; the split of one MMAS
+   + 2-opt iteration over an int8 store into construction, local search
+   and update + requantise;
 7. one JSON line listing every kernel, then the card's ``nvidia-smi``
    line, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -54,7 +64,15 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel's pallas_call line)
                     "src/repro/kernels/choice_info.py:64"),
     "tour_select": ("src/repro_torch/kernels/csrc/tour_select.cu",
                     "src/repro/kernels/tour_select.py:103"),
+    # the quantised payload of fused_select, one entry per payload
+    "fused_select_quant_int8": ("src/repro_torch/kernels/csrc/fused_select.cu",
+                                "src/repro/kernels/fused_select.py:176"),
+    "fused_select_quant_bf16": ("src/repro_torch/kernels/csrc/fused_select.cu",
+                                "src/repro/kernels/fused_select.py:176"),
+    "two_opt_best": ("src/repro_torch/kernels/csrc/two_opt.cu",
+                     "src/repro/kernels/two_opt.py:119"),
 }
+QUANT = ("int8", "bf16")
 MODES = ("iroulette", "gumbel", "greedy")
 # MMAS at n = 1002 runs in chunks of this many iterations until its best
 # tour is no worse than the nearest-neighbour tour, and fails at the cap.
@@ -147,9 +165,11 @@ def _selection_inputs(torch, gen, m, n, dev):
 def phase_kernels(results: dict) -> None:
     """Each kernel against its plain version, then its time and bound."""
     import torch
-    from repro_torch.core import aco, tsp
+    from repro_torch.core import (aco, localsearch, quant, sampling,
+                                  strategies, tsp)
     from repro_torch.kernels import (choice_info as ci, fused_select as fs,
-                                     pheromone_update as pu, tour_select as ts)
+                                     pheromone_update as pu, tour_select as ts,
+                                     two_opt as topt)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     err = {k: 0.0 for k in KERNELS}
@@ -190,6 +210,22 @@ def phase_kernels(results: dict) -> None:
                 bad = int((got != want).sum())
                 raise AssertionError(f"fused_select != plain ({bad} ants) at "
                                      f"n={n} n_actual={n_act} mode={mode}")
+        # the quantised payloads: a stochastically rounded store of tau
+        for dtype in QUANT:
+            qt = quant.quantise(tau, dtype, key=sampling.prng_key(n, dev))
+            scale = qt.scale if dtype == "int8" else None
+            for mode in MODES:
+                got = fs.fused_select_quant(qt.q, scale, prob.eta, cur,
+                                            visited, rand, 1.0, 2.0, n_act,
+                                            mode)
+                want = fs.fused_select_quant_plain(qt.q, scale, prob.eta, cur,
+                                                   visited, rand, 1.0, 2.0,
+                                                   n_act, mode)
+                if not torch.equal(got, want):
+                    bad = int((got != want).sum())
+                    raise AssertionError(
+                        f"fused_select_quant[{dtype}] != plain ({bad} ants) "
+                        f"at n={n} n_actual={n_act} mode={mode}")
         # pheromone_update: one tour (every cell <= 1 deposit) is bitwise;
         # m tours (AS) sum in atomic order, held to rtol 1e-5 / atol 1e-7.
         for n_ants, exact in ((1, True), (m, False)):
@@ -217,8 +253,38 @@ def phase_kernels(results: dict) -> None:
                                          t2 - half, w2, 0.1)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
         log(f"[kernels] n={n} n_actual={n_act}: choice_info, tour_select, "
-            f"fused_select bitwise in {', '.join(MODES)}; pheromone_update "
-            f"bitwise (1 ant), rtol 1e-5/atol 1e-7 ({m} ants)")
+            f"fused_select, fused_select_quant (int8, bf16) bitwise in "
+            f"{', '.join(MODES)}; pheromone_update bitwise (1 ant), rtol "
+            f"1e-5/atol 1e-7 ({m} ants)")
+
+    # two_opt_best on the main path's operands: m = n = 1002, k = 30, from
+    # tours the colony constructs (kernel route), unmasked and masked.
+    two_opt_operands = None
+    for n_act in (None, 901):
+        if n_act is None:
+            inst = tsp.random_instance(1002, seed=7)
+        else:
+            inst = tsp.pad_instance(tsp.random_instance(n_act, seed=7), 1002)
+        prob = aco.make_problem(inst, 30, dev)._replace(n_actual=n_act)
+        st = aco.init_colony(inst, aco.ACOConfig(), device=dev)
+        res = strategies.construct_tours(
+            sampling.prng_key(3, dev), prob.dist, None, 1002, method="fused",
+            tau=st.tau, eta=prob.eta, n_actual=n_act)
+        a1, a2, r1, r2, valid, _ = localsearch._two_opt_operands(
+            prob.dist, prob.nn, res.tours, n_act)
+        flat = [x.reshape(1002, -1) for x in (a1, a2, r1, r2, valid)]
+        for mode in ("best", "first"):
+            got = topt.two_opt_best(*flat, thr=1e-3, mode=mode)
+            want = topt.two_opt_best_plain(*flat, thr=1e-3, mode=mode)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                bad = int(((got[0] != want[0]) | (got[1] != want[1])).sum())
+                raise AssertionError(f"two_opt_best != plain ({bad} ants) "
+                                     f"n_actual={n_act} mode={mode}")
+        if n_act is None:
+            two_opt_operands = flat
+        log(f"[kernels] two_opt_best m=n=1002 k=30 (M={flat[0].shape[1]}) "
+            f"n_actual={n_act}: bitwise in best and first")
 
     # Timing at the main path's shapes: n = m = 1002, iroulette.
     n = m = 1002
@@ -262,6 +328,28 @@ def phase_kernels(results: dict) -> None:
             None,
             m * n * 9 + m * 4, m * n * 3),
     }
+    # K6: the same step over a quantised store; tau reads 1 (int8, plus one
+    # scale per row) or 2 (bf16) bytes per gathered cell instead of 4.
+    for dtype, tau_bytes, extra_ops in (("int8", 1, 1), ("bf16", 2, 0)):
+        qt = quant.quantise(tau, dtype, key=sampling.prng_key(1, dev))
+        scale = qt.scale if dtype == "int8" else None
+        timing[f"fused_select_quant_{dtype}"] = (
+            lambda q=qt.q, s=scale: fs.fused_select_quant(
+                q, s, prob.eta, cur, visited, rand),
+            lambda q=qt.q, s=scale: fs.fused_select_quant_plain(
+                q, s, prob.eta, cur, visited, rand),
+            None,
+            distinct_rows * n * (tau_bytes + 4) + m * n * 5 + m * 8
+            + (distinct_rows * 4 if dtype == "int8" else 0),
+            m * n * (6 + extra_ops))
+    # K5: four float32 operands and one mask byte per move, best mode.
+    mt = two_opt_operands[0].shape[1]
+    timing["two_opt_best"] = (
+        lambda: topt.two_opt_best(*two_opt_operands, thr=1e-3, mode="best"),
+        lambda: topt.two_opt_best_plain(*two_opt_operands, thr=1e-3,
+                                      mode="best"),
+        None,
+        m * mt * 17 + m * 8, m * mt * 4)
     # "ms" is the device time of the call's kernels (torch.profiler); the
     # per-call time between CUDA events, which includes the host's launch
     # cost when that is longer, is printed beside it.
@@ -278,7 +366,7 @@ def phase_kernels(results: dict) -> None:
         results[name] = {"max_abs_err": err[name], "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": b_ms,
                          "bound_by": b_by, "library_ms": lib_ms}
-        log(f"[kernels] {name} n=m=1002: device {ms * 1e3:.2f} us, per call "
+        log(f"[kernels] {name} n=m=1002{' k=30' if name == 'two_opt_best' else ''}: device {ms * 1e3:.2f} us, per call "
             f"{wall * 1e3:.1f} us | plain device {plain_ms * 1e3:.1f} us, per "
             f"call {plain_wall * 1e3:.1f} us"
             + (f" | library device {lib_ms * 1e3:.1f} us, per call "
@@ -288,7 +376,6 @@ def phase_kernels(results: dict) -> None:
 
     # The per-step draw (plain PyTorch, the reference's jax.random outside
     # any kernel) that feeds fused_select / tour_select on the main path.
-    from repro_torch.core import sampling, strategies
     key = sampling.prng_key(0, dev)
     draw = lambda: strategies._draw_step_uniform(key, (m, n), "packed")  # noqa: E731
     d_ms, d_wall = both(draw, 5)
@@ -317,10 +404,13 @@ def _check_run(name, state, inst, n, slack):
 def phase_small() -> None:
     """The multiply-add that the reference's compiler fuses, and the draw
     built on it, bitwise between the card and the CPU; then card kernel
-    route == CPU plain route on a small colony (MMAS: tours, best_len and
-    tau bitwise; AS: tours and best_len after one iteration)."""
+    route == CPU plain route on small colonies (MMAS, MMAS + 2-opt/Or-opt
+    and MMAS over a stochastic int8 store: tours, best_len and tau --
+    payload and scale -- bitwise; AS: tours and best_len after one
+    iteration)."""
     import torch
     from repro_torch.core import aco, sampling, strategies, tsp
+    from repro_torch.kernels import ops
     gen = torch.Generator().manual_seed(1)
     a, c = torch.rand((2, 1002, 1002), generator=gen)
     for b in (torch.tensor(0.9), torch.rand((1002, 1002), generator=gen)):
@@ -329,6 +419,13 @@ def phase_small() -> None:
         if not torch.equal(got, want):
             raise AssertionError(f"addcmul on the card != CPU in "
                                  f"{int((got != want).sum())} cells")
+    # the compensated residual's multiply-subtract, as core/quant.py
+    # writes it: a negated multiplicand (value=-1 rounds twice on the card)
+    want = torch.addcmul(c, a.neg(), b)
+    got = torch.addcmul(c.cuda(), a.cuda().neg(), b.cuda()).cpu()
+    if not torch.equal(got, want):
+        raise AssertionError(f"addcmul(c, -a, b) on the card != CPU in "
+                             f"{int((got != want).sum())} cells")
     for mode in ("packed", "counter"):
         want = strategies._draw_step_uniform(sampling.prng_key(7, "cpu"),
                                              (1002, 1002), mode)
@@ -337,55 +434,86 @@ def phase_small() -> None:
         if not torch.equal(got, want):
             raise AssertionError(f"{mode} draw on the card != CPU in "
                                  f"{int((got != want).sum())} cells")
-    log("[small] addcmul (one rounding) and the per-step draw at (1002, "
-        "1002): card == CPU bitwise")
+    log("[small] addcmul (one rounding; also with a negated multiplicand) "
+        "and the per-step draw at (1002, 1002): card == CPU bitwise")
     inst = tsp.random_instance(100, seed=5)
-    for variant, iters, tau_exact in (("mmas", 10, True), ("as", 1, False)):
-        cfg = aco.ACOConfig(variant=variant, iterations=iters, seed=3,
-                            use_pallas=True)
+    # (label, cfg kwargs, iterations, tau bitwise, kernels it must launch)
+    for label, kw, iters, tau_exact, kernels in (
+            ("mmas", dict(variant="mmas"), 10, True, ("fused_select",)),
+            ("as", dict(variant="as"), 1, False, ("fused_select",)),
+            ("mmas + 2opt_oropt", dict(variant="mmas",
+                                       local_search="2opt_oropt"), 3, True,
+             ("fused_select", "two_opt_best")),
+            ("mmas + int8 stochastic", dict(variant="mmas", tau_dtype="int8",
+                                            tau_round="stochastic"), 10, True,
+             ("fused_select_quant",))):
+        cfg = aco.ACOConfig(iterations=iters, seed=3, use_pallas=True, **kw)
+        ops.reset_launch_counts()
         gpu = aco.run(inst, cfg, device="cuda")
+        counts = ops.launch_counts()
         cpu = aco.run(inst, cfg, device="cpu")
         same = (torch.equal(gpu.best_tour.cpu(), cpu.best_tour)
                 and torch.equal(gpu.best_len.cpu(), cpu.best_len))
         if not same:
-            raise AssertionError(f"small {variant}: card route != CPU route")
-        if tau_exact:
-            if not torch.equal(gpu.tau.cpu(), cpu.tau):
-                raise AssertionError(f"small {variant}: tau differs")
-        else:
-            torch.testing.assert_close(gpu.tau.cpu(), cpu.tau, rtol=1e-5,
-                                       atol=1e-7)
-        best, c_nn = _check_run(f"small {variant}", gpu, inst, 100,
-                                1.0 if variant == "mmas" else 1.5)
-        log(f"[small] rand100 {variant} x{iters}: card == CPU (tours, "
+            raise AssertionError(f"small {label}: card route != CPU route")
+        # a quantised tau compares payload, scale and residual
+        tau_g = gpu.tau if isinstance(gpu.tau, tuple) else (gpu.tau,)
+        tau_c = cpu.tau if isinstance(cpu.tau, tuple) else (cpu.tau,)
+        for tg, tc in zip(tau_g, tau_c):
+            if tau_exact:
+                if not torch.equal(tg.cpu(), tc):
+                    raise AssertionError(f"small {label}: tau differs")
+            else:
+                torch.testing.assert_close(tg.cpu(), tc, rtol=1e-5,
+                                           atol=1e-7)
+        for k in kernels:
+            if counts[k] == 0:
+                raise AssertionError(f"small {label}: {k} never launched")
+        best, c_nn = _check_run(f"small {label}", gpu, inst, 100,
+                                1.0 if label.startswith("mmas") else 1.5)
+        log(f"[small] rand100 {label} x{iters}: card == CPU (tours, "
             f"best_len, tau {'bitwise' if tau_exact else 'rtol 1e-5'}); "
-            f"best {best:.1f} vs nearest-neighbour tour {c_nn:.1f}")
+            f"best {best:.1f} vs nearest-neighbour tour {c_nn:.1f}; "
+            + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
 
 
 def phase_main(launches: dict) -> None:
     import torch
-    from repro_torch.core import aco, tsp
+    from repro_torch.core import aco, localsearch, tsp
     from repro_torch.kernels import ops
     # (label, n, cfg kwargs, expected launches per iteration, the most
     # best_len may be as a multiple of the nearest-neighbour tour, the
     # iteration cap when the run goes on until it meets that limit).  MMAS
-    # runs until it reaches that tour; the others take a few iterations and
-    # are held to 1.2 x it.
+    # and MMAS + 2-opt run until they reach that tour; the others take a
+    # few iterations and are held to 1.2 x it.  The 2-opt reduction's
+    # launches are checked against the rounds localsearch.improve reports.
+    dense = {"fused_select": 1001, "pheromone_update": 1}
+    quantised = {"fused_select_quant": 1001, "pheromone_update": 1}
     runs = [
-        ("as", 1002, dict(variant="as", iterations=3),
-         {"fused_select": 1001, "pheromone_update": 1}, 1.2, None),
+        ("as", 1002, dict(variant="as", iterations=3), dense, 1.2, None),
         ("mmas", 1002, dict(variant="mmas", iterations=2 * MMAS_CHUNK),
-         {"fused_select": 1001, "pheromone_update": 1}, 1.0, MMAS_CAP),
-        ("acs", 1002, dict(variant="acs", iterations=3),
-         {"fused_select": 1001, "pheromone_update": 1}, 1.2, None),
+         dense, 1.0, MMAS_CAP),
+        ("acs", 1002, dict(variant="acs", iterations=3), dense, 1.2, None),
         ("as-pallas", 1002, dict(variant="as", iterations=2,
                                  construction="pallas"),
          {"choice_info": 1, "tour_select": 1001, "pheromone_update": 1}, 1.2,
          None),
+        ("mmas+2opt", 1002, dict(variant="mmas", local_search="2opt",
+                                 iterations=MMAS_CHUNK), dense, 1.0,
+         MMAS_CAP),
+        ("acs+2opt_oropt", 1002, dict(variant="acs",
+                                      local_search="2opt_oropt",
+                                      ls_improvement="first", ls_every=2,
+                                      iterations=3), dense, 1.2, None),
+        ("mmas-int8", 1002, dict(variant="mmas", tau_dtype="int8",
+                                 iterations=3), quantised, 1.2, None),
+        ("as-bf16", 1002, dict(variant="as", tau_dtype="bf16",
+                               iterations=3), quantised, 1.2, None),
         ("as", 2392, dict(variant="as", iterations=1),
          {"fused_select": 2391, "pheromone_update": 1}, 1.2, None),
     ]
     instances = {}
+    first_best = {}     # best_len after the first iteration, by label
     for label, n, kw, per_iter, slack, cap in runs:
         inst = instances.setdefault(n, tsp.random_instance(n))
         _, c_nn = tsp.nearest_neighbour_tour(inst.distances())
@@ -394,7 +522,9 @@ def phase_main(launches: dict) -> None:
         record = dict(checkpoint_cb=lambda s: bests.append(float(s.best_len)),
                       checkpoint_every=1)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
+        localsearch.improve.rounds = 0
         t0 = time.perf_counter()
         state = aco.run(inst, cfg, device="cuda", **record)
         # resume from the state in chunks until the limit or the cap
@@ -404,19 +534,32 @@ def phase_main(launches: dict) -> None:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = ops.launch_counts()
+        rounds = localsearch.improve.rounds
         want = {k: v * cfg.iterations for k, v in per_iter.items()}
+        if cfg.local_search in ("2opt", "2opt_oropt"):
+            if rounds == 0:
+                raise AssertionError(f"main {label}: no local-search round")
+            want["two_opt_best"] = rounds
         for k in counts:
             if counts[k] != want.get(k, 0):
                 raise AssertionError(f"main {label} n={n}: {k} launched "
                                      f"{counts[k]} times, expected "
                                      f"{want.get(k, 0)}")
-            launches[k] = launches.get(k, 0) + counts[k]
+            name = k if k != "fused_select_quant" else \
+                f"fused_select_quant_{cfg.tau_dtype}"
+            launches[name] = launches.get(name, 0) + counts[k]
         best, c_nn = _check_run(f"main {label} n={n}", state, inst, n, slack)
+        first_best[label] = bests[0]
+        if label == "mmas+2opt" and bests[0] > first_best["mmas"]:
+            raise AssertionError(
+                f"main {label}: best after the first iteration {bests[0]} is "
+                f"worse than plain MMAS's {first_best['mmas']}")
         log(f"[main] {label} n=m={n} x{cfg.iterations}: "
             f"{cfg.iterations / secs:.3f} it/s ({secs:.2f} s incl. set-up), "
             f"best {best:.1f} ({best / c_nn:.3f} x NN tour, limit {slack}), "
             f"launches "
             + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
+            + (f", local-search rounds {rounds}" if rounds else "")
             + f", peak mem {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
         log(f"[main]   best / NN tour after each iteration: "
             + " ".join(f"{b / c_nn:.3f}" for b in bests))
@@ -459,6 +602,53 @@ def phase_profile() -> None:
             f"{name[:90]}")
 
 
+def phase_split() -> None:
+    """Where one MMAS + 2-opt iteration over an int8 store goes at
+    n = m = 1002: its construction (the quantised fused step), its local
+    search and its update + requantise (the extra stochastic draw), each
+    on the host clock between synchronisations, beside the whole
+    iteration."""
+    import torch
+    from repro_torch.core import (aco, localsearch, quant, sampling,
+                                  strategies, tsp)
+    inst = tsp.random_instance(1002)
+    cfg = aco.ACOConfig(variant="mmas", local_search="2opt", tau_dtype="int8",
+                        use_pallas=True, seed=1)
+    prob = aco.make_problem(inst, cfg.nn_k, "cuda")
+    state = aco.init_colony(inst, cfg, device="cuda")
+    state, _ = aco.colony_step(prob, state, cfg)          # warm
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    _, k_tour, k_q = sampling.split(state.key, 3)
+    tau_f = quant.dequantise(state.tau)
+    # three rounds of (iteration, its parts); medians, as the host's clock
+    # varies from call to call on a shared machine
+    it_ms, con_ms, ls_ms, rq_ms, rounds = [], [], [], [], []
+    for _ in range(3):
+        it_ms.append(timed(lambda: aco.colony_step(prob, state, cfg))[1])
+        res, ms = timed(lambda: strategies.construct_tours(
+            k_tour, prob.dist, None, 1002, method="fused", tau=state.tau.q,
+            eta=prob.eta, tau_scale=state.tau.scale))
+        con_ms.append(ms)
+        localsearch.improve.rounds = 0
+        ls_ms.append(timed(lambda: aco.polish_tours(prob, res.tours, cfg))[1])
+        rounds.append(localsearch.improve.rounds)
+        rq_ms.append(timed(lambda: quant.requantise(tau_f, state.tau, "int8",
+                                                    k_q))[1])
+    med = statistics.median
+    log(f"[split] MMAS + 2opt, int8 tau, n=m=1002, one iteration (median of "
+        f"3): {med(it_ms):.1f} ms; construction {med(con_ms):.1f} ms, local "
+        f"search {med(ls_ms):.1f} ms ({med(rounds)} rounds, "
+        f"{med(ls_ms) / max(med(rounds), 1):.2f} ms each), requantise "
+        f"{med(rq_ms):.2f} ms")
+
+
 def main() -> int:
     import torch   # noqa: F401  (fails here when torch is absent)
     root = os.path.dirname(os.path.abspath(__file__))
@@ -472,6 +662,7 @@ def main() -> int:
     launches: dict = {}
     phase_main(launches)
     phase_profile()
+    phase_split()
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         if launches.get(name, 0) == 0:

@@ -4,6 +4,12 @@ The reference's ``Problem``/``ColonyState`` are handed over as NumPy
 arrays (``np.asarray`` of each field), so this module needs no JAX.  Both
 packages can then compute from the same state, which is how the parity
 tests hold the port to the reference.
+
+A quantised tau (``QuantTau``) crosses as its three arrays ``(q, scale,
+err)``.  NumPy has no bfloat16 of its own, so a bf16 payload travels as
+its raw 16 bits: any 2-byte payload array (the reference's ``bfloat16``,
+or ``int16`` holding the bits) comes in as ``torch.bfloat16``, and
+``state_to_numpy`` gives the payload back as ``int16`` bits.
 """
 from __future__ import annotations
 
@@ -13,7 +19,7 @@ import numpy as np
 import torch
 
 from . import device as _device
-from .core import aco
+from .core import aco, quant
 
 
 def problem_from_numpy(dist, eta, nn, n_actual=None,
@@ -28,13 +34,30 @@ def problem_from_numpy(dist, eta, nn, n_actual=None,
     )
 
 
+def _tau_from_numpy(tau, dev: torch.device):
+    """An fp32 array, or a ``(q, scale, err)`` triple -> ``QuantTau``."""
+    if not isinstance(tau, tuple):
+        return torch.tensor(np.asarray(tau, np.float32), device=dev)
+    q, scale, err = (np.asarray(x) for x in tau)
+    if q.dtype.itemsize == 2:              # bfloat16 bits
+        payload = torch.from_numpy(np.array(q).view(np.int16)) \
+            .view(torch.bfloat16).to(dev)
+    else:
+        payload = torch.tensor(q.astype(np.int8), device=dev)
+    return quant.QuantTau(
+        q=payload,
+        scale=torch.tensor(np.asarray(scale, np.float32), device=dev),
+        err=torch.tensor(np.asarray(err, np.float32), device=dev))
+
+
 def state_from_numpy(tau, best_tour, best_len, iteration, key,
                      device: _device.DeviceLike = None) -> aco.ColonyState:
-    """Reference ``ColonyState`` fields (NumPy; ``key`` the raw uint32[2])
-    -> the port's ``ColonyState``."""
+    """Reference ``ColonyState`` fields (NumPy; ``key`` the raw uint32[2];
+    a quantised ``tau`` as its ``(q, scale, err)`` arrays) -> the port's
+    ``ColonyState``."""
     dev = _device.resolve(device)
     return aco.ColonyState(
-        tau=torch.tensor(np.asarray(tau, np.float32), device=dev),
+        tau=_tau_from_numpy(tau, dev),
         best_tour=torch.tensor(np.asarray(best_tour, np.int32),
                                   device=dev),
         best_len=torch.tensor(np.asarray(best_len, np.float32),
@@ -47,9 +70,19 @@ def state_from_numpy(tau, best_tour, best_len, iteration, key,
 
 
 def state_to_numpy(state: aco.ColonyState) -> dict:
-    """The port's state as NumPy arrays, in the reference's dtypes."""
+    """The port's state as NumPy arrays, in the reference's dtypes; a
+    quantised tau as a ``(q, scale, err)`` tuple, bf16 payload as int16
+    bits."""
+    tau = state.tau
+    if isinstance(tau, quant.QuantTau):
+        q = tau.q.cpu()
+        if q.dtype == torch.bfloat16:
+            q = q.view(torch.int16)
+        tau = (q.numpy(), tau.scale.cpu().numpy(), tau.err.cpu().numpy())
+    else:
+        tau = tau.cpu().numpy()
     return {
-        "tau": state.tau.cpu().numpy(),
+        "tau": tau,
         "best_tour": state.best_tour.cpu().numpy(),
         "best_len": state.best_len.cpu().numpy(),
         "iteration": state.iteration.cpu().numpy(),

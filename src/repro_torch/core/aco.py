@@ -10,8 +10,11 @@ With ``use_pallas=True`` (the kernel route) construction and update run
 through the CUDA kernels of ``kernels/``: ``construction="data_parallel"``
 becomes the ``fused_select`` kernel step (no (n, n) choice matrix), other
 constructions take the ``choice_info`` kernel, and the update is the fused
-``pheromone_update`` kernel.  On CPU tensors the kernels' plain versions
-run instead (``kernels/ops.py``).
+``pheromone_update`` kernel.  Local search (``local_search``) reduces its
+2-opt moves with the ``two_opt_best`` kernel.  A quantised pheromone store
+(``tau_dtype`` bf16/int8, ``core/quant.py``) reaches the fused step as its
+payload, dequantised inside the kernel.  On CPU tensors the kernels'
+plain versions run instead (``kernels/ops.py``).
 
 Entry points (``make_problem``, ``init_colony``, ``run``) take a ``device``
 and run on CUDA when none is given (``repro_torch.device.resolve``).
@@ -27,7 +30,8 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from . import floatops, pheromone, sampling, strategies, tsp
+from . import floatops, localsearch, pheromone, quant, sampling, strategies
+from . import tsp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +76,7 @@ class ACOConfig:
 
 
 class ColonyState(NamedTuple):
-    tau: torch.Tensor        # (n, n) float32 pheromone
+    tau: Union[torch.Tensor, quant.QuantTau]  # (n, n) f32, or QuantTau
     best_tour: torch.Tensor  # (n,) int32
     best_len: torch.Tensor   # () float32
     iteration: torch.Tensor  # () int32
@@ -117,6 +121,17 @@ def initial_tau(instance: tsp.TSPInstance, cfg: ACOConfig,
     return m / c_nn
 
 
+def make_tau(tau_f32: torch.Tensor, cfg: ACOConfig
+             ) -> Union[torch.Tensor, quant.QuantTau]:
+    """Initial tau in the config's resident representation: raw fp32, or a
+    QuantTau rounded to nearest."""
+    if not quant.is_quantised(cfg.tau_dtype):
+        return tau_f32
+    quant.validate_tau_dtype(cfg.tau_dtype, cfg.tau_round)
+    return quant.quantise(tau_f32, cfg.tau_dtype,
+                          compensation=cfg.tau_compensation)
+
+
 def init_colony(instance: tsp.TSPInstance, cfg: ACOConfig,
                 seed: Optional[int] = None,
                 device: _device.DeviceLike = None) -> ColonyState:
@@ -124,7 +139,8 @@ def init_colony(instance: tsp.TSPInstance, cfg: ACOConfig,
     n = instance.n
     tau0 = np.float32(initial_tau(instance, cfg))
     return ColonyState(
-        tau=torch.full((n, n), float(tau0), dtype=torch.float32, device=dev),
+        tau=make_tau(torch.full((n, n), float(tau0), dtype=torch.float32,
+                                device=dev), cfg),
         best_tour=torch.arange(n, dtype=torch.int32, device=dev),
         best_len=torch.tensor(np.float32(np.inf), device=dev),
         iteration=torch.tensor(0, dtype=torch.int32, device=dev),
@@ -143,11 +159,6 @@ def _check_supported(problem: Problem, cfg: ACOConfig) -> None:
     todo = []
     if cfg.sparse:
         todo.append("sparse=True (ROADMAP queue 1 item 10)")
-    if cfg.local_search != "none":
-        todo.append(f"local_search={cfg.local_search!r} "
-                    "(ROADMAP queue 1 item 8)")
-    if cfg.tau_dtype != "fp32":
-        todo.append(f"tau_dtype={cfg.tau_dtype!r} (ROADMAP queue 1 item 9)")
     if cfg.metrics:
         todo.append("metrics=True (ROADMAP queue 1 item 12)")
     if problem.hyper is not None:
@@ -164,6 +175,43 @@ def _choice(tau: torch.Tensor, eta: torch.Tensor, cfg: ACOConfig,
     return strategies.choice_matrix(tau, eta, cfg.alpha, cfg.beta)
 
 
+def ls_config(cfg: ACOConfig) -> localsearch.LocalSearchConfig:
+    """The LocalSearchConfig embedded in an ACOConfig."""
+    return localsearch.LocalSearchConfig(
+        kind=cfg.local_search, rounds=cfg.ls_rounds,
+        improvement=cfg.ls_improvement, seg_max=cfg.ls_seg_max,
+        use_pallas=cfg.use_pallas)
+
+
+def polish_tours(problem: Problem, tours: torch.Tensor, cfg: ACOConfig
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Local-search-improve (m, n) tours -> (tours, lengths); mask-aware
+    when problem.n_actual is set."""
+    return localsearch.improve_with_lengths(
+        problem.dist, problem.nn, tours, ls_config(cfg), problem.n_actual)
+
+
+def _apply_local_search(problem: Problem, res: strategies.TourResult,
+                        iteration: int, cfg: ACOConfig
+                        ) -> strategies.TourResult:
+    """Polish the constructed tours per ``cfg.ls_tours`` on every
+    ``cfg.ls_every``-th iteration (the reference's ``lax.cond`` gate, a
+    host ``if`` here)."""
+    if cfg.ls_tours not in ("all", "iteration_best"):
+        raise ValueError(f"unknown ls_tours {cfg.ls_tours!r}")
+    if cfg.ls_every > 1 and iteration % cfg.ls_every != 0:
+        return res
+    tours, lengths = res.tours, res.lengths
+    if cfg.ls_tours == "iteration_best":
+        ib = torch.argmin(lengths)
+        pol, pol_len = polish_tours(problem, tours[ib][None, :], cfg)
+        tours, lengths = tours.clone(), lengths.clone()
+        tours[ib], lengths[ib] = pol[0], pol_len[0]
+    else:
+        tours, lengths = polish_tours(problem, tours, cfg)
+    return strategies.TourResult(tours, lengths)
+
+
 def colony_step(problem: Problem, state: ColonyState,
                 cfg: ACOConfig) -> tuple[ColonyState, torch.Tensor]:
     """One full ACO iteration: construct m tours, update pheromone, track
@@ -173,8 +221,15 @@ def colony_step(problem: Problem, state: ColonyState,
     m = cfg.num_ants(n)
     n_act = problem.n_actual
     rho, q = cfg.rho, cfg.q
-    key, k_tour = sampling.split(state.key)
-    tau_full = state.tau
+    quantised = quant.is_quantised(cfg.tau_dtype)
+    if quantised:
+        # The extra key feeds quantise-on-store; the fp32 split is
+        # unchanged, so its key trajectory is too.
+        key, k_tour, k_q = sampling.split(state.key, 3)
+    else:
+        key, k_tour = sampling.split(state.key)
+    # Transient fp32 view for this step's compute.
+    tau_full = quant.dequantise(state.tau)
 
     method = cfg.construction
     if cfg.use_pallas and method == "data_parallel":
@@ -182,14 +237,23 @@ def colony_step(problem: Problem, state: ColonyState,
         # (n, n) choice precompute on this route at all.
         method = "fused"
     choice_info = None
+    tau_c, tau_scale = tau_full, None
     if method != "fused":
         choice_info = _choice(tau_full, problem.eta, cfg, n_act)
+    elif quantised:
+        # The fused kernel dequantises the resident payload itself.
+        tau_c = state.tau.q
+        tau_scale = state.tau.scale if cfg.tau_dtype == "int8" else None
 
     res = strategies.construct_tours(
         k_tour, problem.dist, choice_info, m, method=method,
-        selection=cfg.selection, tau=tau_full, eta=problem.eta,
+        selection=cfg.selection, tau=tau_c, eta=problem.eta,
         alpha=cfg.alpha, beta=cfg.beta, n_actual=n_act,
-        draw_mode=cfg.draw_mode)
+        draw_mode=cfg.draw_mode, tau_scale=tau_scale)
+
+    if cfg.local_search != "none":
+        # improved tours drive best-tracking and the deposit
+        res = _apply_local_search(problem, res, int(state.iteration), cfg)
 
     it_best_idx = torch.argmin(res.lengths)
     it_best_len = res.lengths[it_best_idx]
@@ -244,6 +308,11 @@ def colony_step(problem: Problem, state: ColonyState,
         tau = pheromone.local_update_acs(tau, f.reshape(-1), t.reshape(-1),
                                          cfg.xi, tau0, w=ew)
 
+    if quantised:
+        # quantise-on-store: the next resident payload
+        tau = quant.requantise(tau, state.tau, cfg.tau_dtype,
+                               quant.round_key(cfg.tau_round, k_q))
+
     new_state = ColonyState(tau, best_tour, best_len, state.iteration + 1,
                             key)
     return new_state, it_best_len
@@ -258,7 +327,7 @@ def run(instance: tsp.TSPInstance, cfg: ACOConfig,
     if cfg.sparse:
         raise NotImplementedError(
             "not ported yet: sparse=True (ROADMAP queue 1 item 10)")
-    dev = state.tau.device if state is not None and device is None \
+    dev = state.key.device if state is not None and device is None \
         else _device.resolve(device)
     problem = make_problem(instance, cfg.nn_k, dev)
     if state is None:

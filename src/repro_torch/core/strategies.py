@@ -107,9 +107,12 @@ def _make_fused_step(selector: str, alpha: float, beta: float,
         del choice_info, t
         from ..kernels import ops as kops
         u = _draw_step_uniform(key, tuple(st.visited.shape), draw_mode)
-        return kops.fused_select(extras["tau"], extras["eta"], st.cur,
-                                 st.visited, u, alpha, beta,
-                                 extras["n_actual"], selector)
+        # A quantised tau arrives as its payload; only int8 has a scale.
+        tau = extras["tau"]
+        scale = extras["tau_scale"] if tau.dtype == torch.int8 else None
+        return kops.fused_select(tau, extras["eta"], st.cur, st.visited, u,
+                                 alpha, beta, extras["n_actual"], selector,
+                                 tau_scale=scale)
 
     return step
 
@@ -127,11 +130,14 @@ def construct_tours(
     beta: float = 2.0,
     n_actual: NActual = None,
     draw_mode: str = "packed",
+    tau_scale: Optional[torch.Tensor] = None,
 ) -> TourResult:
     """Build m complete tours under the given method.
 
     choice_info: (n, n) precomputed tau^alpha * eta^beta (ignored by
     ``fused``, which needs ``tau``/``eta`` and host-float ``alpha``/``beta``).
+    ``fused`` also takes a quantised ``tau`` payload (int8 or bfloat16,
+    ``core/quant.py``); ``tau_scale`` is the int8 per-row scale.
     ``n_actual``: real-city count of a padded instance (host int), or None.
     """
     if method not in METHODS:
@@ -155,7 +161,8 @@ def construct_tours(
         step_impl = _make_dense_step(selection, draw_mode)
     kp, kc = sampling.split(key)
     start = place_ants(kp, m, n, n_actual)
-    extras = {"tau": tau, "eta": eta, "n_actual": n_actual}
+    extras = {"tau": tau, "eta": eta, "n_actual": n_actual,
+              "tau_scale": tau_scale}
     st = _init_state(start, n)
     ants = torch.arange(m, device=dist.device)
     # One batched hash gives every step's key: fold_in(kc, t), t = 1..n-1.

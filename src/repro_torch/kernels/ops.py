@@ -23,13 +23,16 @@ from . import choice_info as _ci
 from . import fused_select as _fs
 from . import pheromone_update as _pu
 from . import tour_select as _ts
+from . import two_opt as _to
 
 # name -> the launching wrapper that carries the count.
 KERNELS = {
     "fused_select": _fs.fused_select,
+    "fused_select_quant": _fs.fused_select_quant,
     "pheromone_update": _pu.pheromone_update,
     "choice_info": _ci.choice_info,
     "tour_select": _ts.tour_select,
+    "two_opt_best": _to.two_opt_best,
 }
 
 
@@ -104,9 +107,19 @@ def fused_select(tau: torch.Tensor, eta: torch.Tensor, cur: torch.Tensor,
                  visited: torch.Tensor, rand: torch.Tensor,
                  alpha: float = 1.0, beta: float = 2.0,
                  n_actual: Optional[int] = None,
-                 mode: str = "iroulette") -> torch.Tensor:
+                 mode: str = "iroulette",
+                 tau_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused construction step: row gather + tau^a*eta^b + mask + select,
-    without materialising the (m, n) weight matrix."""
+    without materialising the (m, n) weight matrix.  An int8 or bfloat16
+    ``tau`` is a quantised payload (``core/quant.py``), dequantised in the
+    kernel after the row gather; ``tau_scale`` is the int8 per-row scale."""
+    if tau.dtype in (torch.int8, torch.bfloat16):
+        if _plain(tau):
+            return _fs.fused_select_quant_plain(tau, tau_scale, eta, cur,
+                                                visited, rand, alpha, beta,
+                                                n_actual, mode)
+        return _fs.fused_select_quant(tau, tau_scale, eta, cur, visited,
+                                      rand, alpha, beta, n_actual, mode)
     if _plain(tau):
         return _fs.fused_select_plain(tau, eta, cur, visited, rand, alpha,
                                       beta, n_actual, mode)
@@ -139,3 +152,14 @@ def pheromone_update_edges(tau: torch.Tensor, frm: torch.Tensor,
     if _plain(tau):
         return _pu.pheromone_update_plain(tau, frm, to, w, rho)
     return _pu.pheromone_update(tau, frm, to, w, rho)
+
+
+def two_opt_best(add1: torch.Tensor, add2: torch.Tensor, rem1: torch.Tensor,
+                 rem2: torch.Tensor, valid: torch.Tensor, thr: float = 0.0,
+                 mode: str = "best") -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-ant best/first 2-opt move over (m, M) gathered move operands.
+    Phantom-touching moves of a padded instance arrive with valid = 0."""
+    if _plain(add1):
+        return _to.two_opt_best_plain(add1, add2, rem1, rem2, valid, thr,
+                                      mode)
+    return _to.two_opt_best(add1, add2, rem1, rem2, valid, thr, mode)

@@ -171,8 +171,6 @@ def test_sequential_oracle_is_the_reference():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(sparse=True), "item 10"),
-    (dict(local_search="2opt"), "item 8"),
-    (dict(tau_dtype="int8"), "item 9"),
     (dict(metrics=True), "item 12"),
     (dict(deposit="onehot"), "item 4"),
     (dict(construction="nn_list"), "item 5"),
@@ -182,6 +180,21 @@ def test_unported_combinations_raise(kw, match):
     cfg = taco.ACOConfig(iterations=1, **kw)
     with pytest.raises(NotImplementedError, match=match):
         taco.run(inst, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("kw", [dict(local_search="2opt"),
+                                dict(tau_dtype="int8")])
+def test_local_search_and_quantised_tau_now_run(kw, use_pallas):
+    """The two options that raised before this slice ported them run on
+    both routes and give a valid colony."""
+    inst = ttsp.circle_instance(9)
+    cfg = taco.ACOConfig(iterations=2, use_pallas=use_pallas, **kw)
+    st = taco.run(inst, cfg, device="cpu")
+    assert ttsp.is_valid_tour(st.best_tour.numpy())
+    assert int(st.iteration) == 2
+    _, c_nn = ttsp.nearest_neighbour_tour(inst.distances())
+    assert float(st.best_len) <= c_nn + 1e-3
 
 
 def test_hyper_raises_with_reference_message_on_kernel_route():
@@ -228,4 +241,4 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 20

@@ -7,21 +7,23 @@ imports no JAX, so it runs on the GPU machine as it is:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: selection indices and choice values bitwise (the kernels round
-every operation as the plain versions do, with accurate ``logf``); the
-update bitwise where each cell gets at most one deposit, rtol 1e-5 / atol
-1e-7 where atomics sum several deposits in another order.
+every operation as the plain versions do, with accurate ``logf``), with a
+float32 or a quantised (int8, bf16) tau; 2-opt move deltas and indices
+bitwise; the update bitwise where each cell gets at most one deposit,
+rtol 1e-5 / atol 1e-7 where atomics sum several deposits in another order.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import aco, tsp  # noqa: E402
+from repro_torch.core import aco, localsearch, quant, tsp  # noqa: E402
 from repro_torch.kernels import choice_info as ci  # noqa: E402
 from repro_torch.kernels import fused_select as fs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pheromone_update as pu  # noqa: E402
 from repro_torch.kernels import tour_select as ts  # noqa: E402
+from repro_torch.kernels import two_opt as to  # noqa: E402
 from torch_parity import cuda_device  # noqa: E402
 
 MODES = ["iroulette", "greedy", "gumbel"]
@@ -119,3 +121,78 @@ def test_kernel_route_on_card_equals_cpu_route():
         cpu = aco.run(inst, cfg, device="cpu")
         for a, b in zip(gpu, cpu):
             assert torch.equal(a.cpu(), b), construction
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_actual", [(1002, None), (2392, None),
+                                        (997, None), (1002, 901)])
+@pytest.mark.parametrize("tau_dtype", ["int8", "bf16"])
+def test_fused_select_quant_kernel_bitwise(n, n_actual, tau_dtype):
+    tau, eta, visited, rand, cur = _inputs(n, cuda_device())
+    qt = quant.quantise(tau, tau_dtype,
+                        key=torch.tensor([0, n], device=tau.device))
+    scale = qt.scale if tau_dtype == "int8" else None
+    ops.reset_launch_counts()
+    for mode in MODES:
+        assert torch.equal(
+            ops.fused_select(qt.q, eta, cur, visited, rand, 1.0, 2.0,
+                             n_actual, mode, tau_scale=scale),
+            fs.fused_select_quant_plain(qt.q, scale, eta, cur, visited, rand,
+                                        1.0, 2.0, n_actual, mode)), mode
+    assert ops.launch_counts()["fused_select_quant"] == len(MODES)
+    assert ops.launch_counts()["fused_select"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_actual", [None, 901])
+def test_two_opt_best_kernel_bitwise(n_actual):
+    """Operands from real tours through _two_opt_operands, k = 30."""
+    dev = cuda_device()
+    inst = tsp.random_instance(1002, seed=3)
+    if n_actual is not None:
+        inst = tsp.pad_instance(tsp.random_instance(n_actual, seed=3), 1002)
+    prob = aco.make_problem(inst, 30, dev)
+    n_real = 1002 if n_actual is None else n_actual
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tours = torch.stack([torch.cat([torch.randperm(n_real, generator=gen,
+                                                   device=dev),
+                                    torch.arange(n_real, 1002, device=dev)])
+                         for _ in range(257)]).to(torch.int32)
+    a1, a2, r1, r2, valid, _ = localsearch._two_opt_operands(
+        prob.dist, prob.nn, tours, n_actual)
+    flat = [x.reshape(257, -1) for x in (a1, a2, r1, r2, valid)]
+    for mode in ("best", "first"):
+        got = to.two_opt_best(*flat, thr=1e-3, mode=mode)
+        want = to.two_opt_best_plain(*flat, thr=1e-3, mode=mode)
+        assert torch.equal(got[0], want[0]), mode
+        assert torch.equal(got[1], want[1]), mode
+
+
+@pytest.mark.cuda
+def test_local_search_and_quantised_colony_on_card_equal_cpu():
+    """MMAS + 2-opt/Or-opt and MMAS over an int8 store (with and without
+    the compensation residual): the card's kernel route equals the CPU
+    route bit for bit (tours, best_len, payload, scale, residual); K5
+    launches once per local-search round."""
+    dev = cuda_device()
+    inst = tsp.random_instance(60, seed=4)
+    for kw in (dict(local_search="2opt_oropt"), dict(tau_dtype="int8"),
+               dict(tau_dtype="int8", tau_compensation=True)):
+        cfg = aco.ACOConfig(variant="mmas", iterations=3, seed=2,
+                            use_pallas=True, **kw)
+        ops.reset_launch_counts()
+        localsearch.improve.rounds = 0
+        gpu = aco.run(inst, cfg, device=dev)
+        counts = ops.launch_counts()
+        assert counts["two_opt_best"] == localsearch.improve.rounds
+        if "tau_dtype" in kw:
+            assert counts["fused_select_quant"] == 3 * 59
+        cpu = aco.run(inst, cfg, device="cpu")
+        for a, b in zip(gpu[1:], cpu[1:]):
+            assert torch.equal(a.cpu(), b), kw
+        ta, tb = (gpu.tau, cpu.tau) if "tau_dtype" not in kw else \
+            (gpu.tau.q, cpu.tau.q)
+        assert torch.equal(ta.cpu(), tb), kw
+        if "tau_dtype" in kw:
+            assert torch.equal(gpu.tau.scale.cpu(), cpu.tau.scale)
+            assert torch.equal(gpu.tau.err.cpu(), cpu.tau.err)

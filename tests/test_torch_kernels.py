@@ -26,41 +26,13 @@ from repro_torch.kernels import choice_info as ci  # noqa: E402
 from repro_torch.kernels import fused_select as fs  # noqa: E402
 from repro_torch.kernels import pheromone_update as pu  # noqa: E402
 from repro_torch.kernels import tour_select as ts  # noqa: E402
-from torch_parity import assert_bitwise, ulp_distance  # noqa: E402
+from repro_torch.kernels import two_opt as to  # noqa: E402
+from torch_parity import assert_bitwise  # noqa: E402
+from torch_parity import assert_picks as _assert_picks  # noqa: E402
+from torch_parity import jax_scores as _jax_scores  # noqa: E402
+from torch_parity import selection_inputs as _inputs  # noqa: E402
 
 MODES = ["iroulette", "greedy", "gumbel"]
-_NEG_INF = np.float32(-1e30)
-
-
-def _inputs(m, n, seed):
-    rng = np.random.default_rng(seed)
-    tau = (rng.random((n, n)) * 1e-2 + 1e-3).astype(np.float32)
-    eta = (1.0 / (rng.random((n, n)) * 100 + 1)).astype(np.float32)
-    visited = rng.random((m, n)) < 0.5
-    rand = (rng.random((m, n)) * (1 - 1e-6) + 1e-6).astype(np.float32)
-    cur = rng.integers(0, n, m).astype(np.int32)
-    return tau, eta, visited, rand, cur
-
-
-def _jax_scores(rows, visited, rand, n_actual, mode):
-    """The reference's transform in NumPy float32 (scores for tie checks)."""
-    n = rows.shape[1]
-    mask = (~visited) & (np.arange(n) < (n if n_actual is None else n_actual))
-    g = -np.log(-np.log(np.clip(rand, np.float32(1e-12),
-                                np.float32(1 - 1e-7))))
-    return np.where((rows > 0) & mask,
-                    np.log(np.maximum(rows, np.float32(1e-38))) + g,
-                    _NEG_INF).astype(np.float32)
-
-
-def _assert_picks(want, got, mode, scores):
-    want, got = np.asarray(want), got.numpy()
-    if mode != "gumbel":
-        assert_bitwise(want, got, mode)
-        return
-    rows = np.nonzero(want != got)[0]
-    d = ulp_distance(scores[rows, want[rows]], scores[rows, got[rows]])
-    assert d.max(initial=0) <= 4, d
 
 
 @pytest.mark.parametrize("n0,n1", [(29, 29), (73, 73), (40, 57)])
@@ -185,6 +157,9 @@ def test_ops_cpu_tensors_use_plain_versions_and_count_nothing():
     ops.fused_select(T["tau"], T["eta"], T["cur"], T["vis"], T["rand"])
     ops.pheromone_update(T["tau"], T["cur"][None].to(torch.int32) % 17,
                          torch.ones(1), 0.5)
+    ops.fused_select(T["tau"].to(torch.bfloat16), T["eta"], T["cur"],
+                     T["vis"], T["rand"])
+    ops.two_opt_best(T["rand"], T["rand"], T["rand"], T["rand"], T["vis"])
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
     assert ref.fused_select is fs.fused_select_plain
     assert ref.pheromone_update is pu.pheromone_update_plain
@@ -199,6 +174,13 @@ def test_launch_wrappers_refuse_cpu_tensors():
                         torch.tensor(rand))
     with pytest.raises(ValueError, match="CUDA tensor"):
         ci.choice_info(torch.tensor(tau), torch.tensor(eta))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fs.fused_select_quant(torch.tensor(tau).to(torch.bfloat16), None,
+                              torch.tensor(eta), torch.tensor(cur),
+                              torch.tensor(visited), torch.tensor(rand))
+    r = torch.tensor(rand)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        to.two_opt_best(r, r, r, r, torch.tensor(visited))
     with pytest.raises(ValueError):
         ts.mode_code("roulette")
 
@@ -222,6 +204,6 @@ def test_build_digest_and_sources():
     """The build is keyed by the sources: every kernel has one."""
     names = {p.stem for p in _build.sources()}
     assert {"choice_info", "tour_select", "fused_select",
-            "pheromone_update"} <= names
+            "pheromone_update", "two_opt"} <= names
     assert _build.lib_path().name == "libaco_kernels.so"
     assert set(_build.SIGNATURES) == {f"aco_{k}" for k in ops.KERNELS}

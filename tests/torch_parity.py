@@ -35,6 +35,42 @@ def ulp_distance(a, b) -> np.ndarray:
     return np.abs(key(a) - key(b))
 
 
+def selection_inputs(m: int, n: int, seed: int):
+    """Seeded (tau, eta, visited, rand, cur) for the selection kernels."""
+    rng = np.random.default_rng(seed)
+    tau = (rng.random((n, n)) * 1e-2 + 1e-3).astype(np.float32)
+    eta = (1.0 / (rng.random((n, n)) * 100 + 1)).astype(np.float32)
+    visited = rng.random((m, n)) < 0.5
+    rand = (rng.random((m, n)) * (1 - 1e-6) + 1e-6).astype(np.float32)
+    cur = rng.integers(0, n, m).astype(np.int32)
+    return tau, eta, visited, rand, cur
+
+
+def jax_scores(rows, visited, rand, n_actual, mode) -> np.ndarray:
+    """The reference's gumbel transform in NumPy float32 (the scores the
+    tie rule of ``assert_picks`` reads)."""
+    n = rows.shape[1]
+    mask = (~visited) & (np.arange(n) < (n if n_actual is None else n_actual))
+    g = -np.log(-np.log(np.clip(rand, np.float32(1e-12),
+                                np.float32(1 - 1e-7))))
+    return np.where((rows > 0) & mask,
+                    np.log(np.maximum(rows, np.float32(1e-38))) + g,
+                    np.float32(-1e30)).astype(np.float32)
+
+
+def assert_picks(want, got, mode: str, scores) -> None:
+    """Selected cities bitwise; for gumbel (``torch.log`` is an ulp off
+    XLA's) a pick may differ only where the two candidates' reference
+    scores lie within 4 ulp."""
+    want, got = np.asarray(want), to_np(got)
+    if mode != "gumbel":
+        assert_bitwise(want, got, mode)
+        return
+    rows = np.nonzero(want != got)[0]
+    d = ulp_distance(scores[rows, want[rows]], scores[rows, got[rows]])
+    assert d.max(initial=0) <= 4, d
+
+
 def cuda_device() -> torch.device:
     """The CUDA device, or skip (decided inside the test, never at import)."""
     if not torch.cuda.is_available():

@@ -18,11 +18,18 @@ non-zero:
    in both move rules on operands from real tours at m = n = 1002, k = 30,
    unmasked and masked; times each (CUDA events) beside its plain version
    and its bound;
+   The sparse route's K7 (fp32, int8, bf16 pages) in all three modes at
+   (m, K) = (64, 20), n = 1002 and 2392, and (2392, 36), on pages gathered
+   from a real sparse problem with overflow columns, fully visited pages
+   and ids < 0; times each at (64, 20), n = 2392;
 4. small   -- the one-rounding multiply-add (``torch.addcmul``) and the
    per-step draw on the card against the CPU, bitwise; small colonies on
    the card's kernel route (plain MMAS and AS, MMAS + 2-opt/Or-opt, MMAS
-   over a stochastic int8 store) against the same colonies on the CPU
-   (plain versions), and no worse than the nearest-neighbour tour;
+   over a stochastic int8 store; sparse MMAS, sparse Partial-ACO and
+   sparse MMAS over int8 pages with k = 4 + 4 overflow slots, where
+   adoption, eviction and the page-fault fallback occur) against the same
+   colonies on the CPU (plain versions), and no worse than the
+   nearest-neighbour tour;
 5. main    -- ``aco.run`` at n = m = 1002: AS, MMAS and ACS on the fused
    kernel route, AS on ``construction="pallas"``, MMAS + 2-opt, ACS +
    2-opt/Or-opt (first improvement, every 2nd iteration), MMAS over an
@@ -33,10 +40,15 @@ non-zero:
    best tour is no worse than the nearest-neighbour tour, and MMAS +
    2-opt is no worse than plain MMAS after the first iteration; the
    shorter runs are held to 1.2 x that tour;
+   sparse    -- ``aco.run(sparse=True)`` at n = 2392 (k = 16 + 4, m = 64):
+   MMAS data-parallel over fp32, int8 and bf16 pages, MMAS Partial-ACO
+   (window 64, best never rises, no worse than the NN tour), AS and ACS,
+   held to 1.2 x the NN tour, with K7 launches checked per run;
 6. profile -- device busy time and idle share of one AS iteration at
    n = 1002, and the kernels that take most of it; the split of one MMAS
    + 2-opt iteration over an int8 store into construction, local search
-   and update + requantise;
+   and update + requantise; the split of one sparse MMAS int8 iteration
+   at n = 2392 and the profile of a sparse fp32 one;
 7. one JSON line listing every kernel, then the card's ``nvidia-smi``
    line, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -71,12 +83,25 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel's pallas_call line)
                                 "src/repro/kernels/fused_select.py:176"),
     "two_opt_best": ("src/repro_torch/kernels/csrc/two_opt.cu",
                      "src/repro/kernels/two_opt.py:119"),
+    # K7 and its quantised page payload (K6's sparse half), one entry per
+    # payload
+    "sparse_select": ("src/repro_torch/kernels/csrc/sparse_select.cu",
+                      "src/repro/kernels/sparse_select.py:159"),
+    "sparse_select_quant_int8": (
+        "src/repro_torch/kernels/csrc/sparse_select.cu",
+        "src/repro/kernels/sparse_select.py:159"),
+    "sparse_select_quant_bf16": (
+        "src/repro_torch/kernels/csrc/sparse_select.cu",
+        "src/repro/kernels/sparse_select.py:159"),
 }
 QUANT = ("int8", "bf16")
 MODES = ("iroulette", "gumbel", "greedy")
 # MMAS at n = 1002 runs in chunks of this many iterations until its best
 # tour is no worse than the nearest-neighbour tour, and fails at the cap.
 MMAS_CHUNK, MMAS_CAP = 5, 40
+# The sparse route at its users' size (benchmarks/sparse_scale.py): the
+# size of pr2392, 64 ants, 16 candidates + 4 overflow slots per city.
+SPARSE_N, SPARSE_M, SPARSE_K = 2392, 64, 16
 
 
 def log(*parts) -> None:
@@ -383,6 +408,96 @@ def phase_kernels(results: dict) -> None:
         f"{d_ms * 1e3:.1f} us, per call {d_wall * 1e3:.1f} us")
 
 
+def _gather_sectors(torch, cities, n, itemsize):
+    """32-byte sectors that gathering one ``itemsize``-byte value per
+    (ant, candidate id >= 0) touches in an (m, n) row-major tensor."""
+    a = torch.arange(cities.shape[0], device=cities.device)[:, None]
+    addr = (a * n + cities.long()) * itemsize
+    return int(torch.unique(addr[cities >= 0] // 32).numel())
+
+
+def phase_sparse_kernels(results: dict) -> None:
+    """K7 and its int8/bf16 payload (K6's sparse half) against their plain
+    versions, bitwise, in all three modes, at the sparse route's shapes;
+    then each one's time and bound at (m, K) = (64, 20), n = 2392."""
+    import torch
+    from repro_torch.kernels import sparse_select as ss
+    dev = torch.device("cuda")
+    # (n, m, k): the route's two sizes at 64 ants, and m = n at the default
+    # sparse_k = 32; K = k + 4 overflow positions
+    for n, m, k in ((1002, SPARSE_M, SPARSE_K), (2392, SPARSE_M, SPARSE_K),
+                    (2392, 2392, 32)):
+        for dtype in ("fp32",) + QUANT:
+            tau, scale, eta, cities, visited, rand = ss.page_operands(
+                n, m, k, dtype, dev, seed=2)
+            for mode in MODES:
+                if dtype == "fp32":
+                    got = ss.sparse_select(tau, eta, cities, visited, rand,
+                                           1.0, 2.0, mode)
+                    want = ss.sparse_select_plain(tau, eta, cities, visited,
+                                                  rand, 1.0, 2.0, mode)
+                else:
+                    got = ss.sparse_select_quant(tau, scale, eta, cities,
+                                                 visited, rand, 1.0, 2.0,
+                                                 mode)
+                    want = ss.sparse_select_quant_plain(
+                        tau, scale, eta, cities, visited, rand, 1.0, 2.0,
+                        mode)
+                for g, w, what in zip(got, want, ("pos", "have")):
+                    if not torch.equal(g, w):
+                        raise AssertionError(
+                            f"sparse_select[{dtype}] {what} != plain in "
+                            f"{int((g != w).sum())} ants at n={n} m={m} "
+                            f"K={k + 4} mode={mode}")
+            if int(got[1][:4].sum()) != 0 or int(got[1][4:].sum()) == 0:
+                raise AssertionError("sparse_select: the visited pages' "
+                                     "have bits are wrong")
+        log(f"[kernels] sparse_select (fp32, int8, bf16) n={n} m={m} "
+            f"K={k + 4}: bitwise in {', '.join(MODES)} (pages fully "
+            f"visited and ids < 0 included)")
+
+    def both(fn, reps):
+        wall = cuda_ms(fn, reps=reps)
+        dev_ms = device_ms(fn)
+        return (wall if dev_ms is None else dev_ms), wall
+
+    n, m, k = SPARSE_N, SPARSE_M, SPARSE_K
+    for dtype, name in (("fp32", "sparse_select"),
+                        ("int8", "sparse_select_quant_int8"),
+                        ("bf16", "sparse_select_quant_bf16")):
+        tau, scale, eta, cities, visited, rand = ss.page_operands(
+            n, m, k, dtype, dev, seed=3)
+        if dtype == "fp32":
+            kern = lambda: ss.sparse_select(tau, eta, cities, visited,  # noqa: E731,E501
+                                            rand)
+            plain = lambda: ss.sparse_select_plain(tau, eta, cities,  # noqa: E731,E501
+                                                   visited, rand)
+        else:
+            kern = lambda: ss.sparse_select_quant(tau, scale, eta,  # noqa: E731,E501
+                                                  cities, visited, rand)
+            plain = lambda: ss.sparse_select_quant_plain(  # noqa: E731
+                tau, scale, eta, cities, visited, rand)
+        kk = cities.shape[1]
+        # ids, tau (+ int8 scale) and eta read once, the two gathers as the
+        # 32-byte sectors this input touches, pos and have written once
+        nbytes = (m * kk * (4 + tau.element_size() + 4)
+                  + (m * kk * 4 if scale is not None else 0)
+                  + 32 * _gather_sectors(torch, cities, n, 1)
+                  + 32 * _gather_sectors(torch, cities, n, 4) + m * 8)
+        ops_n = m * kk * (6 + (1 if scale is not None else 0))
+        ms, wall = both(kern, 50)
+        plain_ms, plain_wall = both(plain, 10)
+        b_ms, b_by = bound(nbytes, ops_n)
+        results[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": None}
+        log(f"[kernels] {name} n={n} m={m} K={kk}: device {ms * 1e3:.2f} "
+            f"us, per call {wall * 1e3:.1f} us | plain device "
+            f"{plain_ms * 1e3:.1f} us, per call {plain_wall * 1e3:.1f} us | "
+            f"bound {b_ms * 1e3:.3f} us by {b_by} ({nbytes / 1e3:.1f} kB) | "
+            f"library: none")
+
+
 def _check_run(name, state, inst, n, slack):
     """Tour is a permutation; best_len finite and within `slack` of the
     nearest-neighbour tour."""
@@ -477,6 +592,74 @@ def phase_small() -> None:
             + ", ".join(f"{k}={v}" for k, v in counts.items() if v))
 
 
+def phase_small_sparse() -> None:
+    """Card kernel route == CPU plain route on small sparse colonies
+    (rand100, sparse_k = 4, 4 overflow slots, 16 ants): MMAS, the same with
+    Partial-ACO, and MMAS over an int8 store.  Tours, best_len, tau
+    (payload, scale, residual), tau_def, ovf_city and ovf_tau bitwise; the
+    data-parallel runs must take the page-fault fallback, adopt off-list
+    edges into overflow slots and evict one."""
+    import torch
+    from repro_torch.core import aco, tsp
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import construct
+    inst = tsp.random_instance(100, seed=5)
+
+    def leaves(state):
+        for x in state:
+            yield from (x if isinstance(x, tuple) else (x,))
+
+    for label, kw, kernel in (
+            ("mmas", dict(), "sparse_select"),
+            ("mmas partial", dict(construction="partial", partial_window=16),
+             "sparse_select"),
+            ("mmas int8", dict(tau_dtype="int8"), "sparse_select_quant")):
+        cfg = aco.ACOConfig(variant="mmas", sparse=True, sparse_k=4,
+                            sparse_overflow=4, m=16, iterations=10, seed=3,
+                            use_pallas=True, **kw)
+        runs, churn = {}, {}
+        for dev in ("cuda", "cpu"):
+            prev, adopted, evicted = [None], [0], [0]
+
+            def record(state, prev=prev, adopted=adopted, evicted=evicted):
+                oc = state.ovf_city.cpu()
+                was = prev[0] if prev[0] is not None else torch.full_like(
+                    oc, -1)
+                changed = oc != was
+                adopted[0] += int((changed & (was < 0)).sum())
+                evicted[0] += int((changed & (was >= 0)).sum())
+                prev[0] = oc
+
+            ops.reset_launch_counts()
+            construct.walk.fallbacks = 0
+            runs[dev] = aco.run(inst, cfg, device=dev, checkpoint_cb=record,
+                                checkpoint_every=1)
+            churn[dev] = (adopted[0], evicted[0],
+                          int(construct.walk.fallbacks), ops.launch_counts())
+        for g, c in zip(leaves(runs["cuda"]), leaves(runs["cpu"])):
+            if not torch.equal(g.cpu(), c):
+                raise AssertionError(f"small sparse {label}: card route != "
+                                     "CPU route")
+        adopted, evicted, fallbacks, counts = churn["cuda"]
+        if counts[kernel] == 0 or churn["cuda"][:3] != churn["cpu"][:3]:
+            raise AssertionError(f"small sparse {label}: {kernel} "
+                                 f"launched {counts[kernel]} times; churn "
+                                 f"card {churn['cuda'][:3]} cpu "
+                                 f"{churn['cpu'][:3]}")
+        if "construction" not in kw and not (adopted and evicted
+                                             and fallbacks):
+            raise AssertionError(f"small sparse {label}: adoption "
+                                 f"{adopted}, eviction {evicted}, fallback "
+                                 f"{fallbacks}: each must occur")
+        best, c_nn = _check_run(f"small sparse {label}", runs["cuda"], inst,
+                                100, 1.2)
+        log(f"[small] rand100 sparse {label} k=4+4 x10: card == CPU (tours, "
+            f"best_len, tau, tau_def, ovf_city, ovf_tau bitwise); "
+            f"{adopted} adoptions, {evicted} evictions, {fallbacks} fallback "
+            f"(ant, step) pairs; best {best:.1f} vs NN tour {c_nn:.1f}; "
+            f"{kernel}={counts[kernel]}")
+
+
 def phase_main(launches: dict) -> None:
     import torch
     from repro_torch.core import aco, localsearch, tsp
@@ -563,6 +746,173 @@ def phase_main(launches: dict) -> None:
             + f", peak mem {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
         log(f"[main]   best / NN tour after each iteration: "
             + " ".join(f"{b / c_nn:.3f}" for b in bests))
+
+
+def phase_sparse(launches: dict) -> None:
+    """The sparse O(n·k) route at its users' size: ``aco.run`` with
+    ``sparse=True`` on the kernel route, n = 2392, k = 16 (+ 4 overflow),
+    m = 64.  MMAS data-parallel over fp32, int8 and bf16 pages, MMAS
+    Partial-ACO (window 64), AS and ACS; each run's K7 launches are checked
+    (n-1 per data-parallel iteration, the window per Partial-ACO one)."""
+    import torch
+    from repro_torch.core import aco, tsp
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import construct, store
+    n, m, k = SPARSE_N, SPARSE_M, SPARSE_K
+    inst = tsp.random_instance(n, seed=n)
+    _, c_nn = store.sparse_nearest_neighbour_tour(inst)
+    base = dict(sparse=True, sparse_k=k, m=m, use_pallas=True, seed=0)
+    # (label, cfg kwargs, the kernel it launches, launches per iteration,
+    # the most best_len may be as a multiple of the NN tour)
+    runs = [
+        ("mmas", dict(variant="mmas", iterations=3), "sparse_select", n - 1,
+         1.2),
+        ("mmas-int8", dict(variant="mmas", tau_dtype="int8", iterations=2),
+         "sparse_select_quant_int8", n - 1, 1.2),
+        ("mmas-bf16", dict(variant="mmas", tau_dtype="bf16", iterations=2),
+         "sparse_select_quant_bf16", n - 1, 1.2),
+        ("mmas-partial", dict(variant="mmas", construction="partial",
+                              partial_window=64, iterations=10),
+         "sparse_select", 64, 1.0),
+        ("as", dict(variant="as", iterations=1), "sparse_select", n - 1, 1.2),
+        ("acs", dict(variant="acs", iterations=1), "sparse_select", n - 1,
+         1.2),
+    ]
+    for label, kw, kernel, per_iter, slack in runs:
+        cfg = aco.ACOConfig(**base, **kw)
+        bests, slots = [], []
+
+        def record(state, bests=bests, slots=slots):
+            bests.append(float(state.best_len))
+            slots.append(int((state.ovf_city >= 0).sum()))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        construct.walk.fallbacks = 0
+        t0 = time.perf_counter()
+        state = aco.run(inst, cfg, device="cuda", checkpoint_cb=record,
+                        checkpoint_every=1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        key = "sparse_select_quant" if "quant" in kernel else kernel
+        want = {key: per_iter * cfg.iterations}
+        for name, v in counts.items():
+            if v != want.get(name, 0):
+                raise AssertionError(f"sparse {label}: {name} launched {v} "
+                                     f"times, expected {want.get(name, 0)}")
+        launches[kernel] = launches.get(kernel, 0) + counts[key]
+        best = float(state.best_len)
+        if not (tsp.is_valid_tour(state.best_tour.cpu().numpy())
+                and torch.isfinite(state.best_len)):
+            raise AssertionError(f"sparse {label}: best tour is not a "
+                                 f"permutation or best_len {best} not finite")
+        if best > slack * c_nn:
+            raise AssertionError(f"sparse {label}: best {best} > {slack} x "
+                                 f"the NN tour {c_nn}")
+        if label == "mmas-partial" and any(b > a for a, b in
+                                           zip(bests, bests[1:])):
+            raise AssertionError(f"sparse {label}: best rose: {bests}")
+        prob = store.make_sparse_problem(inst, k, device="cuda")
+        log(f"[sparse] {label} n={n} k={k}+4 m={m} x{cfg.iterations}: "
+            f"{cfg.iterations / secs:.4f} it/s ({secs:.2f} s incl. set-up), "
+            f"best {best:.1f} ({best / c_nn:.4f} x NN tour, limit {slack}), "
+            f"{kernel} launches {counts[key]}, fallback (ant, step) pairs "
+            f"{int(construct.walk.fallbacks)}, overflow slots in use "
+            f"{slots[-1]} of {n * 4}, resident "
+            f"{store.resident_bytes(prob, state)} B vs dense "
+            f"{store.dense_resident_bytes(n)} B, peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+        log(f"[sparse]   best / NN tour after each iteration: "
+            + " ".join(f"{b / c_nn:.4f}" for b in bests))
+
+
+def phase_sparse_split() -> None:
+    """Where one sparse MMAS iteration over an int8 store goes at
+    n = 2392, k = 16, m = 64 (host clock between synchronisations, median
+    of three): construction, the update with adoption (and the clamp), and
+    requantise, beside the whole iteration; then one ``torch.profiler``
+    pass of an fp32 MMAS data-parallel iteration: device busy time, idle
+    share and the busiest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import aco, quant, sampling, tsp
+    from repro_torch.sparse import aco as sa, construct, pheromone, store
+    n, m, k = SPARSE_N, SPARSE_M, SPARSE_K
+    inst = tsp.random_instance(n, seed=n)
+    cfg = aco.ACOConfig(variant="mmas", tau_dtype="int8", sparse=True,
+                        sparse_k=k, m=m, use_pallas=True, seed=1)
+    prob = store.make_sparse_problem(inst, k, device="cuda")
+    state = sa.init_sparse_colony(inst, cfg, device="cuda")
+    state, _ = sa.sparse_colony_step(prob, state, cfg, "RAW")      # warm
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    _, k_tour, k_q = sampling.split(state.key, 3)
+    k_q1, k_q2 = sampling.split(k_q)
+    tau_f = quant.dequantise(state.tau)
+    ovf_f = quant.dequantise(state.ovf_tau)
+    it_ms, con_ms, upd_ms, rq_ms = [], [], [], []
+    for _ in range(3):
+        it_ms.append(timed(lambda: sa.sparse_colony_step(
+            prob, state, cfg, "RAW"))[1])
+        res, ms = timed(lambda: construct.construct_sparse_tours(
+            k_tour, prob, state.tau, state.ovf_city, state.ovf_tau, m,
+            "iroulette", 1.0, 2.0, "RAW", use_pallas=True))
+        con_ms.append(ms)
+        ib = torch.argmin(res.lengths)
+        w = (1.0 / res.lengths[ib])[None]
+
+        def update():
+            out = pheromone.update_sparse(
+                quant.dequantise(state.tau), state.tau_def, state.ovf_city,
+                quant.dequantise(state.ovf_tau), prob.cand,
+                res.tours[ib][None, :], w, cfg.rho, True)
+            lo, hi = aco.mmas_bounds(res.lengths[ib], cfg, n, None)
+            return [torch.clamp(t, min=lo, max=hi) for t in
+                    (out[0], out[1], out[3])]
+
+        upd_ms.append(timed(update)[1])
+        rq_ms.append(timed(lambda: (
+            quant.requantise(tau_f, state.tau, "int8", k_q1),
+            quant.requantise(ovf_f, state.ovf_tau, "int8", k_q2)))[1])
+    med = statistics.median
+    log(f"[split] sparse MMAS int8, n={n} k={k}+4 m={m}, one iteration "
+        f"(median of 3): {med(it_ms):.1f} ms; construction "
+        f"{med(con_ms):.1f} ms ({n - 1} steps, "
+        f"{med(con_ms) / (n - 1) * 1e3:.0f} us each), update with adoption "
+        f"{med(upd_ms):.2f} ms, requantise {med(rq_ms):.2f} ms")
+
+    cfg = aco.ACOConfig(variant="mmas", sparse=True, sparse_k=k, m=m,
+                        use_pallas=True, seed=1)
+    state = sa.init_sparse_colony(inst, cfg, device="cuda")
+    state, _ = sa.sparse_colony_step(prob, state, cfg, "RAW")      # warm
+    _, wall_ms = timed(lambda: sa.sparse_colony_step(prob, state, cfg,
+                                                     "RAW"))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sa.sparse_colony_step(prob, state, cfg, "RAW")
+        torch.cuda.synchronize()
+    per_name = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0) or 0)
+        if us > 0:
+            per_name[e.key] = (per_name.get(e.key, (0.0, 0))[0] + us,
+                               e.count)
+    busy_ms = sum(us for us, _ in per_name.values()) / 1e3
+    log(f"[profile] sparse MMAS n={n} k={k}+4 m={m}, one iteration: wall "
+        f"{wall_ms:.1f} ms (no profiler), device busy {busy_ms:.1f} ms, "
+        f"device idle share {1 - busy_ms / wall_ms:.3f}")
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:6]
+    for name, (us, count) in top:
+        log(f"[profile]   {us / 1e3:8.2f} ms  {count:6d} launches  "
+            f"{name[:90]}")
 
 
 def phase_profile() -> None:
@@ -658,11 +1008,15 @@ def main() -> int:
     phase_build()
     results: dict = {}
     phase_kernels(results)
+    phase_sparse_kernels(results)
     phase_small()
+    phase_small_sparse()
     launches: dict = {}
     phase_main(launches)
+    phase_sparse(launches)
     phase_profile()
     phase_split()
+    phase_sparse_split()
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         if launches.get(name, 0) == 0:

@@ -1,15 +1,17 @@
 """Carry a colony across between the JAX package and this port.
 
-The reference's ``Problem``/``ColonyState`` are handed over as NumPy
-arrays (``np.asarray`` of each field), so this module needs no JAX.  Both
+The reference's ``Problem``/``ColonyState`` and its sparse
+``SparseProblem``/``SparseColonyState`` are handed over as NumPy arrays
+(``np.asarray`` of each field), so this module needs no JAX.  Both
 packages can then compute from the same state, which is how the parity
 tests hold the port to the reference.
 
-A quantised tau (``QuantTau``) crosses as its three arrays ``(q, scale,
-err)``.  NumPy has no bfloat16 of its own, so a bf16 payload travels as
-its raw 16 bits: any 2-byte payload array (the reference's ``bfloat16``,
-or ``int16`` holding the bits) comes in as ``torch.bfloat16``, and
-``state_to_numpy`` gives the payload back as ``int16`` bits.
+A quantised tau or overflow page (``QuantTau``) crosses as its three
+arrays ``(q, scale, err)``.  NumPy has no bfloat16 of its own, so a bf16
+payload travels as its raw 16 bits: any 2-byte payload array (the
+reference's ``bfloat16``, or ``int16`` holding the bits) comes in as
+``torch.bfloat16``, and ``state_to_numpy`` gives the payload back as
+``int16`` bits.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from . import device as _device
 from .core import aco, quant
+from .sparse import store
 
 
 def problem_from_numpy(dist, eta, nn, n_actual=None,
@@ -69,20 +72,23 @@ def state_from_numpy(tau, best_tour, best_len, iteration, key,
     )
 
 
+def _tau_to_numpy(tau):
+    """fp32 tau -> array; ``QuantTau`` -> ``(q, scale, err)``, a bf16
+    payload as int16 bits."""
+    if not isinstance(tau, quant.QuantTau):
+        return tau.cpu().numpy()
+    q = tau.q.cpu()
+    if q.dtype == torch.bfloat16:
+        q = q.view(torch.int16)
+    return (q.numpy(), tau.scale.cpu().numpy(), tau.err.cpu().numpy())
+
+
 def state_to_numpy(state: aco.ColonyState) -> dict:
     """The port's state as NumPy arrays, in the reference's dtypes; a
     quantised tau as a ``(q, scale, err)`` tuple, bf16 payload as int16
     bits."""
-    tau = state.tau
-    if isinstance(tau, quant.QuantTau):
-        q = tau.q.cpu()
-        if q.dtype == torch.bfloat16:
-            q = q.view(torch.int16)
-        tau = (q.numpy(), tau.scale.cpu().numpy(), tau.err.cpu().numpy())
-    else:
-        tau = tau.cpu().numpy()
     return {
-        "tau": tau,
+        "tau": _tau_to_numpy(state.tau),
         "best_tour": state.best_tour.cpu().numpy(),
         "best_len": state.best_len.cpu().numpy(),
         "iteration": state.iteration.cpu().numpy(),
@@ -97,4 +103,56 @@ def problem_to_numpy(problem: aco.Problem) -> dict:
     n_act: Optional[int] = problem.n_actual
     if n_act is not None:
         out["n_actual"] = np.int32(n_act)
+    return out
+
+
+def sparse_problem_from_numpy(coords, cand, cand_dist, cand_eta,
+                              n_actual=None,
+                              device: _device.DeviceLike = None
+                              ) -> store.SparseProblem:
+    """Reference ``SparseProblem`` fields (NumPy) -> the port's."""
+    dev = _device.resolve(device)
+    return store.SparseProblem(
+        coords=torch.tensor(np.asarray(coords, np.float32), device=dev),
+        cand=torch.tensor(np.asarray(cand, np.int32), device=dev),
+        cand_dist=torch.tensor(np.asarray(cand_dist, np.float32), device=dev),
+        cand_eta=torch.tensor(np.asarray(cand_eta, np.float32), device=dev),
+        n_actual=None if n_actual is None else int(np.asarray(n_actual)),
+    )
+
+
+def sparse_state_from_numpy(tau, tau_def, ovf_city, ovf_tau, best_tour,
+                            best_len, iteration, key,
+                            device: _device.DeviceLike = None
+                            ) -> store.SparseColonyState:
+    """Reference ``SparseColonyState`` fields (NumPy; a quantised ``tau`` or
+    ``ovf_tau`` as its ``(q, scale, err)`` arrays) -> the port's."""
+    dev = _device.resolve(device)
+    dense = state_from_numpy(tau, best_tour, best_len, iteration, key, dev)
+    return store.SparseColonyState(
+        tau=dense.tau,
+        tau_def=torch.tensor(np.asarray(tau_def, np.float32), device=dev),
+        ovf_city=torch.tensor(np.asarray(ovf_city, np.int32), device=dev),
+        ovf_tau=_tau_from_numpy(ovf_tau, dev),
+        best_tour=dense.best_tour, best_len=dense.best_len,
+        iteration=dense.iteration, key=dense.key)
+
+
+def sparse_state_to_numpy(state: store.SparseColonyState) -> dict:
+    """The port's sparse state as NumPy arrays, in the reference's dtypes
+    (quantised pages as ``(q, scale, err)``)."""
+    out = state_to_numpy(aco.ColonyState(state.tau, state.best_tour,
+                                         state.best_len, state.iteration,
+                                         state.key))
+    out.update(tau_def=state.tau_def.cpu().numpy(),
+               ovf_city=state.ovf_city.cpu().numpy(),
+               ovf_tau=_tau_to_numpy(state.ovf_tau))
+    return out
+
+
+def sparse_problem_to_numpy(problem: store.SparseProblem) -> dict:
+    out = {f: getattr(problem, f).cpu().numpy()
+           for f in ("coords", "cand", "cand_dist", "cand_eta")}
+    if problem.n_actual is not None:
+        out["n_actual"] = np.int32(problem.n_actual)
     return out

@@ -18,8 +18,9 @@ plain versions run instead (``kernels/ops.py``).
 
 Entry points (``make_problem``, ``init_colony``, ``run``) take a ``device``
 and run on CUDA when none is given (``repro_torch.device.resolve``).
-Combinations this slice does not port raise ``NotImplementedError`` naming
-the ROADMAP item that will port them.
+``sparse=True`` runs the O(n·k) paged route of ``repro_torch.sparse``.
+Combinations not ported yet raise ``NotImplementedError`` naming the
+ROADMAP item that will port them.
 """
 from __future__ import annotations
 
@@ -157,8 +158,6 @@ def _check_supported(problem: Problem, cfg: ACOConfig) -> None:
                                 hyper=problem.hyper is not None,
                                 tau_dtype=cfg.tau_dtype)
     todo = []
-    if cfg.sparse:
-        todo.append("sparse=True (ROADMAP queue 1 item 10)")
     if cfg.metrics:
         todo.append("metrics=True (ROADMAP queue 1 item 12)")
     if problem.hyper is not None:
@@ -210,6 +209,24 @@ def _apply_local_search(problem: Problem, res: strategies.TourResult,
     else:
         tours, lengths = polish_tours(problem, tours, cfg)
     return strategies.TourResult(tours, lengths)
+
+
+def mmas_bounds(best_len: torch.Tensor, cfg: ACOConfig, n: int,
+                n_actual: Optional[int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """MMAS trail limits: tau_max = q / (rho * best_len), tau_min =
+    tau_max / (2 n), in the numbers of the reference's jitted step: XLA
+    turns the division by the compile-time constant 2n into a
+    multiplication by its float32 reciprocal.  A padded instance's
+    n_actual is a traced value there, and XLA rewrites
+    (q / (rho * len)) / (2 n) as q / (rho * (len * 2 n))."""
+    q = floatops.const(cfg.q, best_len)
+    rho = floatops.const(cfg.rho, best_len)
+    tau_max = q / (rho * best_len)
+    if n_actual is None:
+        recip = np.float32(1.0) / np.float32(2.0 * n)
+        return tau_max * floatops.const(recip, best_len), tau_max
+    two_n = floatops.const(2.0 * n_actual, best_len)
+    return q / (rho * (best_len * two_n)), tau_max
 
 
 def colony_step(problem: Problem, state: ColonyState,
@@ -287,14 +304,12 @@ def colony_step(problem: Problem, state: ColonyState,
                                n_actual=n_act)
 
     # MMAS/ACS normalisations use the real city count of padded instances.
-    n_eff = n if n_act is None else n_act
     if cfg.variant == "mmas":
-        tau_max = floatops.const(q, best_len) / (
-            floatops.const(rho, best_len) * best_len)
-        tau_min = tau_max / floatops.const(2.0 * n_eff, best_len)
+        tau_min, tau_max = mmas_bounds(best_len, cfg, n, n_act)
         tau = torch.clamp(tau, min=tau_min, max=tau_max)
     elif cfg.variant == "acs":
         # Parallel-ACS local rule: decay edges crossed this iteration.
+        n_eff = n if n_act is None else n_act
         f, t = pheromone.tour_edges(res.tours, n_act)
         tau0 = floatops.const(q, best_len) / (
             floatops.const(n_eff, best_len)
@@ -323,10 +338,17 @@ def run(instance: tsp.TSPInstance, cfg: ACOConfig,
         device: _device.DeviceLike = None,
         checkpoint_cb=None, checkpoint_every: int = 0) -> ColonyState:
     """Python-loop driver over ``cfg.iterations`` colony iterations; on the
-    state's device when a state is given, else on ``device``."""
+    state's device when a state is given, else on ``device``.
+
+    ``cfg.sparse=True`` routes to the O(n·k) paged representation
+    (``sparse.run_sparse``) and returns a ``SparseColonyState``: the same
+    best_tour/best_len/iteration/key fields, paged tau instead of (n, n).
+    """
     if cfg.sparse:
-        raise NotImplementedError(
-            "not ported yet: sparse=True (ROADMAP queue 1 item 10)")
+        from .. import sparse as sparse_mod
+        return sparse_mod.run_sparse(instance, cfg, state, device=device,
+                                     checkpoint_cb=checkpoint_cb,
+                                     checkpoint_every=checkpoint_every)
     dev = state.key.device if state is not None and device is None \
         else _device.resolve(device)
     problem = make_problem(instance, cfg.nn_k, dev)

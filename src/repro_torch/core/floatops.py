@@ -14,6 +14,16 @@ bit of several results, and eager PyTorch has neither by itself:
   ``reciprocal() * scalar`` on every device; ``const`` turns the scalar
   into a float32 tensor on the operand's device, which takes the plain
   division path.
+
+And one habit of PyTorch's own: its vectorised CPU ``sqrt`` for float32
+is not correctly rounded (about one result in 180 is an ulp off), where
+XLA's and the card's are.  ``sqrt`` takes the root in float64 and rounds
+once to float32, which is the correctly rounded float32 root.
+
+A plain ``x.sum(-1)`` in the reference's jitted programs is rewritten by
+XLA's CPU tree-reduction pass: over more than 32 elements it sums windows
+of 32 in order (zero-padded, the padding split about the row), then the
+window sums the same way.  ``xla_sum`` reproduces that order.
 """
 from __future__ import annotations
 
@@ -27,3 +37,26 @@ def const(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), float(np.float32(value)), dtype=torch.float32,
                       device=like.device)
 
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root on any device."""
+    return torch.sqrt(x.double()).float()
+
+
+def _seq_sum(x: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def xla_sum(x: torch.Tensor, window: int = 32) -> torch.Tensor:
+    """Sum over the last axis in the order of XLA's CPU reduction: windows
+    of ``window`` elements summed in sequence from 0, the row zero-padded
+    to a multiple of the window (``pad // 2`` in front), repeated until
+    one window is left."""
+    while x.shape[-1] > window:
+        pad = (-x.shape[-1]) % window
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = _seq_sum(x.reshape(*x.shape[:-1], -1, window))
+    return _seq_sum(x)

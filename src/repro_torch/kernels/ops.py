@@ -22,6 +22,7 @@ import torch
 from . import choice_info as _ci
 from . import fused_select as _fs
 from . import pheromone_update as _pu
+from . import sparse_select as _ss
 from . import tour_select as _ts
 from . import two_opt as _to
 
@@ -33,6 +34,8 @@ KERNELS = {
     "choice_info": _ci.choice_info,
     "tour_select": _ts.tour_select,
     "two_opt_best": _to.two_opt_best,
+    "sparse_select": _ss.sparse_select,
+    "sparse_select_quant": _ss.sparse_select_quant,
 }
 
 
@@ -55,16 +58,24 @@ class UnsupportedKernelRoute(NotImplementedError):
 
 
 def check_kernel_route(masked: bool = False, hyper: bool = False,
+                       sparse: bool = False,
+                       selection: Optional[str] = None,
+                       local_search: Optional[str] = None,
+                       construction: Optional[str] = None,
                        tau_dtype: str = "fp32") -> None:
-    """Validate that the kernel route supports this problem shape.
+    """Validate that the kernel/sparse route supports this problem shape.
 
-    The single typed rejection point: every combination the kernels
-    cannot serve raises ``UnsupportedKernelRoute`` with one actionable
-    line here, up front.
+    The single typed rejection point: every combination the kernels or
+    the sparse representation cannot serve raises
+    ``UnsupportedKernelRoute`` with one actionable line here, up front.
 
-    - masked (padded) instances: supported by every kernel;
-    - per-instance ``Hyper`` operands: unsupported (kernel exponents are
-      static);
+    - masked (padded) instances: supported by every kernel and the sparse
+      route, except sparse Partial-ACO (its windows index positions of the
+      real best tour);
+    - per-instance ``Hyper`` operands: unsupported (kernel and sparse
+      exponents are static);
+    - sparse x roulette (needs a full row's cumsum), sparse x local search
+      (dense distance matrix), sparse x another construction;
     - ``tau_dtype``: 'fp32' | 'bf16' | 'int8', and not quantised together
       with ``Hyper``.
     """
@@ -79,12 +90,45 @@ def check_kernel_route(masked: bool = False, hyper: bool = False,
             "quality gates are validated per static config only. Drop "
             "Problem.hyper or run tau_dtype='fp32'.")
     if hyper:
+        if sparse:
+            raise UnsupportedKernelRoute(
+                "the sparse route cannot serve per-instance Hyper "
+                "operands: sparse programs specialise on static "
+                "alpha/beta. Drop the Hyper profiles or run the dense "
+                "pure-JAX route (sparse=False, use_pallas=False).")
         raise UnsupportedKernelRoute(
             "use_pallas=True cannot serve per-instance Hyper operands: "
             "kernel alpha/beta are static compile-time parameters, but "
             "Hyper carries traced per-instance exponents. Run the "
             "pure-JAX route (use_pallas=False) for per-instance "
             "hyperparameters, or drop Problem.hyper.")
+    if not sparse:
+        return
+    if selection == "roulette":
+        raise UnsupportedKernelRoute(
+            "sparse construction cannot serve selection='roulette': "
+            "inverse-CDF sampling needs the full choice row's cumsum, "
+            "which candidate pages do not hold. Use selection="
+            "'iroulette', 'gumbel' or 'greedy', or run sparse=False.")
+    if local_search is not None and local_search != "none":
+        raise UnsupportedKernelRoute(
+            f"sparse route cannot serve local_search={local_search!r}: "
+            "2-opt/Or-opt moves evaluate arbitrary city pairs against "
+            "the dense (n, n) distance matrix. Set local_search='none' "
+            "or run sparse=False.")
+    if construction is not None and construction not in ("data_parallel",
+                                                         "partial"):
+        raise UnsupportedKernelRoute(
+            f"sparse route has no construction={construction!r}: the "
+            "candidate-page step replaces the dense strategy ladder. Use "
+            "construction='data_parallel' (standard) or 'partial' "
+            "(Partial-ACO mutation), or run sparse=False.")
+    if construction == "partial" and masked:
+        raise UnsupportedKernelRoute(
+            "sparse Partial-ACO cannot run on padded (masked) instances: "
+            "mutation windows index positions of the real best tour. Run "
+            "the instance unpadded (solo run_sparse) or use "
+            "construction='data_parallel'.")
 
 
 def choice_info(tau: torch.Tensor, eta: torch.Tensor, alpha: float = 1.0,
@@ -163,3 +207,29 @@ def two_opt_best(add1: torch.Tensor, add2: torch.Tensor, rem1: torch.Tensor,
         return _to.two_opt_best_plain(add1, add2, rem1, rem2, valid, thr,
                                       mode)
     return _to.two_opt_best(add1, add2, rem1, rem2, valid, thr, mode)
+
+
+def sparse_select(tau_rows: torch.Tensor, eta_rows: torch.Tensor,
+                  cand: torch.Tensor, visited: torch.Tensor,
+                  rand: torch.Tensor, alpha: float = 1.0, beta: float = 2.0,
+                  mode: str = "iroulette",
+                  tau_scale: Optional[torch.Tensor] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sparse candidate-page selection: gather visited/rand at the K
+    candidate cities, weight tau^a * eta^b, mask, select, with no (m, n)
+    weight tensor.  Returns (pos, have): the winning page position and
+    whether a selectable candidate exists (the nearest-unvisited fallback
+    trigger).  An int8 or bfloat16 ``tau_rows`` is a quantised page
+    payload; ``tau_scale`` is the int8 (m, K) scale."""
+    if tau_rows.dtype in (torch.int8, torch.bfloat16):
+        if _plain(tau_rows):
+            return _ss.sparse_select_quant_plain(tau_rows, tau_scale,
+                                                 eta_rows, cand, visited,
+                                                 rand, alpha, beta, mode)
+        return _ss.sparse_select_quant(tau_rows, tau_scale, eta_rows, cand,
+                                       visited, rand, alpha, beta, mode)
+    if _plain(tau_rows):
+        return _ss.sparse_select_plain(tau_rows, eta_rows, cand, visited,
+                                       rand, alpha, beta, mode)
+    return _ss.sparse_select(tau_rows, eta_rows, cand, visited, rand, alpha,
+                             beta, mode)

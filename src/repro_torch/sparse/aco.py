@@ -1,0 +1,220 @@
+"""Sparse colony step: the dense ``core.aco.colony_step`` control flow on
+the O(n·k) paged representation.
+
+The PyTorch port of ``repro.sparse.aco``.  One iteration constructs (or
+Partial-ACO-mutates) m tours over candidate pages, tracks the best,
+deposits per variant and clamps (MMAS) or locally decays (ACS), with the
+reference's step order and key discipline.  Route validation happens once,
+up front, through ``kernels.ops.check_kernel_route``.
+
+``run_sparse`` and ``init_sparse_colony`` take a ``device`` and run on
+CUDA when none is given (``repro_torch.device.resolve``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import device as _device
+from ..core import aco as dense_aco
+from ..core import floatops, quant, sampling, tsp
+from . import construct, pheromone, store
+from .store import SparseColonyState, SparseProblem
+
+
+def check_sparse_route(cfg: dense_aco.ACOConfig, hyper: bool = False,
+                       masked: bool = False) -> None:
+    """Reject sparse x feature combinations the route cannot serve."""
+    from ..kernels import ops as kops
+    kops.check_kernel_route(masked=masked, hyper=hyper, sparse=True,
+                            selection=cfg.selection,
+                            local_search=cfg.local_search,
+                            construction=cfg.construction,
+                            tau_dtype=cfg.tau_dtype)
+
+
+def make_sparse_problem_cfg(instance: tsp.TSPInstance,
+                            cfg: dense_aco.ACOConfig,
+                            n_pad: Optional[int] = None,
+                            device: _device.DeviceLike = None
+                            ) -> SparseProblem:
+    return store.make_sparse_problem(instance, cfg.sparse_k, n_pad,
+                                     device=device)
+
+
+def _make_ovf_tau(ovf_f32: torch.Tensor, cfg: dense_aco.ACOConfig):
+    """Overflow pages follow the store dtype but never carry an
+    error-feedback residual: slots churn, so a carried per-slot residual
+    would attribute one edge's error to another."""
+    if not quant.is_quantised(cfg.tau_dtype):
+        return ovf_f32
+    return quant.quantise(ovf_f32, cfg.tau_dtype)
+
+
+def init_sparse_colony(instance: tsp.TSPInstance, cfg: dense_aco.ACOConfig,
+                       seed: Optional[int] = None,
+                       n_pad: Optional[int] = None,
+                       device: _device.DeviceLike = None
+                       ) -> SparseColonyState:
+    """Fresh sparse state: tau0 on every page, empty overflow slots.
+
+    Partial-ACO mutates a running best, so it starts from the NN tour; the
+    standard route starts from the identity tour at +inf, as the dense
+    init does.  The page width is ``sparse_k``, not clamped to n-1: the
+    problem pages keep surplus self-sentinel columns and tau lines up with
+    them column for column.
+    """
+    dev = _device.resolve(device)
+    n = instance.n
+    n_pad = n if n_pad is None else n_pad
+    k = max(1, cfg.sparse_k)
+    tau0 = store.sparse_initial_tau(instance, cfg)
+    if cfg.construction == "partial":
+        nn_tour, nn_len = store.sparse_nearest_neighbour_tour(instance)
+        best_tour = torch.from_numpy(np.concatenate(
+            [nn_tour, np.arange(n, n_pad, dtype=np.int32)])).to(dev)
+        best_len = torch.tensor(np.float32(nn_len), device=dev)
+    else:
+        best_tour = torch.arange(n_pad, dtype=torch.int32, device=dev)
+        best_len = torch.tensor(np.float32(np.inf), device=dev)
+    o = cfg.sparse_overflow
+    return SparseColonyState(
+        tau=dense_aco.make_tau(torch.full((n_pad, k), float(np.float32(tau0)),
+                                          dtype=torch.float32, device=dev),
+                               cfg),
+        tau_def=torch.tensor(np.float32(tau0), device=dev),
+        ovf_city=torch.full((n_pad, o), store.OVF_EMPTY, dtype=torch.int32,
+                            device=dev),
+        ovf_tau=_make_ovf_tau(torch.zeros((n_pad, o), dtype=torch.float32,
+                                          device=dev), cfg),
+        best_tour=best_tour,
+        best_len=best_len,
+        iteration=torch.tensor(0, dtype=torch.int32, device=dev),
+        key=sampling.prng_key(cfg.seed if seed is None else seed, dev),
+    )
+
+
+def sparse_colony_step(problem: SparseProblem, state: SparseColonyState,
+                       cfg: dense_aco.ACOConfig, ewt: str
+                       ) -> tuple[SparseColonyState, torch.Tensor]:
+    """One full sparse ACO iteration; mirrors ``aco.colony_step``.
+
+    ``ewt``: TSPLIB rounding rule for the lazy off-list distances.
+    Returns (new_state, it_best_len).
+    """
+    if cfg.metrics:
+        raise NotImplementedError(
+            "not ported yet: metrics=True (ROADMAP queue 1 item 12)")
+    n = problem.n
+    m = cfg.num_ants(n)
+    n_act = problem.n_actual
+    check_sparse_route(cfg, masked=n_act is not None)
+    quantised = quant.is_quantised(cfg.tau_dtype)
+    if quantised:
+        # the extra key feeds the two quantise-on-store steps (pages and
+        # overflow); the fp32 branch keeps the two-way split
+        key, k_tour, k_q = sampling.split(state.key, 3)
+    else:
+        key, k_tour = sampling.split(state.key)
+
+    if cfg.construction == "partial":
+        res = construct.partial_tours(
+            k_tour, problem, state.tau, state.ovf_city, state.ovf_tau,
+            state.best_tour, state.best_len, m, cfg.partial_window,
+            cfg.selection, cfg.alpha, cfg.beta, ewt,
+            use_pallas=cfg.use_pallas, draw_mode=cfg.draw_mode)
+    else:
+        res = construct.construct_sparse_tours(
+            k_tour, problem, state.tau, state.ovf_city, state.ovf_tau, m,
+            cfg.selection, cfg.alpha, cfg.beta, ewt,
+            use_pallas=cfg.use_pallas, draw_mode=cfg.draw_mode)
+
+    it_best_idx = torch.argmin(res.lengths)
+    it_best_len = res.lengths[it_best_idx]
+    it_best_tour = res.tours[it_best_idx]
+    if cfg.construction == "partial":
+        # delta lengths are float32-approximate; re-measure the candidate
+        # exactly before accepting, so the best sequence is monotone
+        it_best_len = store.sparse_tour_length(
+            problem, it_best_tour[None, :], ewt, n_act)[0]
+
+    improved = it_best_len < state.best_len
+    best_len = torch.where(improved, it_best_len, state.best_len)
+    best_tour = torch.where(improved, it_best_tour, state.best_tour)
+
+    rho, q = cfg.rho, cfg.q
+    if cfg.variant == "as":
+        dep_tours = res.tours
+        dep_w = floatops.const(q, res.lengths) / res.lengths
+    elif cfg.variant == "mmas":
+        if cfg.mmas_best == "global":
+            dep_tours, dep_len = best_tour[None, :], best_len
+        else:
+            dep_tours, dep_len = it_best_tour[None, :], it_best_len
+        dep_w = (floatops.const(q, dep_len) / dep_len)[None]
+    elif cfg.variant == "acs":
+        dep_tours = best_tour[None, :]
+        dep_w = (floatops.const(rho * q, best_len) / best_len)[None]
+    else:
+        raise ValueError(f"unknown variant {cfg.variant}")
+
+    adopt = cfg.variant in ("mmas", "acs") and cfg.sparse_overflow > 0
+    # transient fp32 views for the update (construction above read the
+    # resident payload directly)
+    tau, tau_def, ovf_city, ovf_tau = pheromone.update_sparse(
+        quant.dequantise(state.tau), state.tau_def, state.ovf_city,
+        quant.dequantise(state.ovf_tau), problem.cand, dep_tours, dep_w,
+        rho, adopt, n_act)
+
+    if cfg.variant == "mmas":
+        tau_min, tau_max = dense_aco.mmas_bounds(best_len, cfg, n, n_act)
+        tau = torch.clamp(tau, min=tau_min, max=tau_max)
+        tau_def = torch.clamp(tau_def, min=tau_min, max=tau_max)
+        ovf_tau = torch.clamp(ovf_tau, min=tau_min, max=tau_max)
+    elif cfg.variant == "acs":
+        n_eff = n if n_act is None else n_act
+        tau0 = floatops.const(q, best_len) / (
+            floatops.const(n_eff, best_len)
+            * torch.maximum(best_len, floatops.const(1e-9, best_len)))
+        tau, tau_def, ovf_tau = pheromone.local_update_acs_sparse(
+            tau, tau_def, ovf_tau, problem.cand, res.tours, cfg.xi, tau0,
+            n_act)
+
+    if quantised:
+        # quantise-on-store: pages and overflow each with their own key
+        k_q1, k_q2 = sampling.split(k_q)
+        tau = quant.requantise(tau, state.tau, cfg.tau_dtype,
+                               quant.round_key(cfg.tau_round, k_q1))
+        ovf_tau = quant.requantise(ovf_tau, state.ovf_tau, cfg.tau_dtype,
+                                   quant.round_key(cfg.tau_round, k_q2))
+
+    new_state = SparseColonyState(tau, tau_def, ovf_city, ovf_tau,
+                                  best_tour, best_len, state.iteration + 1,
+                                  key)
+    return new_state, it_best_len
+
+
+def run_sparse(instance: tsp.TSPInstance, cfg: dense_aco.ACOConfig,
+               state: Optional[SparseColonyState] = None,
+               problem: Optional[SparseProblem] = None,
+               device: _device.DeviceLike = None,
+               checkpoint_cb=None, checkpoint_every: int = 0
+               ) -> SparseColonyState:
+    """Python-loop driver for one sparse colony; on the state's device
+    when a state is given, else on ``device``."""
+    check_sparse_route(cfg)
+    dev = state.key.device if state is not None and device is None \
+        else _device.resolve(device)
+    if problem is None:
+        problem = make_sparse_problem_cfg(instance, cfg, device=dev)
+    if state is None:
+        state = init_sparse_colony(instance, cfg, device=dev)
+    ewt = instance.edge_weight_type
+    for i in range(int(state.iteration), cfg.iterations):
+        state = sparse_colony_step(problem, state, cfg, ewt)[0]
+        if checkpoint_cb and checkpoint_every and \
+                (i + 1) % checkpoint_every == 0:
+            checkpoint_cb(state)
+    return state

@@ -112,6 +112,18 @@ def test_masked_step_bitwise(variant, use_pallas):
            n_actual=19)
 
 
+@pytest.mark.parametrize("n_actual", [None, 19])
+def test_mmas_clamp_at_tau_min_bitwise(n_actual):
+    """Long enough for unused edges to decay to tau_min, at rho = 0.3
+    (0.5 scales exactly and hides the order): the reference's compiled
+    tau_min is tau_max times float32(1 / 2n), or q / (rho * (len * 2n))
+    for a padded instance, not tau_max / 2n."""
+    base = jtsp.random_instance(19, seed=2)
+    inst = base if n_actual is None else jtsp.pad_instance(base, 24)
+    kw = dict(variant="mmas", seed=2, nn_k=8, rho=0.3, m=6)
+    _steps(inst, kw, 14, tau_exact=True, n_actual=n_actual)
+
+
 @pytest.mark.parametrize("construction", ["data_parallel", "pallas"])
 @pytest.mark.parametrize("variant,m", [("as", None), ("as", 1),
                                        ("mmas", None), ("acs", None)])
@@ -170,7 +182,7 @@ def test_sequential_oracle_is_the_reference():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(sparse=True), "item 10"),
+    (dict(sparse=True, metrics=True), "item 12"),
     (dict(metrics=True), "item 12"),
     (dict(deposit="onehot"), "item 4"),
     (dict(construction="nn_list"), "item 5"),

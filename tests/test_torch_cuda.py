@@ -8,8 +8,8 @@ imports no JAX, so it runs on the GPU machine as it is:
 
 Tolerances: selection indices and choice values bitwise (the kernels round
 every operation as the plain versions do, with accurate ``logf``), with a
-float32 or a quantised (int8, bf16) tau; 2-opt move deltas and indices
-bitwise; the update bitwise where each cell gets at most one deposit,
+float32 or a quantised (int8, bf16) tau, dense or on sparse candidate
+pages; 2-opt move deltas and indices bitwise; the update bitwise where each cell gets at most one deposit,
 rtol 1e-5 / atol 1e-7 where atomics sum several deposits in another order.
 """
 import numpy as np
@@ -23,6 +23,7 @@ from repro_torch.kernels import fused_select as fs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pheromone_update as pu  # noqa: E402
 from repro_torch.kernels import tour_select as ts  # noqa: E402
+from repro_torch.kernels import sparse_select as ss  # noqa: E402
 from repro_torch.kernels import two_opt as to  # noqa: E402
 from torch_parity import cuda_device  # noqa: E402
 
@@ -196,3 +197,50 @@ def test_local_search_and_quantised_colony_on_card_equal_cpu():
         if "tau_dtype" in kw:
             assert torch.equal(gpu.tau.scale.cpu(), cpu.tau.scale)
             assert torch.equal(gpu.tau.err.cpu(), cpu.tau.err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,k", [(1002, 64, 16), (2392, 64, 16),
+                                   (2392, 2392, 32)])
+@pytest.mark.parametrize("tau_dtype", ["fp32", "int8", "bf16"])
+def test_sparse_select_kernel_bitwise(n, m, k, tau_dtype):
+    tau, scale, eta, cities, visited, rand = ss.page_operands(
+        n, m, k, tau_dtype, cuda_device(), seed=n + m)
+    ops.reset_launch_counts()
+    for mode in MODES:
+        got = ops.sparse_select(tau, eta, cities, visited, rand, 1.0, 2.0,
+                                mode, tau_scale=scale)
+        want = ss.sparse_select_quant_plain(tau, scale, eta, cities, visited,
+                                            rand, 1.0, 2.0, mode)
+        assert torch.equal(got[0], want[0]), mode
+        assert torch.equal(got[1], want[1]), mode
+        assert int(got[1][:4].sum()) == 0
+    name = "sparse_select" if tau_dtype == "fp32" else "sparse_select_quant"
+    assert ops.launch_counts()[name] == len(MODES)
+
+
+@pytest.mark.cuda
+def test_sparse_colonies_on_card_equal_cpu():
+    """Sparse MMAS (data-parallel and Partial-ACO) and sparse MMAS over
+    int8 pages, k = 4 with 4 overflow slots: the card's kernel route equals
+    the CPU route bit for bit in every state field; K7 launches once per
+    construction step."""
+    dev = cuda_device()
+    inst = tsp.random_instance(100, seed=5)
+    for kw, per_iter in ((dict(), 99),
+                         (dict(construction="partial", partial_window=16),
+                          16),
+                         (dict(tau_dtype="int8"), 99)):
+        cfg = aco.ACOConfig(variant="mmas", sparse=True, sparse_k=4,
+                            sparse_overflow=4, m=16, iterations=4, seed=3,
+                            use_pallas=True, **kw)
+        ops.reset_launch_counts()
+        gpu = aco.run(inst, cfg, device=dev)
+        counts = ops.launch_counts()
+        name = "sparse_select_quant" if "tau_dtype" in kw else "sparse_select"
+        assert counts[name] == 4 * per_iter, kw
+        cpu = aco.run(inst, cfg, device="cpu")
+        flat = [(a, b) for x, y in zip(gpu, cpu)
+                for a, b in (zip(x, y) if isinstance(x, tuple) else [(x, y)])]
+        for a, b in flat:
+            assert torch.equal(a.cpu(), b), kw

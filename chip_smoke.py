@@ -18,10 +18,20 @@ non-zero:
    in both move rules on operands from real tours at m = n = 1002, k = 30,
    unmasked and masked; times each (CUDA events) beside its plain version
    and its bound;
+   K2 from tours (the colony step's update) bitwise against the CPU plain
+   composition and across two launches, AS (m = n) and MMAS (m = 1), rho
+   0.5 and 0.1, at every n above; timed beside the edge-stream K2, the
+   ``mul`` + ``index_add_`` yardstick and that yardstick with the stream
+   built from tours.
    The sparse route's K7 (fp32, int8, bf16 pages) in all three modes at
    (m, K) = (64, 20), n = 1002 and 2392, and (2392, 36), on pages gathered
    from a real sparse problem with overflow columns, fully visited pages
-   and ids < 0; times each at (64, 20), n = 2392;
+   and ids < 0; times each at (64, 20), n = 2392.  The walk kernel at the
+   route's shapes (n = 2392, k = 16 + 4, m = 64) bitwise against the plain
+   walk on the card over fp32/int8/bf16 pages, the three modes, packed and
+   counter draws (whole walks, and a walk's last 400 steps), a padded
+   instance and Partial-ACO windows; timed per
+   launch beside the plain walk and the per-step loop it replaced;
 4. small   -- the one-rounding multiply-add (``torch.addcmul``) and the
    per-step draw on the card against the CPU, bitwise; small colonies on
    the card's kernel route (plain MMAS and AS, MMAS + 2-opt/Or-opt, MMAS
@@ -40,17 +50,22 @@ non-zero:
    best tour is no worse than the nearest-neighbour tour, and MMAS +
    2-opt is no worse than plain MMAS after the first iteration; the
    shorter runs are held to 1.2 x that tour;
-   sparse    -- ``aco.run(sparse=True)`` at n = 2392 (k = 16 + 4, m = 64):
-   MMAS data-parallel over fp32, int8 and bf16 pages, MMAS Partial-ACO
-   (window 64, best never rises, no worse than the NN tour), AS and ACS,
-   held to 1.2 x the NN tour, with K7 launches checked per run;
+   sparse    -- ``aco.run(sparse=True)`` at n = 2392 (k = 16 + 4, m = 64),
+   10 iterations each: MMAS data-parallel over fp32, int8 and bf16 pages,
+   MMAS Partial-ACO (window 64, best never rises, no worse than the NN
+   tour), AS and ACS, held to 1.2 x the NN tour; each run launches the
+   walk kernel once per iteration and the one-step K7 never;
 6. profile -- device busy time and idle share of one AS iteration at
    n = 1002, and the kernels that take most of it; the split of one MMAS
    + 2-opt iteration over an int8 store into construction, local search
    and update + requantise; the split of one sparse MMAS int8 iteration
    at n = 2392 and the profile of a sparse fp32 one;
 7. one JSON line listing every kernel, then the card's ``nvidia-smi``
-   line, then the last line ``{"ok": true, "device": {...}}``.
+   line, then the last line ``{"ok": true, "device": {...}}``.  The
+   edge-stream K2 and the one-step K7 keep the reference kernels' own
+   signatures and are checked and timed, but no path launches them any
+   more: their entries report 0 launches and name the kernel that took
+   their place (``superseded_by``).
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -59,6 +74,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -93,6 +109,27 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel's pallas_call line)
     "sparse_select_quant_bf16": (
         "src/repro_torch/kernels/csrc/sparse_select.cu",
         "src/repro/kernels/sparse_select.py:159"),
+    # K2 driven by the deposit tours: the colony step's update
+    "pheromone_update_tours": (
+        "src/repro_torch/kernels/csrc/pheromone_update.cu",
+        "src/repro/kernels/pheromone_update.py:94"),
+    # the sparse route's whole walk (K7 and its payloads), one entry per
+    # payload
+    "sparse_walk": ("src/repro_torch/kernels/csrc/sparse_select.cu",
+                    "src/repro/kernels/sparse_select.py:159"),
+    "sparse_walk_quant_int8": ("src/repro_torch/kernels/csrc/sparse_select.cu",
+                               "src/repro/kernels/sparse_select.py:159"),
+    "sparse_walk_quant_bf16": ("src/repro_torch/kernels/csrc/sparse_select.cu",
+                               "src/repro/kernels/sparse_select.py:159"),
+}
+# Launchers that keep the reference kernel's own signature and are checked
+# and timed here, but that no path of the port launches any more: the
+# kernel that took their place on the path.
+SUPERSEDED = {
+    "pheromone_update": "pheromone_update_tours",
+    "sparse_select": "sparse_walk",
+    "sparse_select_quant_int8": "sparse_walk_quant_int8",
+    "sparse_select_quant_bf16": "sparse_walk_quant_bf16",
 }
 QUANT = ("int8", "bf16")
 MODES = ("iroulette", "gumbel", "greedy")
@@ -146,6 +183,26 @@ def device_ms(fn, reps: int = 10):
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
+def device_split(fn, reps: int = 10) -> dict:
+    """Device time per call (us) of each kernel that ``fn`` launches, by
+    name, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0) or 0)
+        if us > 0:
+            out[e.key] = out.get(e.key, 0.0) + us / reps
+    return out
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """Least time for the work on the card (ms) and what bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -197,7 +254,7 @@ def phase_kernels(results: dict) -> None:
                                      two_opt as topt)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    err = {k: 0.0 for k in KERNELS}
+    err = {k: 0.0 for k in KERNELS}  # stays 0 where the check is bitwise
 
     def problem(n):
         inst = tsp.random_instance(n, seed=n)
@@ -277,10 +334,37 @@ def phase_kernels(results: dict) -> None:
         want = pu.pheromone_update_plain(tau[:, :half].contiguous(), f2,
                                          t2 - half, w2, 0.1)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+        # K2 from tours (the colony step's update): AS with m = n ants and
+        # MMAS with one, tours as construction emits them (the phantom tail
+        # in index order when n_actual is set), bitwise against the CPU
+        # plain composition, and the same from launch to launch.
+        real = n if n_act is None else n_act
+        for n_ants in (m, 1):
+            tours = torch.stack([torch.cat([
+                torch.randperm(real, generator=gen, device=dev),
+                torch.arange(real, n, device=dev)]) for _ in range(n_ants)]
+            ).to(torch.int32)
+            w = torch.rand(n_ants, generator=gen, device=dev) * 1e-3
+            for rho in (0.5, 0.1):
+                got = pu.pheromone_update_tours(tau, tours, w, rho, n_act)
+                again = pu.pheromone_update_tours(tau, tours, w, rho, n_act)
+                want = pu.pheromone_update_tours_plain(
+                    tau.cpu(), tours.cpu(), w.cpu(), rho, n_act)
+                if not torch.equal(got.cpu(), want):
+                    bad = int((got.cpu() != want).sum())
+                    raise AssertionError(
+                        f"pheromone_update_tours != CPU plain in {bad} cells "
+                        f"at n={n} n_actual={n_act} ants={n_ants} rho={rho}")
+                if not torch.equal(got, again):
+                    raise AssertionError(
+                        f"pheromone_update_tours differs between two launches "
+                        f"at n={n} n_actual={n_act} ants={n_ants} rho={rho}")
         log(f"[kernels] n={n} n_actual={n_act}: choice_info, tour_select, "
             f"fused_select, fused_select_quant (int8, bf16) bitwise in "
             f"{', '.join(MODES)}; pheromone_update bitwise (1 ant), rtol "
-            f"1e-5/atol 1e-7 ({m} ants)")
+            f"1e-5/atol 1e-7 ({m} ants); pheromone_update_tours bitwise "
+            f"against the CPU and across launches ({m} ants and 1, rho 0.5 "
+            f"and 0.1)")
 
     # two_opt_best on the main path's operands: m = n = 1002, k = 30, from
     # tours the colony constructs (kernel route), unmasked and masked.
@@ -331,6 +415,17 @@ def phase_kernels(results: dict) -> None:
         out = tau * 0.9
         return out.view(-1).index_add_(0, flat, w2)
 
+    # the same deposit from tours: w per ant, the stream the yardstick
+    # reads built from the tours first (what the kernel saves)
+    w_ant = w2[::n][:m].contiguous()
+
+    def stream_then_index_add():
+        f, t = torch.roll(tours, -1, dims=-1), tours
+        fl = torch.cat([t.reshape(-1).long() * n + f.reshape(-1).long(),
+                        f.reshape(-1).long() * n + t.reshape(-1).long()])
+        wr = w_ant[:, None].expand(m, n).reshape(-1).repeat(2)
+        return (tau * 0.9).view(-1).index_add_(0, fl, wr)
+
     timing = {
         "fused_select": (
             lambda: fs.fused_select(tau, prob.eta, cur, visited, rand),
@@ -342,6 +437,11 @@ def phase_kernels(results: dict) -> None:
             lambda: pu.pheromone_update_plain(tau, f2, t2, w2, 0.5),
             evap_index_add,
             n * n * 8 + e * 12, n * n + e),
+        "pheromone_update_tours": (
+            lambda: pu.pheromone_update_tours(tau, tours, w_ant, 0.5),
+            lambda: pu.pheromone_update_tours_plain(tau, tours, w_ant, 0.5),
+            evap_index_add,
+            n * n * 8 + m * n * 4 + m * 4, n * n + 2 * m * n),
         "choice_info": (
             lambda: ci.choice_info(tau, prob.eta, 1.0, 2.0),
             lambda: ci.choice_info_plain(tau, prob.eta, 1.0, 2.0),
@@ -398,6 +498,55 @@ def phase_kernels(results: dict) -> None:
                f"{lib_wall * 1e3:.1f} us" if lib_fn else "")
             + f" | bound {b_ms * 1e3:.2f} us by {b_by} "
             f"({nbytes / 1e6:.1f} MB)")
+
+    # K2 from tours and its yardstick on the tours AS constructs at
+    # n = m = 1002 (ants share edges, so cells take several deposits) and
+    # on converged tours (every ant on one tour: each cell of it takes m)
+    from repro_torch.core import pheromone as ph
+    built = strategies.construct_tours(
+        sampling.prng_key(4, dev), prob.dist, None, n, method="fused",
+        tau=tau, eta=prob.eta).tours
+    for label, t in (("constructed", built),
+                     ("converged", tours[:1].expand(m, n).contiguous())):
+        f, t2_ = ph.tour_edges(t)
+        fl = torch.cat([f.reshape(-1).long() * n + t2_.reshape(-1).long(),
+                        t2_.reshape(-1).long() * n + f.reshape(-1).long()])
+        wr = w_ant[:, None].expand(m, n).reshape(-1).repeat(2)
+        k_ms, _ = both(lambda: pu.pheromone_update_tours(tau, t, w_ant, 0.5),
+                       10)
+        y_ms, _ = both(lambda: (tau * 0.9).view(-1).index_add_(0, fl, wr), 5)
+        log(f"[kernels] pheromone_update_tours n=m=1002 on {label} tours: "
+            f"device {k_ms * 1e3:.2f} us | yardstick device "
+            f"{y_ms * 1e3:.2f} us")
+
+    # K2's yardstick with the stream built from tours first, and K2 from
+    # tours at n = m = 2392 (AS)
+    ys_ms, ys_wall = both(stream_then_index_add, 5)
+    log(f"[kernels] pheromone_update yardstick with the edge stream built "
+        f"from tours, n=m=1002: device {ys_ms * 1e3:.1f} us, per call "
+        f"{ys_wall * 1e3:.1f} us")
+    n2 = m2 = 2392
+    tau2 = torch.rand((n2, n2), generator=gen, device=dev) * 1e-3
+    tours2 = torch.stack([torch.randperm(n2, generator=gen, device=dev)
+                          for _ in range(m2)]).to(torch.int32)
+    w_2 = torch.rand(m2, generator=gen, device=dev) * 1e-3
+    k2_ms, k2_wall = both(
+        lambda: pu.pheromone_update_tours(tau2, tours2, w_2, 0.5), 10)
+    b2_ms, _ = bound(n2 * n2 * 8 + m2 * n2 * 4 + m2 * 4, 0)
+    log(f"[kernels] pheromone_update_tours n=m=2392: device "
+        f"{k2_ms * 1e3:.2f} us, per call {k2_wall * 1e3:.1f} us | bound "
+        f"{b2_ms * 1e3:.2f} us by bytes")
+    for label, fn in (
+            ("n=m=1002", lambda: pu.pheromone_update_tours(tau, tours, w_ant,
+                                                           0.5)),
+            ("n=m=2392", lambda: pu.pheromone_update_tours(tau2, tours2, w_2,
+                                                           0.5))):
+        parts = []
+        for name, us in device_split(fn).items():
+            kernel = re.findall(r"(\w+_kernel)", name)
+            parts.append(f"{kernel[0] if kernel else name[:40]} {us:.2f} us")
+        log(f"[kernels] pheromone_update_tours {label} by pass: "
+            + ", ".join(parts))
 
     # The per-step draw (plain PyTorch, the reference's jax.random outside
     # any kernel) that feeds fused_select / tour_select on the main path.
@@ -496,6 +645,126 @@ def phase_sparse_kernels(results: dict) -> None:
             f"{plain_ms * 1e3:.1f} us, per call {plain_wall * 1e3:.1f} us | "
             f"bound {b_ms * 1e3:.3f} us by {b_by} ({nbytes / 1e3:.1f} kB) | "
             f"library: none")
+    phase_walk_kernel(results)
+
+
+def _walk(fn, operands, mode, draw, ewt, n_act, **kw):
+    """One walk over a copy of the operands' visited rows -> (cities,
+    lengths, fallbacks, visited)."""
+    problem, tau, ovf_city, ovf_tau, start, visited, keys = operands
+    vis = visited.clone()
+    out = fn(problem, tau, ovf_city, ovf_tau, start, vis, keys, mode, 1.0,
+             2.0, ewt, draw, n_act, **kw)
+    return (*out, vis)
+
+
+def k7_loop(problem, tau, ovf_city, ovf_tau, start, visited, keys, mode,
+            alpha, beta, ewt, draw, n_act):
+    """The route the walk kernel replaced: the host loop of plain steps
+    with the one-step K7 (``sparse_select``) launched once a step, for
+    timing beside the walk."""
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import construct
+    return construct.host_walk(problem, tau, ovf_city, ovf_tau, start,
+                               visited, keys, start.shape[0], mode, alpha,
+                               beta, ewt, True, draw, n_act,
+                               select=ops.sparse_select)
+
+
+def phase_walk_kernel(results: dict) -> None:
+    """The sparse walk kernel at the route's shapes (n = 2392, k = 16 + 4,
+    m = 64) against the plain walk on the card (every step through the
+    plain versions): cities, edge lengths, fallback counts and visited
+    rows bitwise over float32, int8 and bf16 pages, the three modes and
+    both draws (whole walks and each walk's last 400 steps), a padded
+    instance and Partial-ACO windows; then its time
+    per launch beside the plain walk and the per-step loop it replaced (K7
+    launched once a step), with its byte bound and its latency floor."""
+    import torch
+    from repro_torch.kernels import sparse_select as ss
+    dev = torch.device("cuda")
+    n, m, k, o = SPARSE_N, SPARSE_M, SPARSE_K, 4
+    ewt = "EUC_2D"
+    # (payload, mode, draw, n_pad, window): whole walks of n - 1 steps, and
+    # the grid over payloads, modes and draws from a mid-walk state (every
+    # city visited but 400: the walk's last 400 steps, where the fallback
+    # is taken most) to keep the plain walks' time in bounds; greedy draws
+    # nothing, so it runs under one draw mode; Partial-ACO's own window 64
+    grid = [("fp32", "iroulette", "packed", None, None),
+            ("fp32", "gumbel", "counter", None, None),
+            ("fp32", "iroulette", "packed", n + 7, None)]
+    grid += [(dtype, mode, draw, None, 400) for dtype in ("fp32",) + QUANT
+             for mode in MODES for draw in ("packed", "counter")
+             if mode != "greedy" or draw == "packed"]
+    grid += [(dtype, "iroulette", "packed", None, 64)
+             for dtype in ("fp32",) + QUANT]
+    t0 = time.perf_counter()
+    fallbacks = 0
+    for dtype, mode, draw, n_pad, window in grid:
+        operands = ss.walk_operands(n, m, k, o, dtype, dev, seed=5,
+                                    n_pad=n_pad, window=window, ewt=ewt)
+        n_act = operands[0].n_actual
+        got = _walk(ss.sparse_walk, operands, mode, draw, ewt, n_act)
+        want = _walk(ss.sparse_walk_plain, operands, mode, draw, ewt, n_act)
+        for g, w, what in zip(got, want, ("cities", "lengths", "fallbacks",
+                                          "visited")):
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"sparse_walk {what} != plain walk in "
+                    f"{int((g != w).sum())} elements ({dtype}, {mode}, "
+                    f"{draw}, n_pad={n_pad}, window={window})")
+        fallbacks += int(got[2].sum())
+    if fallbacks == 0:
+        raise AssertionError("sparse_walk: the grid never took the fallback")
+    log(f"[kernels] sparse_walk n={n} k={k}+{o} m={m}: bitwise against the "
+        f"plain walk on the card in {len(grid)} cases (whole walks: fp32 "
+        f"iroulette packed, gumbel counter, padded n={n + 7}; the last 400 "
+        f"steps: fp32, int8, bf16 x iroulette, gumbel x packed, counter and "
+        f"greedy; Partial-ACO window 64 x 3 payloads; {fallbacks} fallback "
+        f"steps) in {time.perf_counter() - t0:.0f} s")
+
+    for dtype, name in (("fp32", "sparse_walk"),
+                        ("int8", "sparse_walk_quant_int8"),
+                        ("bf16", "sparse_walk_quant_bf16")):
+        operands = ss.walk_operands(n, m, k, o, dtype, dev, seed=6, ewt=ewt)
+        problem, tau, ovf_city, ovf_tau, start, visited, keys = operands
+        steps = keys.shape[0]
+        kern = lambda: _walk(ss.sparse_walk, operands, "iroulette",  # noqa: E731,E501
+                             "packed", ewt, None)
+        fb = int(kern()[2].sum())
+        wall = cuda_ms(kern, reps=3, trials=3)
+        # the walk kernel's own entry in three one-call profiles (the
+        # tabu-row copy of each call excluded), median
+        own = [sum(us for name, us in device_split(kern, reps=1).items()
+                   if "sparse_walk_kernel" in name) for _ in range(3)]
+        ms = statistics.median(own) / 1e3 if min(own) > 0 else wall
+        plain_wall = cuda_ms(lambda: _walk(ss.sparse_walk_plain, operands,
+                                           "iroulette", "packed", ewt, None),
+                             reps=1, trials=1)
+        loop_wall = cuda_ms(lambda: _walk(k7_loop, operands, "iroulette",
+                                          "packed", ewt, None),
+                            reps=1, trials=1) if dtype == "fp32" else None
+        # bytes, each input read once and each output written once: the
+        # problem and page stores (coordinates, ids, distances, eta, the
+        # payloads with their int8 row scales, overflow ids), the tabu rows
+        # in and out, keys and start, the cities, lengths and fallbacks;
+        # operations: the float work at each visited page position
+        tau_b = ss._payload(tau)[0].element_size()
+        nbytes = (n * 8 + n * k * 12 + n * (k + o) * tau_b + n * o * 4
+                  + (8 * n if dtype == "int8" else 0) + 2 * m * n
+                  + steps * 16 + m * 4 + steps * m * 8 + m * 4)
+        b_ms, b_by = bound(nbytes, steps * m * (k + o) * 8)
+        results[name] = {"max_abs_err": 0.0, "ms": ms,
+                         "plain_ms": plain_wall, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": None}
+        log(f"[kernels] {name} n={n} k={k}+{o} m={m}, {steps} steps, one "
+            f"launch: device {ms:.3f} ms, per call {wall:.3f} ms "
+            f"({ms / steps * 1e3:.2f} us a step, {fb} fallback steps) | "
+            f"plain walk per call {plain_wall:.1f} ms"
+            + (f" | per-step loop (K7 a step) per call "
+               f"{loop_wall:.1f} ms" if loop_wall is not None else "")
+            + f" | bound {b_ms * 1e3:.2f} us by {b_by} ({nbytes / 1e6:.2f} "
+            f"MB); latency floor {steps} dependent steps | library: none")
 
 
 def _check_run(name, state, inst, n, slack):
@@ -519,10 +788,10 @@ def _check_run(name, state, inst, n, slack):
 def phase_small() -> None:
     """The multiply-add that the reference's compiler fuses, and the draw
     built on it, bitwise between the card and the CPU; then card kernel
-    route == CPU plain route on small colonies (MMAS, MMAS + 2-opt/Or-opt
-    and MMAS over a stochastic int8 store: tours, best_len and tau --
-    payload and scale -- bitwise; AS: tours and best_len after one
-    iteration)."""
+    route == CPU plain route on small colonies (MMAS, AS, MMAS +
+    2-opt/Or-opt and MMAS over a stochastic int8 store: tours, best_len and
+    tau -- payload and scale -- bitwise; the AS deposits of all ants land
+    in the CPU's order)."""
     import torch
     from repro_torch.core import aco, sampling, strategies, tsp
     from repro_torch.kernels import ops
@@ -555,7 +824,7 @@ def phase_small() -> None:
     # (label, cfg kwargs, iterations, tau bitwise, kernels it must launch)
     for label, kw, iters, tau_exact, kernels in (
             ("mmas", dict(variant="mmas"), 10, True, ("fused_select",)),
-            ("as", dict(variant="as"), 1, False, ("fused_select",)),
+            ("as", dict(variant="as"), 1, True, ("fused_select",)),
             ("mmas + 2opt_oropt", dict(variant="mmas",
                                        local_search="2opt_oropt"), 3, True,
              ("fused_select", "two_opt_best")),
@@ -581,7 +850,7 @@ def phase_small() -> None:
             else:
                 torch.testing.assert_close(tg.cpu(), tc, rtol=1e-5,
                                            atol=1e-7)
-        for k in kernels:
+        for k in kernels + ("pheromone_update_tours",):
             if counts[k] == 0:
                 raise AssertionError(f"small {label}: {k} never launched")
         best, c_nn = _check_run(f"small {label}", gpu, inst, 100,
@@ -610,10 +879,10 @@ def phase_small_sparse() -> None:
             yield from (x if isinstance(x, tuple) else (x,))
 
     for label, kw, kernel in (
-            ("mmas", dict(), "sparse_select"),
+            ("mmas", dict(), "sparse_walk"),
             ("mmas partial", dict(construction="partial", partial_window=16),
-             "sparse_select"),
-            ("mmas int8", dict(tau_dtype="int8"), "sparse_select_quant")):
+             "sparse_walk"),
+            ("mmas int8", dict(tau_dtype="int8"), "sparse_walk")):
         cfg = aco.ACOConfig(variant="mmas", sparse=True, sparse_k=4,
                             sparse_overflow=4, m=16, iterations=10, seed=3,
                             use_pallas=True, **kw)
@@ -641,10 +910,13 @@ def phase_small_sparse() -> None:
                 raise AssertionError(f"small sparse {label}: card route != "
                                      "CPU route")
         adopted, evicted, fallbacks, counts = churn["cuda"]
-        if counts[kernel] == 0 or churn["cuda"][:3] != churn["cpu"][:3]:
+        if counts[kernel] != cfg.iterations or counts["sparse_select"] or \
+                counts["sparse_select_quant"] or \
+                churn["cuda"][:3] != churn["cpu"][:3]:
             raise AssertionError(f"small sparse {label}: {kernel} "
-                                 f"launched {counts[kernel]} times; churn "
-                                 f"card {churn['cuda'][:3]} cpu "
+                                 f"launched {counts[kernel]} times (one per "
+                                 f"iteration expected, no one-step K7); "
+                                 f"churn card {churn['cuda'][:3]} cpu "
                                  f"{churn['cpu'][:3]}")
         if "construction" not in kw and not (adopted and evicted
                                              and fallbacks):
@@ -670,8 +942,8 @@ def phase_main(launches: dict) -> None:
     # and MMAS + 2-opt run until they reach that tour; the others take a
     # few iterations and are held to 1.2 x it.  The 2-opt reduction's
     # launches are checked against the rounds localsearch.improve reports.
-    dense = {"fused_select": 1001, "pheromone_update": 1}
-    quantised = {"fused_select_quant": 1001, "pheromone_update": 1}
+    dense = {"fused_select": 1001, "pheromone_update_tours": 1}
+    quantised = {"fused_select_quant": 1001, "pheromone_update_tours": 1}
     runs = [
         ("as", 1002, dict(variant="as", iterations=3), dense, 1.2, None),
         ("mmas", 1002, dict(variant="mmas", iterations=2 * MMAS_CHUNK),
@@ -679,7 +951,8 @@ def phase_main(launches: dict) -> None:
         ("acs", 1002, dict(variant="acs", iterations=3), dense, 1.2, None),
         ("as-pallas", 1002, dict(variant="as", iterations=2,
                                  construction="pallas"),
-         {"choice_info": 1, "tour_select": 1001, "pheromone_update": 1}, 1.2,
+         {"choice_info": 1, "tour_select": 1001, "pheromone_update_tours": 1},
+         1.2,
          None),
         ("mmas+2opt", 1002, dict(variant="mmas", local_search="2opt",
                                  iterations=MMAS_CHUNK), dense, 1.0,
@@ -693,7 +966,7 @@ def phase_main(launches: dict) -> None:
         ("as-bf16", 1002, dict(variant="as", tau_dtype="bf16",
                                iterations=3), quantised, 1.2, None),
         ("as", 2392, dict(variant="as", iterations=1),
-         {"fused_select": 2391, "pheromone_update": 1}, 1.2, None),
+         {"fused_select": 2391, "pheromone_update_tours": 1}, 1.2, None),
     ]
     instances = {}
     first_best = {}     # best_len after the first iteration, by label
@@ -751,9 +1024,9 @@ def phase_main(launches: dict) -> None:
 def phase_sparse(launches: dict) -> None:
     """The sparse O(n·k) route at its users' size: ``aco.run`` with
     ``sparse=True`` on the kernel route, n = 2392, k = 16 (+ 4 overflow),
-    m = 64.  MMAS data-parallel over fp32, int8 and bf16 pages, MMAS
-    Partial-ACO (window 64), AS and ACS; each run's K7 launches are checked
-    (n-1 per data-parallel iteration, the window per Partial-ACO one)."""
+    m = 64, 10 iterations each.  MMAS data-parallel over fp32, int8 and
+    bf16 pages, MMAS Partial-ACO (window 64), AS and ACS; each run launches
+    the walk kernel once per iteration and the one-step K7 never."""
     import torch
     from repro_torch.core import aco, tsp
     from repro_torch.kernels import ops
@@ -761,29 +1034,29 @@ def phase_sparse(launches: dict) -> None:
     n, m, k = SPARSE_N, SPARSE_M, SPARSE_K
     inst = tsp.random_instance(n, seed=n)
     _, c_nn = store.sparse_nearest_neighbour_tour(inst)
-    base = dict(sparse=True, sparse_k=k, m=m, use_pallas=True, seed=0)
-    # (label, cfg kwargs, the kernel it launches, launches per iteration,
-    # the most best_len may be as a multiple of the NN tour)
+    base = dict(sparse=True, sparse_k=k, m=m, use_pallas=True, seed=0,
+                iterations=10)
+    # (label, cfg kwargs, the walk kernel's entry, the most best_len may be
+    # as a multiple of the NN tour); one sparse_walk launch per iteration,
+    # data-parallel and Partial-ACO alike, and no one-step K7
     runs = [
-        ("mmas", dict(variant="mmas", iterations=3), "sparse_select", n - 1,
-         1.2),
-        ("mmas-int8", dict(variant="mmas", tau_dtype="int8", iterations=2),
-         "sparse_select_quant_int8", n - 1, 1.2),
-        ("mmas-bf16", dict(variant="mmas", tau_dtype="bf16", iterations=2),
-         "sparse_select_quant_bf16", n - 1, 1.2),
+        ("mmas", dict(variant="mmas"), "sparse_walk", 1.2),
+        ("mmas-int8", dict(variant="mmas", tau_dtype="int8"),
+         "sparse_walk_quant_int8", 1.2),
+        ("mmas-bf16", dict(variant="mmas", tau_dtype="bf16"),
+         "sparse_walk_quant_bf16", 1.2),
         ("mmas-partial", dict(variant="mmas", construction="partial",
-                              partial_window=64, iterations=10),
-         "sparse_select", 64, 1.0),
-        ("as", dict(variant="as", iterations=1), "sparse_select", n - 1, 1.2),
-        ("acs", dict(variant="acs", iterations=1), "sparse_select", n - 1,
-         1.2),
+                              partial_window=64), "sparse_walk", 1.0),
+        ("as", dict(variant="as"), "sparse_walk", 1.2),
+        ("acs", dict(variant="acs"), "sparse_walk", 1.2),
     ]
-    for label, kw, kernel, per_iter, slack in runs:
+    for label, kw, kernel, slack in runs:
         cfg = aco.ACOConfig(**base, **kw)
-        bests, slots = [], []
+        bests, slots, stamps = [], [], []
 
-        def record(state, bests=bests, slots=slots):
-            bests.append(float(state.best_len))
+        def record(state, bests=bests, slots=slots, stamps=stamps):
+            bests.append(float(state.best_len))     # waits for the card
+            stamps.append(time.perf_counter())
             slots.append(int((state.ovf_city >= 0).sum()))
 
         torch.cuda.synchronize()
@@ -796,8 +1069,8 @@ def phase_sparse(launches: dict) -> None:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = ops.launch_counts()
-        key = "sparse_select_quant" if "quant" in kernel else kernel
-        want = {key: per_iter * cfg.iterations}
+        key = "sparse_walk"
+        want = {key: cfg.iterations}
         for name, v in counts.items():
             if v != want.get(name, 0):
                 raise AssertionError(f"sparse {label}: {name} launched {v} "
@@ -815,10 +1088,15 @@ def phase_sparse(launches: dict) -> None:
                                            zip(bests, bests[1:])):
             raise AssertionError(f"sparse {label}: best rose: {bests}")
         prob = store.make_sparse_problem(inst, k, device="cuda")
+        # steady state: the median time between two iterations' ends
+        steady = statistics.median(b - a for a, b in zip(stamps, stamps[1:]))
         log(f"[sparse] {label} n={n} k={k}+4 m={m} x{cfg.iterations}: "
             f"{cfg.iterations / secs:.4f} it/s ({secs:.2f} s incl. set-up), "
+            f"steady {1 / steady:.2f} it/s ({steady * 1e3:.1f} ms an "
+            f"iteration, median), "
             f"best {best:.1f} ({best / c_nn:.4f} x NN tour, limit {slack}), "
-            f"{kernel} launches {counts[key]}, fallback (ant, step) pairs "
+            f"{key} launches {counts[key]} (sparse_select 0), fallback "
+            f"(ant, step) pairs "
             f"{int(construct.walk.fallbacks)}, overflow slots in use "
             f"{slots[-1]} of {n * 4}, resident "
             f"{store.resident_bytes(prob, state)} B vs dense "
@@ -1019,12 +1297,19 @@ def main() -> int:
     phase_sparse_split()
     kernels = []
     for name, (src, replaces) in KERNELS.items():
-        if launches.get(name, 0) == 0:
+        n_launch = launches.get(name, 0)
+        if name in SUPERSEDED:
+            if n_launch:
+                raise AssertionError(f"kernel {name} was launched on a path "
+                                     f"where {SUPERSEDED[name]} replaces it")
+        elif n_launch == 0:
             raise AssertionError(f"kernel {name} was never launched on the "
                                  "main path")
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        **results[name]})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": n_launch, **results[name]}
+        if name in SUPERSEDED:
+            entry["superseded_by"] = SUPERSEDED[name]
+        kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

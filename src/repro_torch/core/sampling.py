@@ -135,12 +135,21 @@ def _uniform_from_bits(bits: torch.Tensor, minval: float,
                                             floatops.const(span, flo)))
 
 
+def uniform_span(draw_mode: str, minval: float, maxval: float) -> float:
+    """The span a draw scales its [0, 1) floats by: ``uniform``'s is
+    ``float32(maxval) - float32(minval)``; the reference's counter mode
+    rounds ``maxval - minval`` from double precision."""
+    if draw_mode == "counter":
+        return maxval - minval
+    return float(np.float32(maxval) - np.float32(minval))
+
+
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``; its
     span is ``float32(maxval) - float32(minval)``."""
-    span = np.float32(maxval) - np.float32(minval)
-    return _uniform_from_bits(random_bits(key, shape), minval, span)
+    return _uniform_from_bits(random_bits(key, shape), minval,
+                              uniform_span("packed", minval, maxval))
 
 
 def counter_uniform(key: torch.Tensor, shape: Sequence[int],
@@ -150,7 +159,7 @@ def counter_uniform(key: torch.Tensor, shape: Sequence[int],
     reference's counter mode rounds its span from double precision, and
     inside its jitted programs XLA fuses the multiply-add."""
     return _uniform_from_bits(counter_bits(key, shape), minval,
-                              maxval - minval)
+                              uniform_span("counter", minval, maxval))
 
 
 def gumbel_noise(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

@@ -41,11 +41,15 @@ SIGNATURES = {
                                _F, _F, _I, _I, _P],
     "aco_pheromone_update": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong,
                              _F, _P],
+    "aco_pheromone_update_tours": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "aco_two_opt_best": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P],
     "aco_sparse_select": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                           _I, _P],
     "aco_sparse_select_quant": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _F, _F, _I, _P],
+    "aco_sparse_walk": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _F, _F, _F, _F, _P],
 }
 
 

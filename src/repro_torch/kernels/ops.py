@@ -31,11 +31,13 @@ KERNELS = {
     "fused_select": _fs.fused_select,
     "fused_select_quant": _fs.fused_select_quant,
     "pheromone_update": _pu.pheromone_update,
+    "pheromone_update_tours": _pu.pheromone_update_tours,
     "choice_info": _ci.choice_info,
     "tour_select": _ts.tour_select,
     "two_opt_best": _to.two_opt_best,
     "sparse_select": _ss.sparse_select,
     "sparse_select_quant": _ss.sparse_select_quant,
+    "sparse_walk": _ss.sparse_walk,
 }
 
 
@@ -174,20 +176,14 @@ def fused_select(tau: torch.Tensor, eta: torch.Tensor, cur: torch.Tensor,
 def pheromone_update(tau: torch.Tensor, tours: torch.Tensor, w: torch.Tensor,
                      rho: float, n_actual: Optional[int] = None
                      ) -> torch.Tensor:
-    """Symmetric fused update from (m, n) tours + (m,) weights.
-
-    The edge stream is built with ``core.pheromone.tour_edges`` /
-    ``edge_weights`` (closing edge at n_actual-1, phantom-tail edges at
-    weight 0), each undirected edge in both directions.
-    """
-    from ..core import pheromone as _ph
-    f, t = _ph.tour_edges(tours, n_actual)
-    frm = f.reshape(-1).to(torch.int32)
-    to = t.reshape(-1).to(torch.int32)
-    wrep = _ph.edge_weights(tours, w, n_actual)
-    return pheromone_update_edges(tau, torch.cat([frm, to]),
-                                  torch.cat([to, frm]),
-                                  torch.cat([wrep, wrep]), rho)
+    """Symmetric fused update from (m, n) tours + (m,) weights: the edge
+    stream of ``core.pheromone.tour_edges`` / ``edge_weights`` (closing
+    edge at n_actual-1, phantom-tail edges at weight 0), each undirected
+    edge in both directions.  On the card the tours-driven kernel applies
+    it without building the stream."""
+    if _plain(tau):
+        return _pu.pheromone_update_tours_plain(tau, tours, w, rho, n_actual)
+    return _pu.pheromone_update_tours(tau, tours, w, rho, n_actual)
 
 
 def pheromone_update_edges(tau: torch.Tensor, frm: torch.Tensor,
@@ -233,3 +229,22 @@ def sparse_select(tau_rows: torch.Tensor, eta_rows: torch.Tensor,
                                        rand, alpha, beta, mode)
     return _ss.sparse_select(tau_rows, eta_rows, cand, visited, rand, alpha,
                              beta, mode)
+
+
+def sparse_walk(problem, tau, ovf_city: torch.Tensor, ovf_tau,
+                start: torch.Tensor, visited: torch.Tensor,
+                keys: torch.Tensor, selection: str = "iroulette",
+                alpha: float = 1.0, beta: float = 2.0, ewt: str = "RAW",
+                draw_mode: str = "packed", n_actual: Optional[int] = None
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The sparse kernel route's construction walk, one step per key:
+    page gather, draw at the candidates, selection, page-fault fallback
+    and tabu update for every ant (``visited`` updated in place).  Returns
+    (cities (S, m), edge lengths (S, m), fallback steps per ant (m,))."""
+    if _plain(start):
+        return _ss.sparse_walk_plain(problem, tau, ovf_city, ovf_tau, start,
+                                     visited, keys, selection, alpha, beta,
+                                     ewt, draw_mode, n_actual)
+    return _ss.sparse_walk(problem, tau, ovf_city, ovf_tau, start, visited,
+                           keys, selection, alpha, beta, ewt, draw_mode,
+                           n_actual)

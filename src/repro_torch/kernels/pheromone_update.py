@@ -22,8 +22,21 @@ kernel; the plain version does the same and then adds the deposits with
 ``index_add_``.  A cell with at most one deposit (MMAS, the ACS deposit,
 AS with one ant) is bitwise the plain version; a cell with several (AS)
 sums in atomic order on the card: ulp-close, not reproducible run to run.
+
+``pheromone_update_tours`` is the same update driven by the deposit tours,
+the colony step's call (``ops.pheromone_update``): its edge stream is the
+one ``core.pheromone.tour_edges`` / ``edge_weights`` build, which the
+kernel never materialises.  One pass writes each city's next and previous
+tour neighbour per ant (the inverse positions); then one warp owns one row
+in shared memory and applies its deposits in the stream's index order, so
+every cell, however many deposits it gets, is bitwise the CPU
+``index_add_`` and the same from run to run.  Bound: 8 bytes per cell, 4
+per (ant, position) and 4 per ant, 12.0 MB at n = m = 1002 (3.6 us at
+3.35 TB/s).  ``pheromone_update_tours_plain`` is its plain version.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -69,3 +82,51 @@ def pheromone_update(tau: torch.Tensor, frm: torch.Tensor, to: torch.Tensor,
 
 
 pheromone_update.launches = 0
+
+
+def pheromone_update_tours_plain(tau: torch.Tensor, tours: torch.Tensor,
+                                 w: torch.Tensor, rho: float,
+                                 n_actual: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """tau (n, n); tours (m, n) closed tours; w (m,) per-ant weights ->
+    new tau.  The edge stream of ``core.pheromone.tour_edges`` /
+    ``edge_weights`` (closing edge at n_actual - 1, phantom-tail edges at
+    weight 0), each undirected edge in both directions, forward edges
+    first, through ``pheromone_update_plain``."""
+    from ..core import pheromone as _ph
+    f, t = _ph.tour_edges(tours, n_actual)
+    frm = f.reshape(-1).to(torch.int32)
+    to = t.reshape(-1).to(torch.int32)
+    wrep = _ph.edge_weights(tours, w, n_actual)
+    return pheromone_update_plain(tau, torch.cat([frm, to]),
+                                  torch.cat([to, frm]),
+                                  torch.cat([wrep, wrep]), rho)
+
+
+def pheromone_update_tours(tau: torch.Tensor, tours: torch.Tensor,
+                           w: torch.Tensor, rho: float,
+                           n_actual: Optional[int] = None) -> torch.Tensor:
+    """Launch the tours-driven kernel on CUDA tensors; raises on anything
+    else.  Every row of ``tours`` must be a permutation of 0..n-1, as tour
+    construction emits them."""
+    n = tau.shape[0]
+    dev = tau.device
+    _build.require("pheromone_update_tours tau", tau, torch.float32, (n, n))
+    m = tours.shape[0]
+    _build.require("pheromone_update_tours tours", tours, torch.int32,
+                   (m, n), dev)
+    _build.require("pheromone_update_tours w", w, torch.float32, (m,), dev)
+    n_eff = n if n_actual is None else int(n_actual)
+    if not 1 <= n_eff <= n:
+        raise ValueError(f"pheromone_update_tours: n_actual {n_actual} not "
+                         f"in [1, {n}]")
+    nbr = torch.empty((n, m, 2), dtype=torch.int32, device=dev)
+    out = torch.empty_like(tau)
+    _build.launch("pheromone_update_tours", dev, tau.data_ptr(),
+                  tours.data_ptr(), w.data_ptr(), nbr.data_ptr(),
+                  out.data_ptr(), n, m, n_eff, _decay(rho))
+    pheromone_update_tours.launches += 1
+    return out
+
+
+pheromone_update_tours.launches = 0

@@ -20,13 +20,26 @@ with the lowest-index tie rule, beside the ``have`` bit.
 functions in plain PyTorch (the reference oracles ``ref.sparse_select``
 and ``ref.sparse_select_quant``): the CPU path of ``ops.sparse_select``
 and the yardsticks of the kernel on the card.
+
+``sparse_walk`` launches the whole construction walk of the sparse kernel
+route as one kernel (the reference's ``lax.scan`` over the steps): one
+warp per ant runs every step -- page gather with the lazy overflow
+distances, the threefry draw at the K candidates only (``draw_at_plain``
+is its plain twin), the selection above, the page-fault fallback for an
+ant whose page is exhausted, and the tabu update -- over a float32, int8
+or bfloat16 page payload.  Bound: latency, S dependent steps of at least
+two L2 round trips each; its bytes (pages, tabu rows, outputs) are about
+2 MB at n = 2392, m = 64, K = 20.  ``sparse_walk_plain`` is the step loop
+on the host, every step through the plain versions.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
+from ..core import quant, sampling
 from ..core.quant import dequantise_rows
 from . import _build
 from .choice_info import ipow
@@ -146,6 +159,133 @@ def sparse_select_quant(tau_rows_q: torch.Tensor,
 sparse_select_quant.launches = 0
 
 
+# sparse/store._round_ewt's rounding rules and the draw modes, as the walk
+# kernel numbers them; the kernel route draws U(1e-6, 1).
+EWT_CODES = {"EUC_2D": 0, "CEIL_2D": 1, "ATT": 2, "RAW": 3}
+DRAW_CODES = {"packed": 0, "counter": 1}
+DRAW_MIN, DRAW_MAX = 1e-6, 1.0
+
+
+def draw_at_plain(key: torch.Tensor, ants: torch.Tensor,
+                  cities: torch.Tensor, n: int,
+                  draw_mode: str = "packed") -> torch.Tensor:
+    """The walk kernel's pointwise draw in plain PyTorch: element
+    [ants, cities] of the step's (m, n) U(1e-6, 1) draw
+    (``sampling.uniform`` packed, ``counter_uniform`` counter), hashed at
+    those pairs only; 0 where a city id is < 0."""
+    a = ants.to(torch.int64)
+    c = cities.to(torch.int64)
+    safe = torch.where(c >= 0, c, torch.zeros_like(c))
+    mask = 0xFFFFFFFF
+    if draw_mode == "counter":
+        ctr = (a * sampling.COUNTER_STRIDE + safe) & mask
+        bits, _ = sampling.threefry2x32(key[0], key[1], ctr,
+                                        torch.zeros_like(ctr))
+    else:
+        flat = a * n + safe
+        y0, y1 = sampling.threefry2x32(key[0], key[1], flat >> 32,
+                                       flat & mask)
+        bits = y0 ^ y1
+    u = sampling._uniform_from_bits(
+        bits, DRAW_MIN, sampling.uniform_span(draw_mode, DRAW_MIN, DRAW_MAX))
+    return torch.where(c >= 0, u, torch.zeros_like(u))
+
+
+def _payload(tau) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(payload, int8 per-row scale or None) of a page store."""
+    if isinstance(tau, quant.QuantTau):
+        return tau.q, (tau.scale if tau.q.dtype == torch.int8 else None)
+    return tau, None
+
+
+def sparse_walk_plain(problem, tau, ovf_city: torch.Tensor, ovf_tau,
+                      start: torch.Tensor, visited: torch.Tensor,
+                      keys: torch.Tensor, selection: str = "iroulette",
+                      alpha: float = 1.0, beta: float = 2.0,
+                      ewt: str = "RAW", draw_mode: str = "packed",
+                      n_actual: Optional[int] = None):
+    """The kernel route's walk as a host loop of plain PyTorch steps (the
+    full-width draw, ``sparse_select_plain``, the fallback's (m, n) lazy
+    rows) on any device.  Same arguments and results as ``sparse_walk``."""
+    from ..sparse import construct
+    return construct.host_walk(problem, tau, ovf_city, ovf_tau, start,
+                               visited, keys, start.shape[0], selection,
+                               alpha, beta, ewt, True, draw_mode, n_actual)
+
+
+def sparse_walk(problem, tau, ovf_city: torch.Tensor, ovf_tau,
+                start: torch.Tensor, visited: torch.Tensor,
+                keys: torch.Tensor, selection: str = "iroulette",
+                alpha: float = 1.0, beta: float = 2.0, ewt: str = "RAW",
+                draw_mode: str = "packed", n_actual: Optional[int] = None
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the walk kernel on CUDA tensors; raises on anything else.
+
+    ``problem`` is a ``SparseProblem`` (coords, cand, cand_dist,
+    cand_eta); ``tau`` (n, k) and ``ovf_tau`` (n, O) are float32 pages or
+    ``QuantTau`` stores of one payload type; ``start`` (m,) int32 the
+    cities the ants stand on; ``visited`` (m, n) bool, updated in place;
+    ``keys`` (S, 2) int64, one threefry key per step.  With ``n_actual``,
+    steps t = s + 1 >= n_actual emit city t at length 0 and the fallback
+    scans real cities only.  Returns (cities (S, m) int32, edge lengths
+    (S, m) float32, fallback steps per ant (m,) int32)."""
+    code = mode_code(selection)
+    if draw_mode not in DRAW_CODES:
+        raise ValueError(f"sparse_walk: unknown draw_mode {draw_mode!r}")
+    if ewt not in EWT_CODES:
+        raise ValueError(f"sparse_walk: unsupported edge_weight_type {ewt}")
+    coords, cand, cand_dist, cand_eta = problem[:4]
+    n, k = cand.shape
+    dev = cand.device
+    _build.require("sparse_walk cand", cand, torch.int32)
+    _build.require("sparse_walk coords", coords, torch.float32, (n, 2), dev)
+    if coords.data_ptr() % 8:
+        raise ValueError("sparse_walk: coords is not 8-byte aligned")
+    for name, t in (("cand_dist", cand_dist), ("cand_eta", cand_eta)):
+        _build.require(f"sparse_walk {name}", t, torch.float32, (n, k), dev)
+    o = ovf_city.shape[1]
+    _build.require("sparse_walk ovf_city", ovf_city, torch.int32, (n, o), dev)
+    q, scale = _payload(tau)
+    oq, oscale = _payload(ovf_tau)
+    dtypes = (torch.float32, torch.int8, torch.bfloat16)
+    _build.require("sparse_walk tau", q, dtypes, (n, k), dev)
+    _build.require("sparse_walk ovf_tau", oq, q.dtype, (n, o), dev)
+    payload = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}[q.dtype]
+    scale_ptr = oscale_ptr = None
+    if payload == 1:
+        _build.require("sparse_walk tau scale", scale, torch.float32, (n, 1),
+                       dev)
+        scale_ptr = scale.data_ptr()
+        if o:
+            _build.require("sparse_walk ovf_tau scale", oscale,
+                           torch.float32, (n, 1), dev)
+            oscale_ptr = oscale.data_ptr()
+    m = start.shape[0]
+    _build.require("sparse_walk start", start, torch.int32, (m,), dev)
+    _build.require("sparse_walk visited", visited, torch.bool, (m, n), dev)
+    steps = keys.shape[0]
+    _build.require("sparse_walk keys", keys, torch.int64, (steps, 2), dev)
+    n_act = n if n_actual is None else int(n_actual)
+    tail = 2 ** 31 - 1 if n_actual is None else int(n_actual)
+    out_city = torch.empty((steps, m), dtype=torch.int32, device=dev)
+    out_dist = torch.empty((steps, m), dtype=torch.float32, device=dev)
+    fallbacks = torch.empty(m, dtype=torch.int32, device=dev)
+    span = sampling.uniform_span(draw_mode, DRAW_MIN, DRAW_MAX)
+    _build.launch("sparse_walk", dev, coords.data_ptr(), cand.data_ptr(),
+                  cand_dist.data_ptr(), cand_eta.data_ptr(), q.data_ptr(),
+                  payload, scale_ptr, ovf_city.data_ptr(), oq.data_ptr(),
+                  oscale_ptr, start.data_ptr(), visited.data_ptr(),
+                  keys.data_ptr(), out_city.data_ptr(), out_dist.data_ptr(),
+                  fallbacks.data_ptr(), m, n, k, o, steps, n_act, tail, code,
+                  DRAW_CODES[draw_mode], EWT_CODES[ewt], DRAW_MIN, span,
+                  float(alpha), float(beta))
+    sparse_walk.launches += 1
+    return out_city, out_dist, fallbacks
+
+
+sparse_walk.launches = 0
+
+
 def page_operands(n: int, m: int, k: int, tau_dtype: str,
                   device: torch.device, seed: int = 0):
     """One construction step's K7 operands, for checking and timing the
@@ -179,3 +319,49 @@ def page_operands(n: int, m: int, k: int, tau_dtype: str,
     rand = (torch.rand((m, n), generator=gen, device=device) * (1 - 1e-6)
             + 1e-6)
     return tau_row, scale, eta_row, cities, visited, rand
+
+
+def walk_operands(n: int, m: int, k: int, o: int, tau_dtype: str,
+                  device: torch.device, seed: int = 0,
+                  n_pad: Optional[int] = None,
+                  window: Optional[int] = None, ewt: str = "EUC_2D"):
+    """One walk's operands, for checking and timing ``sparse_walk``: the
+    problem of ``random_instance(n, seed=n)`` (``ewt`` rounding, padded to
+    ``n_pad``), random pages and O overflow slots of random cities (-1 =
+    empty) in ``tau_dtype``, and m ants.  Data-parallel: each ant stands on
+    a random real city, S = n - 1 steps (n_pad - 1 padded).  With
+    ``window`` (Partial-ACO): every city but a random window of that many is
+    visited, the ant stands on a visited one, S = window.  Returns
+    (problem, tau, ovf_city, ovf_tau, start, visited, keys)."""
+    from ..core import tsp
+    from ..sparse import store
+    gen = torch.Generator(device=device).manual_seed(seed)
+    inst = dataclasses.replace(tsp.random_instance(n, seed=n),
+                               edge_weight_type=ewt)
+    problem = store.make_sparse_problem(inst, k, n_pad, device=device)
+    nn = problem.n
+    tau = torch.rand((nn, k), generator=gen, device=device) * 1e-3 + 1e-4
+    ovf_tau = torch.rand((nn, o), generator=gen, device=device) * 1e-3
+    ovf_city = torch.randint(-1, n, (nn, o), generator=gen, device=device,
+                             dtype=torch.int32)
+    if tau_dtype != "fp32":
+        key = torch.tensor([0, seed], device=device)
+        tau = quant.quantise(tau, tau_dtype, key=key)
+        ovf_tau = quant.quantise(ovf_tau, tau_dtype, key=key)
+    ants = torch.arange(m, device=device)
+    if window:
+        perm = torch.stack([torch.randperm(n, generator=gen, device=device)
+                            for _ in range(m)])
+        visited = torch.ones((m, nn), dtype=torch.bool, device=device)
+        visited[ants[:, None], perm[:, :window]] = False
+        start = perm[:, window].to(torch.int32).contiguous()
+        steps = window
+    else:
+        start = torch.randint(0, n, (m,), generator=gen, device=device,
+                              dtype=torch.int32)
+        visited = torch.zeros((m, nn), dtype=torch.bool, device=device)
+        visited[ants, start.long()] = True
+        steps = nn - 1
+    keys = sampling.fold_in(sampling.prng_key(seed + 1, device),
+                            torch.arange(1, steps + 1, device=device))
+    return problem, tau, ovf_city, ovf_tau, start, visited, keys

@@ -12,14 +12,18 @@ The reference's two draw contracts hold: the pure route draws the same
 full-width (m, n) tensor as the dense pure selector (uniforms for
 iroulette, Gumbel samples for gumbel) and gathers it at the candidates;
 the kernel route (``use_pallas=True``) always draws uniforms and the
-``sparse_select`` kernel applies the per-mode transform.
+selection applies the per-mode transform.
 
 Partial-ACO (Chitty): each ant copies the running best tour and rebuilds
 one window of w cities through the same page selection.
 
-The reference's ``lax.scan`` over the steps is a host loop here (``walk``);
-``walk.fallbacks`` counts the (ant, step) pairs that took the page-fault
-fallback, as a device tensor (reset it to 0 to start a count).
+The reference's ``lax.scan`` over the steps (``walk``) is, on the kernel
+route with CUDA tensors, one launch of the ``sparse_walk`` kernel, which
+runs every step of every ant and draws only at the candidates.  The pure
+route, and the kernel route on CPU tensors, run it as a host loop
+(``host_walk``).  ``walk.fallbacks`` counts the (ant, step) pairs that
+took the page-fault fallback, as a device tensor (reset it to 0 to start a
+count).
 """
 from __future__ import annotations
 
@@ -130,18 +134,26 @@ def _fallback_nearest(problem: SparseProblem, cur: torch.Tensor,
 
 def _step(problem: SparseProblem, tau, ovf_city, ovf_tau, cur, visited,
           key, m: int, selection: str, alpha: float, beta: float, ewt: str,
-          use_pallas: bool, draw_mode: str, n_actual: Optional[int]):
-    """One selection step for every ant -> (next city, edge length, have)."""
+          use_pallas: bool, draw_mode: str, n_actual: Optional[int],
+          select=None):
+    """One selection step for every ant -> (next city, edge length, have).
+    The kernel route selects with ``select`` (``kernels.ops.sparse_select``'s
+    signature), by default the plain version of the ``sparse_select``
+    kernel."""
     n = problem.n
     ants = torch.arange(m, device=cur.device)
     cities, tau_row, tau_scale, eta_row, dist_row = _candidate_page(
         problem, tau, ovf_city, ovf_tau, cur, ewt)
     rand_full = _draw(key, m, n, selection, use_pallas, draw_mode)
     if use_pallas:
-        from ..kernels import ops as kops
-        pos, have = kops.sparse_select(tau_row, eta_row, cities, visited,
-                                       rand_full, alpha, beta, selection,
-                                       tau_scale=tau_scale)
+        if select is None:
+            from ..kernels import sparse_select as _ss
+            pos, have = _ss.sparse_select_quant_plain(
+                tau_row, tau_scale, eta_row, cities, visited, rand_full,
+                alpha, beta, selection)
+        else:
+            pos, have = select(tau_row, eta_row, cities, visited, rand_full,
+                               alpha, beta, selection, tau_scale=tau_scale)
         have = have.bool()
     else:
         cmask = ~visited[ants[:, None], cities.long()]
@@ -162,35 +174,59 @@ def _step(problem: SparseProblem, tau, ovf_city, ovf_tau, cur, visited,
             have)
 
 
-def walk(problem: SparseProblem, tau, ovf_city, ovf_tau, start, visited,
-         keys, m: int, selection: str, alpha: float, beta: float, ewt: str,
-         use_pallas: bool, draw_mode: str, n_actual: Optional[int] = None
-         ) -> tuple[list, list]:
-    """The step loop from ``start``, one step per key; ``visited`` is
-    updated in place.  On a padded instance (a tour from position 0) steps
-    t = i + 1 >= n_actual emit the phantom tail in index order at length
-    0.  Returns the emitted cities and edge lengths, one (m,) tensor per
-    step."""
-    ants = torch.arange(m, device=start.device)
+def host_walk(problem: SparseProblem, tau, ovf_city, ovf_tau, start,
+              visited, keys, m: int, selection: str, alpha: float,
+              beta: float, ewt: str, use_pallas: bool, draw_mode: str,
+              n_actual: Optional[int] = None, select=None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The step loop on the host from ``start``, one step per key;
+    ``visited`` is updated in place; ``select`` as in ``_step``.  On a
+    padded instance (a tour from position 0) steps t = i + 1 >= n_actual
+    emit the phantom tail in index order at length 0.  Returns the emitted
+    cities and edge lengths, (S, m) each, and the fallback steps per ant
+    (m,) int32."""
+    dev = start.device
+    ants = torch.arange(m, device=dev)
     cur = start
     steps, dsteps, haves = [], [], []
     for i in range(keys.shape[0]):
         t = i + 1
         if n_actual is not None and t >= n_actual:
-            nxt = torch.full((m,), t, dtype=torch.int32, device=cur.device)
-            dstep = torch.zeros((m,), dtype=torch.float32, device=cur.device)
+            nxt = torch.full((m,), t, dtype=torch.int32, device=dev)
+            dstep = torch.zeros((m,), dtype=torch.float32, device=dev)
         else:
             nxt, dstep, have = _step(problem, tau, ovf_city, ovf_tau, cur,
                                      visited, keys[i], m, selection, alpha,
                                      beta, ewt, use_pallas, draw_mode,
-                                     n_actual)
+                                     n_actual, select)
             haves.append(have)
         visited[ants, nxt.long()] = True
         cur = nxt
         steps.append(nxt)
         dsteps.append(dstep)
-    if haves:
-        walk.fallbacks = walk.fallbacks + (~torch.stack(haves)).sum()
+    fallbacks = ((~torch.stack(haves)).sum(0).to(torch.int32) if haves
+                 else torch.zeros(m, dtype=torch.int32, device=dev))
+    return torch.stack(steps), torch.stack(dsteps), fallbacks
+
+
+def walk(problem: SparseProblem, tau, ovf_city, ovf_tau, start, visited,
+         keys, m: int, selection: str, alpha: float, beta: float, ewt: str,
+         use_pallas: bool, draw_mode: str, n_actual: Optional[int] = None
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The construction walk from ``start``, one step per key (see
+    ``host_walk``): on the kernel route through ``kernels.ops.sparse_walk``
+    (one launch on CUDA tensors), on the pure route as a host loop.
+    Returns the emitted cities and edge lengths, (S, m) each."""
+    if use_pallas:
+        from ..kernels import ops as kops
+        steps, dsteps, fallbacks = kops.sparse_walk(
+            problem, tau, ovf_city, ovf_tau, start, visited, keys, selection,
+            alpha, beta, ewt, draw_mode, n_actual)
+    else:
+        steps, dsteps, fallbacks = host_walk(
+            problem, tau, ovf_city, ovf_tau, start, visited, keys, m,
+            selection, alpha, beta, ewt, False, draw_mode, n_actual)
+    walk.fallbacks = walk.fallbacks + fallbacks.sum()
     return steps, dsteps
 
 
@@ -220,10 +256,10 @@ def construct_sparse_tours(key: torch.Tensor, problem: SparseProblem, tau,
     steps, dsteps = walk(problem, tau, ovf_city, ovf_tau, start, visited,
                          keys, m, selection, float(alpha), float(beta), ewt,
                          use_pallas, draw_mode, n_act)
-    tours = torch.stack([start] + steps, dim=0).T.contiguous()
+    tours = torch.cat([start[None, :], steps], dim=0).T.contiguous()
     # (m, n) per-edge array, closing edge last: the dense _finish's array
     # and sum order
-    edges = torch.cat([torch.stack(dsteps).T,
+    edges = torch.cat([dsteps.T,
                        torch.zeros((m, 1), dtype=torch.float32, device=dev)],
                       dim=-1)
     if n_act is not None:
@@ -274,8 +310,8 @@ def partial_tours(key: torch.Tensor, problem: SparseProblem, tau,
     steps, dsteps = walk(problem, tau, ovf_city, ovf_tau, anchor, visited,
                          keys, m, selection, float(alpha), float(beta), ewt,
                          use_pallas, draw_mode)
-    new_window = torch.stack(steps).T.to(torch.int32)           # (m, w)
-    new_cost = floatops.xla_sum(torch.stack(dsteps).T) + store.pair_lookup(
+    new_window = steps.T.to(torch.int32)                        # (m, w)
+    new_cost = floatops.xla_sum(dsteps.T) + store.pair_lookup(
         problem, new_window[:, -1], reconnect, ewt)
     # the w+1 edges of the best tour that the mutation replaces
     opos = s[:, None] - 1 + torch.arange(window + 1, device=dev)[None, :]

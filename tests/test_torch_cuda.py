@@ -9,8 +9,12 @@ imports no JAX, so it runs on the GPU machine as it is:
 Tolerances: selection indices and choice values bitwise (the kernels round
 every operation as the plain versions do, with accurate ``logf``), with a
 float32 or a quantised (int8, bf16) tau, dense or on sparse candidate
-pages; 2-opt move deltas and indices bitwise; the update bitwise where each cell gets at most one deposit,
-rtol 1e-5 / atol 1e-7 where atomics sum several deposits in another order.
+pages; 2-opt move deltas and indices bitwise; the edge-stream update
+bitwise where each cell gets at most one deposit, rtol 1e-5 / atol 1e-7
+where atomics sum several deposits in another order; the tours-driven
+update (the colony step's) bitwise for any number of ants, and the same
+from launch to launch; the sparse walk kernel bitwise against the plain
+walk on the card (and, for iroulette and greedy, on the CPU).
 """
 import numpy as np
 import pytest
@@ -66,6 +70,10 @@ def test_selection_kernels_bitwise(n, n_actual):
 @pytest.mark.parametrize("n,n_ants", [(501, 1), (501, 64), (2392, 1),
                                       (2392, 2392)])
 def test_pheromone_update_kernel(n, n_ants):
+    """The tours-driven row-owner kernel: bitwise the CPU plain composition
+    for every number of ants (its deposits land in the edge stream's
+    order), unpadded and with n_actual = n - 7, and identical from one
+    launch to the next."""
     dev = cuda_device()
     rng = np.random.default_rng(n_ants)
     tau = torch.tensor((rng.random((n, n)) * 1e-2).astype(np.float32),
@@ -75,13 +83,17 @@ def test_pheromone_update_kernel(n, n_ants):
                          device=dev)
     w = torch.tensor((rng.random(n_ants) * 1e-2).astype(np.float32),
                      device=dev)
+    ops.reset_launch_counts()
     for rho in (0.5, 0.1):
-        got = ops.pheromone_update(tau, tours, w, rho)
-        want = ops.pheromone_update(tau.cpu(), tours.cpu(), w.cpu(), rho)
-        if n_ants == 1:
-            assert torch.equal(got.cpu(), want)
-        else:
-            torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-7)
+        for n_actual in (None, n - 7):
+            got = ops.pheromone_update(tau, tours, w, rho, n_actual)
+            want = ops.pheromone_update(tau.cpu(), tours.cpu(), w.cpu(), rho,
+                                        n_actual)
+            assert torch.equal(got.cpu(), want), (rho, n_actual)
+            again = ops.pheromone_update(tau, tours, w, rho, n_actual)
+            assert torch.equal(again, got), (rho, n_actual)
+    assert ops.launch_counts()["pheromone_update_tours"] == 8
+    assert ops.launch_counts()["pheromone_update"] == 0
 
 
 @pytest.mark.cuda
@@ -223,24 +235,77 @@ def test_sparse_select_kernel_bitwise(n, m, k, tau_dtype):
 def test_sparse_colonies_on_card_equal_cpu():
     """Sparse MMAS (data-parallel and Partial-ACO) and sparse MMAS over
     int8 pages, k = 4 with 4 overflow slots: the card's kernel route equals
-    the CPU route bit for bit in every state field; K7 launches once per
-    construction step."""
+    the CPU route bit for bit in every state field; the walk kernel
+    launches once per iteration and the one-step K7 never."""
     dev = cuda_device()
     inst = tsp.random_instance(100, seed=5)
-    for kw, per_iter in ((dict(), 99),
-                         (dict(construction="partial", partial_window=16),
-                          16),
-                         (dict(tau_dtype="int8"), 99)):
+    for kw in (dict(), dict(construction="partial", partial_window=16),
+               dict(tau_dtype="int8")):
         cfg = aco.ACOConfig(variant="mmas", sparse=True, sparse_k=4,
                             sparse_overflow=4, m=16, iterations=4, seed=3,
                             use_pallas=True, **kw)
         ops.reset_launch_counts()
         gpu = aco.run(inst, cfg, device=dev)
         counts = ops.launch_counts()
-        name = "sparse_select_quant" if "tau_dtype" in kw else "sparse_select"
-        assert counts[name] == 4 * per_iter, kw
+        assert counts["sparse_walk"] == 4, kw
+        assert counts["sparse_select"] == counts["sparse_select_quant"] == 0
         cpu = aco.run(inst, cfg, device="cpu")
         flat = [(a, b) for x, y in zip(gpu, cpu)
                 for a, b in (zip(x, y) if isinstance(x, tuple) else [(x, y)])]
         for a, b in flat:
             assert torch.equal(a.cpu(), b), kw
+
+
+def _to_cpu(x):
+    """A tensor, or a named tuple of tensors and plain values, on the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple):
+        return type(x)(*(_to_cpu(y) for y in x))
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["packed", "counter", "padded", "partial",
+                                  "att"])
+@pytest.mark.parametrize("tau_dtype", ["fp32", "int8", "bf16"])
+def test_sparse_walk_kernel_bitwise(tau_dtype, case):
+    """One sparse_walk launch against the plain walk on the card (every
+    step through the plain versions, sparse_select_plain included): the
+    cities, edge lengths, visited rows and fallback counts bitwise, in all
+    three modes; iroulette and greedy also against the CPU.  n = 300,
+    k = 8 + 4 overflow slots, m = 32 (the route's shapes are in
+    chip_smoke.py)."""
+    dev = cuda_device()
+    draw = "counter" if case == "counter" else "packed"
+    ewt = "ATT" if case == "att" else "EUC_2D"
+    operands = ss.walk_operands(
+        300, 32, 8, 4, tau_dtype, dev, seed=11,
+        n_pad=307 if case == "padded" else None,
+        window=40 if case == "partial" else None, ewt=ewt)
+    problem, tau, ovf_city, ovf_tau, start, visited, keys = operands
+    n_act = problem.n_actual
+    for mode in MODES:
+        vis_k, vis_p = visited.clone(), visited.clone()
+        ops.reset_launch_counts()
+        got = ops.sparse_walk(problem, tau, ovf_city, ovf_tau, start, vis_k,
+                              keys, mode, 1.0, 2.0, ewt, draw, n_act)
+        assert ops.launch_counts()["sparse_walk"] == 1
+        want = ss.sparse_walk_plain(problem, tau, ovf_city, ovf_tau, start,
+                                    vis_p, keys, mode, 1.0, 2.0, ewt, draw,
+                                    n_act)
+        for g, w, what in zip(got, want, ("cities", "lengths", "fallbacks")):
+            assert torch.equal(g, w), (mode, what)
+        assert torch.equal(vis_k, vis_p), mode
+        assert int(got[2].sum()) > 0, mode
+        if mode == "gumbel":
+            continue
+        cpu = [_to_cpu(x) for x in operands]
+        vis_c = cpu[5].clone()
+        want_c = ss.sparse_walk_plain(cpu[0], cpu[1], cpu[2], cpu[3], cpu[4],
+                                      vis_c, cpu[6], mode, 1.0, 2.0, ewt,
+                                      draw, n_act)
+        for g, w, what in zip(got, want_c, ("cities", "lengths",
+                                            "fallbacks")):
+            assert torch.equal(g.cpu(), w), (mode, what, "cpu")
+        assert torch.equal(vis_k.cpu(), vis_c), mode

@@ -31,7 +31,16 @@ non-zero:
    walk on the card over fp32/int8/bf16 pages, the three modes, packed and
    counter draws (whole walks, and a walk's last 400 steps), a padded
    instance and Partial-ACO windows; timed per
-   launch beside the plain walk and the per-step loop it replaced;
+   launch beside the plain walk and the per-step loop it replaced.
+   The dense walk kernel (``fused_walk``: every step of the dense fused
+   construction in one launch, fp32, int8 and bf16 tau) bitwise against
+   the plain walk on the card: whole walks at n = m = 1002 in all three
+   modes and both draws, the same grid over the last 400 steps of a walk
+   at n = m = 2392 and one whole walk there, n = 997 and n_actual = 901;
+   timed per launch at 1002 and 2392 beside the per-step route it replaced
+   (the one-step kernel over the plain draw, once a step) and the plain
+   walk, with its bound: bytes, float32 work and the threefry hashes'
+   integer work at the INT32 rate derived from the card's clock;
 4. small   -- the one-rounding multiply-add (``torch.addcmul``) and the
    per-step draw on the card against the CPU, bitwise; small colonies on
    the card's kernel route (plain MMAS and AS, MMAS + 2-opt/Or-opt, MMAS
@@ -41,10 +50,11 @@ non-zero:
    colonies on the CPU (plain versions), and no worse than the
    nearest-neighbour tour;
 5. main    -- ``aco.run`` at n = m = 1002: AS, MMAS and ACS on the fused
-   kernel route, AS on ``construction="pallas"``, MMAS + 2-opt, ACS +
+   kernel route (one ``fused_walk`` launch an iteration, the one-step
+   ``fused_select`` never), AS on ``construction="pallas"``, MMAS + 2-opt, ACS +
    2-opt/Or-opt (first improvement, every 2nd iteration), MMAS over an
-   int8 store and AS over a bf16 store; one AS iteration at n = m = 2392
-   (the paper's pr2392).  Launch counts are zeroed before each run and
+   int8 store and AS over a bf16 store; three AS iterations at
+   n = m = 2392 (the paper's pr2392).  Launch counts are zeroed before each run and
    checked after it (2-opt reductions: one per local-search round that
    ``localsearch.improve`` reports).  MMAS and MMAS + 2-opt run until the
    best tour is no worse than the nearest-neighbour tour, and MMAS +
@@ -62,10 +72,10 @@ non-zero:
    at n = 2392 and the profile of a sparse fp32 one;
 7. one JSON line listing every kernel, then the card's ``nvidia-smi``
    line, then the last line ``{"ok": true, "device": {...}}``.  The
-   edge-stream K2 and the one-step K7 keep the reference kernels' own
-   signatures and are checked and timed, but no path launches them any
-   more: their entries report 0 launches and name the kernel that took
-   their place (``superseded_by``).
+   one-step K1/K6, the edge-stream K2 and the one-step K7 keep the
+   reference kernels' own signatures and are checked and timed, but no
+   path launches them any more: their entries report 0 launches and name
+   the kernel that took their place (``superseded_by``).
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -82,6 +92,14 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+# INT32 is not on the data sheet: 64 INT32 lanes per SM x 132 SMs x the
+# card's maximum SM clock (nvidia-smi clocks.max.sm), set by phase_device.
+INT32_LANES = 64 * 132
+INT32_OPS_PER_S = None
+# Integer operations of one threefry-2x32 hash as the walk kernels run it:
+# 60 in the 20 rounds (add, rotate, xor), 12 in the key injections and the
+# counter set-up, 8 in the counter and the bits-to-float conversion.
+HASH_OPS = 80
 
 KERNELS = {  # name -> (CUDA source, the Pallas kernel's pallas_call line)
     "fused_select": ("src/repro_torch/kernels/csrc/fused_select.cu",
@@ -121,11 +139,22 @@ KERNELS = {  # name -> (CUDA source, the Pallas kernel's pallas_call line)
                                "src/repro/kernels/sparse_select.py:159"),
     "sparse_walk_quant_bf16": ("src/repro_torch/kernels/csrc/sparse_select.cu",
                                "src/repro/kernels/sparse_select.py:159"),
+    # the dense route's whole walk (K1 and its payloads, K6), one entry per
+    # payload
+    "fused_walk": ("src/repro_torch/kernels/csrc/fused_select.cu",
+                   "src/repro/kernels/fused_select.py:176"),
+    "fused_walk_quant_int8": ("src/repro_torch/kernels/csrc/fused_select.cu",
+                              "src/repro/kernels/fused_select.py:176"),
+    "fused_walk_quant_bf16": ("src/repro_torch/kernels/csrc/fused_select.cu",
+                              "src/repro/kernels/fused_select.py:176"),
 }
 # Launchers that keep the reference kernel's own signature and are checked
 # and timed here, but that no path of the port launches any more: the
 # kernel that took their place on the path.
 SUPERSEDED = {
+    "fused_select": "fused_walk",
+    "fused_select_quant_int8": "fused_walk_quant_int8",
+    "fused_select_quant_bf16": "fused_walk_quant_bf16",
     "pheromone_update": "pheromone_update_tours",
     "sparse_select": "sparse_walk",
     "sparse_select_quant_int8": "sparse_walk_quant_int8",
@@ -145,10 +174,11 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, trials: int = 5) -> float:
-    """Median over trials of the mean time of ``reps`` calls (CUDA events)."""
+def cuda_ms(fn, reps: int = 20, trials: int = 5, warmup: int = 3) -> float:
+    """Median over trials of the mean time of ``reps`` calls (CUDA events),
+    after ``warmup`` calls."""
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -164,23 +194,16 @@ def cuda_ms(fn, reps: int = 20, trials: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10):
+def device_ms(fn, reps: int = 10, tries: int = 3):
     """Device time per call (ms): the sum of the kernels' own durations
-    that ``torch.profiler`` records over ``reps`` calls, or None where it
-    records no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for e in prof.key_averages():
-        total_us += (getattr(e, "self_device_time_total", None)
-                     or getattr(e, "self_cuda_time_total", 0) or 0)
-    return total_us / reps / 1e3 if total_us > 0 else None
+    that ``torch.profiler`` records over ``reps`` calls, or None where
+    ``tries`` profiles in a row record no device time (a profile now and
+    then drops the kernels a ``ctypes`` call launched)."""
+    for _ in range(tries):
+        us = sum(device_split(fn, reps).values())
+        if us > 0:
+            return us / 1e3
+    return None
 
 
 def device_split(fn, reps: int = 10) -> dict:
@@ -203,24 +226,39 @@ def device_split(fn, reps: int = 10) -> dict:
     return out
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time for the work on the card (ms) and what bounds it."""
+def bound(nbytes: float, ops: float, int_ops: float = 0.0
+          ) -> tuple[float, str]:
+    """Least time for the work on the card (ms) and what bounds it: bytes
+    over the memory rate, or the float32 operations over the fp32 rate and
+    the integer ones over the INT32 rate, whichever is longer (the two
+    pipes issue side by side)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = max(ops / FP32_OPS_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device():
+    global INT32_OPS_PER_S
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this smoke test needs a GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = _smi("name,power.limit")
+    clock = _smi("clocks.max.sm")
+    mhz = float(clock.split()[0])
+    INT32_OPS_PER_S = INT32_LANES * mhz * 1e6
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[device] INT32 rate {INT32_OPS_PER_S:.4g}/s = 64 lanes x 132 SMs x "
+        f"clocks.max.sm {clock} (not on the data sheet); fp32 "
+        f"{FP32_OPS_PER_S:.3g}/s, HBM {HBM_BYTES_PER_S:.3g} B/s (data sheet)")
     return smi
 
 
@@ -557,6 +595,159 @@ def phase_kernels(results: dict) -> None:
         f"{d_ms * 1e3:.1f} us, per call {d_wall * 1e3:.1f} us")
 
 
+def _dense_walk_operands(n, n_act, dtype, seed, window=None):
+    """One dense walk's operands at m = n ants: the problem of
+    ``random_instance(n, seed=n)`` (padded to n with ``n_act`` real cities),
+    a random tau in [1e-4, 1.1e-3) stored as ``dtype`` (stochastically
+    rounded), each ant on a random real city.  With ``window``, the walk's
+    last ``window`` steps from a random mid-walk state: every city but
+    ``window`` visited, the ant on a visited one.  Returns (eta, payload,
+    int8 scale or None, start, key, visited or None, first step)."""
+    import torch
+    from repro_torch.core import aco, quant, sampling, tsp
+    dev = torch.device("cuda")
+    inst = tsp.random_instance(n, seed=n) if n_act is None else \
+        tsp.pad_instance(tsp.random_instance(n_act, seed=n), n)
+    eta = aco.make_problem(inst, 10, dev).eta
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tau = torch.rand((n, n), generator=gen, device=dev) * 1e-3 + 1e-4
+    q, scale = tau, None
+    if dtype != "fp32":
+        qt = quant.quantise(tau, dtype, key=sampling.prng_key(seed, dev))
+        q, scale = qt.q, (qt.scale if dtype == "int8" else None)
+    key = sampling.prng_key(seed + 1, dev)
+    if window is None:
+        start = torch.randint(0, n_act or n, (n,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        return eta, q, scale, start, key, None, 1
+    perm = torch.rand((n, n), generator=gen, device=dev).argsort(dim=1)
+    visited = torch.zeros((n, n), dtype=torch.bool, device=dev)
+    visited.scatter_(1, perm[:, :n - window], True)
+    start = perm[:, 0].to(torch.int32).contiguous()
+    return eta, q, scale, start, key, visited, n - window
+
+
+def _dense_walk(fn, operands, mode, draw, n_act, **kw):
+    eta, q, scale, start, key, visited, first = operands
+    return fn(q, eta, start, key, 1.0, 2.0, n_act, mode, draw, scale,
+              visited, first, **kw)
+
+
+def phase_dense_walk(results: dict) -> None:
+    """The dense walk kernel (fp32, int8, bf16 payloads) against the plain
+    walk on the card (every step through the full draw and
+    ``fused_select_plain``), bitwise: whole walks at n = m = 1002 over the
+    three payloads, three modes and both draws; the last 400 steps of a
+    walk at n = m = 2392 over the same grid, and one whole walk there; an
+    odd n (997) and a padded instance (901 real cities of 1002).  Then each
+    payload's time per launch at n = m = 1002 and 2392 beside the per-step
+    route it replaced (the one-step kernel over the plain draw, once a
+    step), the plain walk and the bound."""
+    import torch
+    from repro_torch.kernels import fused_select as fs, ops
+    t0 = time.perf_counter()
+    full = [(mode, draw) for mode in MODES for draw in ("packed", "counter")
+            if mode != "greedy" or draw == "packed"]
+    # (n, n_actual, payload, mode, draw, window)
+    grid = [(1002, None, d, mode, draw, None) for d in ("fp32",) + QUANT
+            for mode, draw in full]
+    grid += [(2392, None, d, mode, draw, 400) for d in ("fp32",) + QUANT
+             for mode, draw in full]
+    grid += [(2392, None, "fp32", "iroulette", "packed", None),
+             (997, None, "fp32", "iroulette", "packed", None),
+             (997, None, "int8", "gumbel", "counter", None),
+             (997, None, "bf16", "greedy", "packed", None),
+             (1002, 901, "fp32", "iroulette", "packed", None),
+             (1002, 901, "int8", "iroulette", "counter", None),
+             (1002, 901, "bf16", "gumbel", "packed", None),
+             (1002, 901, "fp32", "greedy", "packed", None)]
+    for n, n_act, dtype, mode, draw, window in grid:
+        operands = _dense_walk_operands(n, n_act, dtype, 7, window)
+        got = _dense_walk(ops.fused_walk, operands, mode, draw, n_act)
+        want = _dense_walk(fs.fused_walk_plain, operands, mode, draw, n_act)
+        if not torch.equal(got, want):
+            bad = int((got != want).any(0).sum())
+            raise AssertionError(
+                f"fused_walk != plain walk for {bad} ants ({dtype}, {mode}, "
+                f"{draw}, n={n}, n_actual={n_act}, window={window})")
+    log(f"[kernels] fused_walk (fp32, int8, bf16): bitwise against the plain "
+        f"walk on the card in {len(grid)} cases (whole walks at n=m=1002 x "
+        f"3 payloads x iroulette, gumbel (packed, counter) and greedy; the "
+        f"last 400 steps at n=m=2392 over the same grid and one whole walk; "
+        f"n=997; n_actual=901 of 1002) in {time.perf_counter() - t0:.0f} s")
+
+    line = []
+    for n in (1002, 2392):
+        for dtype, name in (("fp32", "fused_walk"),
+                            ("int8", "fused_walk_quant_int8"),
+                            ("bf16", "fused_walk_quant_bf16")):
+            operands = _dense_walk_operands(n, None, dtype, 8)
+            eta, q, scale, start, key, _, _ = operands
+            kern = lambda: _dense_walk(ops.fused_walk, operands,  # noqa: E731
+                                       "iroulette", "packed", None)
+            steps = kern()
+            wall = cuda_ms(kern, reps=3, trials=3)
+            own = [sum(us for k, us in device_split(kern, reps=1).items()
+                       if "fused_walk_kernel" in k) for _ in range(3)]
+            ms = statistics.median(own) / 1e3 if min(own) > 0 else wall
+            # the route it replaced: the one-step kernel over the plain
+            # per-step draw, once a step; at 2392 over the last 400 steps
+            # of a walk (a whole one takes about 17 s)
+            replaced = _dense_walk_operands(
+                n, None, dtype, 8, None if n == 1002 else 400)
+            loop_wall = cuda_ms(lambda: _dense_walk(
+                fs.fused_walk_plain, replaced, "iroulette", "packed", None,
+                select=ops.fused_select), reps=1, trials=1, warmup=1)
+            loop_steps = n - replaced[-1]
+            # bytes: payload (+ int8 row scales), eta, start, key and the
+            # cities once each; operations: the weight and transform at
+            # each (step, ant, city) in float32, and a threefry hash at
+            # each (step, ant, selectable city) plus the kernel's step keys
+            # (every real weight is > 0 here, so the selectable cities are
+            # the unvisited ones: n - t at step t of a valid tour)
+            tours = torch.cat([start[None], steps]).T
+            valid = bool((tours.sort(dim=1).values
+                          == torch.arange(n, device=tours.device)).all())
+            if not valid:
+                raise AssertionError(f"{name} n={n}: a tour is not a "
+                                     "permutation")
+            m = start.shape[0]
+            hashes = m * n * (n - 1) // 2 + m * -(-(n - 1) // 128) * 128
+            nbytes = (n * n * (q.element_size() + 4) + m * 4 + 16
+                      + m * (n - 1) * 4 + (n * 4 if scale is not None else 0))
+            b_ms, b_by = bound(nbytes, m * (n - 1) * n * 5,
+                               hashes * HASH_OPS)
+            if n == 1002 and dtype == "fp32":
+                # the hashes' share: greedy hashes nothing, gumbel adds two
+                # logs to each hashed city
+                by_mode = {mode: cuda_ms(lambda mode=mode: _dense_walk(
+                    ops.fused_walk, operands, mode, "packed", None), reps=3,
+                    trials=3) for mode in MODES}
+                log(f"[kernels] fused_walk n=m=1002 fp32 per call by mode: "
+                    + ", ".join(f"{k} {v:.3f} ms" for k, v in by_mode.items())
+                    + " (greedy hashes nothing)")
+            if n == 1002:
+                plain_wall = cuda_ms(lambda: _dense_walk(
+                    fs.fused_walk_plain, operands, "iroulette", "packed",
+                    None), reps=1, trials=1, warmup=1)
+                results[name] = {"max_abs_err": 0.0, "ms": ms,
+                                 "plain_ms": plain_wall, "bound_ms": b_ms,
+                                 "bound_by": b_by, "library_ms": None}
+            line.append(f"{dtype} {ms:.3f}")
+            log(f"[kernels] {name} n=m={n}, one launch ({n - 1} steps): "
+                f"device {ms:.3f} ms, per call {wall:.3f} ms "
+                f"({ms / (n - 1) * 1e3:.2f} us a step) | per-step route "
+                f"(one-step kernel + plain draw) {loop_wall / loop_steps:.3f}"
+                f" ms a step over {loop_steps} steps, {loop_wall:.1f} ms"
+                + (f" | plain walk per call {plain_wall:.1f} ms"
+                   if n == 1002 else "")
+                + f" | bound {b_ms:.3f} ms by {b_by} ({nbytes / 1e6:.2f} "
+                f"MB, {hashes} hashes x {HASH_OPS} integer operations at "
+                f"{INT32_OPS_PER_S:.4g}/s) | library: none")
+        log(f"[kernels] fused_walk n=m={n} device ms: {', '.join(line)}")
+        line = []
+
+
 def _gather_sectors(torch, cities, n, itemsize):
     """32-byte sectors that gathering one ``itemsize``-byte value per
     (ant, candidate id >= 0) touches in an (m, n) row-major tensor."""
@@ -731,7 +922,14 @@ def phase_walk_kernel(results: dict) -> None:
         steps = keys.shape[0]
         kern = lambda: _walk(ss.sparse_walk, operands, "iroulette",  # noqa: E731,E501
                              "packed", ewt, None)
-        fb = int(kern()[2].sum())
+        cities, _, fbs, _ = kern()
+        fb = int(fbs.sum())
+        # threefry hashes: one at every real page position of every step
+        # (the k candidates with an id >= 0 and the O overflow slots, an
+        # empty one standing for the ant's own city)
+        cur = torch.cat([start[None], cities[:-1]]).long()
+        real = (problem.cand >= 0).sum(1) + o
+        hashes = int(real[cur].sum())
         wall = cuda_ms(kern, reps=3, trials=3)
         # the walk kernel's own entry in three one-call profiles (the
         # tabu-row copy of each call excluded), median
@@ -740,20 +938,22 @@ def phase_walk_kernel(results: dict) -> None:
         ms = statistics.median(own) / 1e3 if min(own) > 0 else wall
         plain_wall = cuda_ms(lambda: _walk(ss.sparse_walk_plain, operands,
                                            "iroulette", "packed", ewt, None),
-                             reps=1, trials=1)
-        loop_wall = cuda_ms(lambda: _walk(k7_loop, operands, "iroulette",
-                                          "packed", ewt, None),
-                            reps=1, trials=1) if dtype == "fp32" else None
+                             reps=1, trials=1, warmup=1)
+        loop_wall = cuda_ms(lambda: _walk(
+            k7_loop, operands, "iroulette", "packed", ewt, None), reps=1,
+            trials=1, warmup=1) if dtype == "fp32" else None
         # bytes, each input read once and each output written once: the
         # problem and page stores (coordinates, ids, distances, eta, the
         # payloads with their int8 row scales, overflow ids), the tabu rows
         # in and out, keys and start, the cities, lengths and fallbacks;
-        # operations: the float work at each visited page position
+        # operations: the float work at each page position and each
+        # fallback scan's lazy distances, and the hashes' integer work
         tau_b = ss._payload(tau)[0].element_size()
         nbytes = (n * 8 + n * k * 12 + n * (k + o) * tau_b + n * o * 4
                   + (8 * n if dtype == "int8" else 0) + 2 * m * n
                   + steps * 16 + m * 4 + steps * m * 8 + m * 4)
-        b_ms, b_by = bound(nbytes, steps * m * (k + o) * 8)
+        b_ms, b_by = bound(nbytes, steps * m * (k + o) * 8 + fb * n * 8,
+                           hashes * HASH_OPS)
         results[name] = {"max_abs_err": 0.0, "ms": ms,
                          "plain_ms": plain_wall, "bound_ms": b_ms,
                          "bound_by": b_by, "library_ms": None}
@@ -764,7 +964,9 @@ def phase_walk_kernel(results: dict) -> None:
             + (f" | per-step loop (K7 a step) per call "
                f"{loop_wall:.1f} ms" if loop_wall is not None else "")
             + f" | bound {b_ms * 1e3:.2f} us by {b_by} ({nbytes / 1e6:.2f} "
-            f"MB); latency floor {steps} dependent steps | library: none")
+            f"MB, {hashes} hashes x {HASH_OPS} integer operations at "
+            f"{INT32_OPS_PER_S:.4g}/s); latency floor {steps} dependent "
+            f"steps | library: none")
 
 
 def _check_run(name, state, inst, n, slack):
@@ -823,14 +1025,14 @@ def phase_small() -> None:
     inst = tsp.random_instance(100, seed=5)
     # (label, cfg kwargs, iterations, tau bitwise, kernels it must launch)
     for label, kw, iters, tau_exact, kernels in (
-            ("mmas", dict(variant="mmas"), 10, True, ("fused_select",)),
-            ("as", dict(variant="as"), 1, True, ("fused_select",)),
+            ("mmas", dict(variant="mmas"), 10, True, ("fused_walk",)),
+            ("as", dict(variant="as"), 1, True, ("fused_walk",)),
             ("mmas + 2opt_oropt", dict(variant="mmas",
                                        local_search="2opt_oropt"), 3, True,
-             ("fused_select", "two_opt_best")),
+             ("fused_walk", "two_opt_best")),
             ("mmas + int8 stochastic", dict(variant="mmas", tau_dtype="int8",
                                             tau_round="stochastic"), 10, True,
-             ("fused_select_quant",))):
+             ("fused_walk_quant",))):
         cfg = aco.ACOConfig(iterations=iters, seed=3, use_pallas=True, **kw)
         ops.reset_launch_counts()
         gpu = aco.run(inst, cfg, device="cuda")
@@ -942,8 +1144,8 @@ def phase_main(launches: dict) -> None:
     # and MMAS + 2-opt run until they reach that tour; the others take a
     # few iterations and are held to 1.2 x it.  The 2-opt reduction's
     # launches are checked against the rounds localsearch.improve reports.
-    dense = {"fused_select": 1001, "pheromone_update_tours": 1}
-    quantised = {"fused_select_quant": 1001, "pheromone_update_tours": 1}
+    dense = {"fused_walk": 1, "pheromone_update_tours": 1}
+    quantised = {"fused_walk_quant": 1, "pheromone_update_tours": 1}
     runs = [
         ("as", 1002, dict(variant="as", iterations=3), dense, 1.2, None),
         ("mmas", 1002, dict(variant="mmas", iterations=2 * MMAS_CHUNK),
@@ -965,8 +1167,8 @@ def phase_main(launches: dict) -> None:
                                  iterations=3), quantised, 1.2, None),
         ("as-bf16", 1002, dict(variant="as", tau_dtype="bf16",
                                iterations=3), quantised, 1.2, None),
-        ("as", 2392, dict(variant="as", iterations=1),
-         {"fused_select": 2391, "pheromone_update_tours": 1}, 1.2, None),
+        ("as", 2392, dict(variant="as", iterations=3),
+         dense, 1.2, None),
     ]
     instances = {}
     first_best = {}     # best_len after the first iteration, by label
@@ -1001,8 +1203,8 @@ def phase_main(launches: dict) -> None:
                 raise AssertionError(f"main {label} n={n}: {k} launched "
                                      f"{counts[k]} times, expected "
                                      f"{want.get(k, 0)}")
-            name = k if k != "fused_select_quant" else \
-                f"fused_select_quant_{cfg.tau_dtype}"
+            name = k if k != "fused_walk_quant" else \
+                f"fused_walk_quant_{cfg.tau_dtype}"
             launches[name] = launches.get(name, 0) + counts[k]
         best, c_nn = _check_run(f"main {label} n={n}", state, inst, n, slack)
         first_best[label] = bests[0]
@@ -1286,6 +1488,7 @@ def main() -> int:
     phase_build()
     results: dict = {}
     phase_kernels(results)
+    phase_dense_walk(results)
     phase_sparse_kernels(results)
     phase_small()
     phase_small_sparse()

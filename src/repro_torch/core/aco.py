@@ -8,11 +8,12 @@ tracks the best tour.
 
 With ``use_pallas=True`` (the kernel route) construction and update run
 through the CUDA kernels of ``kernels/``: ``construction="data_parallel"``
-becomes the ``fused_select`` kernel step (no (n, n) choice matrix), other
-constructions take the ``choice_info`` kernel, and the update is the fused
+becomes one ``fused_walk`` kernel launch, every step of every ant (no
+(n, n) choice matrix, no (m, n) draw tensor), other constructions take
+the ``choice_info`` kernel, and the update is the fused
 ``pheromone_update`` kernel.  Local search (``local_search``) reduces its
 2-opt moves with the ``two_opt_best`` kernel.  A quantised pheromone store
-(``tau_dtype`` bf16/int8, ``core/quant.py``) reaches the fused step as its
+(``tau_dtype`` bf16/int8, ``core/quant.py``) reaches the fused walk as its
 payload, dequantised inside the kernel.  On CPU tensors the kernels'
 plain versions run instead (``kernels/ops.py``).
 
@@ -250,8 +251,8 @@ def colony_step(problem: Problem, state: ColonyState,
 
     method = cfg.construction
     if cfg.use_pallas and method == "data_parallel":
-        # The fused_select kernel does the whole construction step: no
-        # (n, n) choice precompute on this route at all.
+        # The fused_walk kernel does the whole construction: no (n, n)
+        # choice precompute on this route at all.
         method = "fused"
     choice_info = None
     tau_c, tau_scale = tau_full, None

@@ -8,15 +8,17 @@ Three construction methods of the reference's ladder are ported:
 - ``pallas``         the paper's unfused kernel pair: rows of a
                      precomputed choice matrix go through the ``tour_select``
                      kernel (``kernels/tour_select.py``);
-- ``fused``          the ``fused_select`` kernel (``kernels/fused_select.py``):
-                     row gather, ``tau^alpha * eta^beta``, masking and
-                     selection in one launch, with no (n, n) choice matrix.
+- ``fused``          the ``fused_walk`` kernel (``kernels/fused_select.py``):
+                     every step of every ant -- row gather,
+                     ``tau^alpha * eta^beta``, the step's draw, masking,
+                     selection and tabu update -- in one launch, with no
+                     (n, n) choice matrix and no (m, n) draw tensor.
 
-The reference's ``lax.scan`` over the n-1 steps is a Python loop here: step
-``t`` draws from ``fold_in(key, t)``.  Padded instances (``n_actual``) emit
-the phantom tail in fixed index order, as the reference does.  The other
-methods (``task_baseline``, ``task_choice``, ``nn_list``) are not ported
-yet (ROADMAP queue 1 item 5).
+For the other methods the reference's ``lax.scan`` over the n-1 steps is a
+Python loop here.  Step ``t`` draws from ``fold_in(key, t)``.  Padded
+instances (``n_actual``) emit the phantom tail in fixed index order, as the
+reference does.  The other methods (``task_baseline``, ``task_choice``,
+``nn_list``) are not ported yet (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -57,11 +59,10 @@ def _init_state(start: torch.Tensor, n: int) -> TourState:
     return TourState(start, visited)
 
 
-def _finish(start: torch.Tensor, steps: list, dist: torch.Tensor,
+def _finish(start: torch.Tensor, steps: torch.Tensor, dist: torch.Tensor,
             n_actual: NActual = None) -> TourResult:
-    """steps: n-1 emitted (m,) city vectors -> tours (m, n) + lengths."""
-    tours = torch.stack([start] + steps, dim=0).T.contiguous()
-    tours = tours.to(torch.int32)
+    """steps: (n-1, m) int32 emitted cities -> tours (m, n) + lengths."""
+    tours = torch.cat([start[None], steps]).T.contiguous()
     return TourResult(tours, tsp.tour_length(dist, tours, n_actual))
 
 
@@ -101,22 +102,6 @@ def _make_pallas_step(selector: str, draw_mode: str = "packed") -> StepImpl:
     return step
 
 
-def _make_fused_step(selector: str, alpha: float, beta: float,
-                     draw_mode: str = "packed") -> StepImpl:
-    def step(key, choice_info, st, t, extras):
-        del choice_info, t
-        from ..kernels import ops as kops
-        u = _draw_step_uniform(key, tuple(st.visited.shape), draw_mode)
-        # A quantised tau arrives as its payload; only int8 has a scale.
-        tau = extras["tau"]
-        scale = extras["tau_scale"] if tau.dtype == torch.int8 else None
-        return kops.fused_select(tau, extras["eta"], st.cur, st.visited, u,
-                                 alpha, beta, extras["n_actual"], selector,
-                                 tau_scale=scale)
-
-    return step
-
-
 def construct_tours(
     key: torch.Tensor,
     dist: torch.Tensor,
@@ -151,23 +136,27 @@ def construct_tours(
         raise ValueError(f"unknown draw_mode {draw_mode!r}; "
                          f"supported: {', '.join(sampling.DRAW_MODES)}")
     n = dist.shape[0]
+    kp, kc = sampling.split(key)
+    start = place_ants(kp, m, n, n_actual)
     if method == "fused":
         assert tau is not None and eta is not None
-        step_impl = _make_fused_step(selection, float(alpha), float(beta),
-                                     draw_mode)
-    elif method == "pallas":
+        from ..kernels import ops as kops
+        # A quantised tau arrives as its payload; only int8 has a scale.
+        scale = tau_scale if tau.dtype == torch.int8 else None
+        steps = kops.fused_walk(tau, eta, start, kc, float(alpha),
+                                float(beta), n_actual, selection, draw_mode,
+                                tau_scale=scale)
+        return _finish(start, steps, dist, n_actual)
+    if method == "pallas":
         step_impl = _make_pallas_step(selection, draw_mode)
     else:
         step_impl = _make_dense_step(selection, draw_mode)
-    kp, kc = sampling.split(key)
-    start = place_ants(kp, m, n, n_actual)
-    extras = {"tau": tau, "eta": eta, "n_actual": n_actual,
-              "tau_scale": tau_scale}
+    extras = {"n_actual": n_actual}
     st = _init_state(start, n)
     ants = torch.arange(m, device=dist.device)
     # One batched hash gives every step's key: fold_in(kc, t), t = 1..n-1.
     step_keys = sampling.fold_in(kc, torch.arange(1, n, device=kc.device))
-    steps = []
+    steps = torch.empty((n - 1, m), dtype=torch.int32, device=dist.device)
     for t in range(1, n):
         if n_actual is not None and t >= n_actual:
             # Padded instance: the real cities are exhausted, emit the
@@ -178,7 +167,7 @@ def construct_tours(
             nxt = step_impl(step_keys[t - 1], choice_info, st, t, extras)
         st.visited[ants, nxt.long()] = True      # in place: one (m, n) buffer
         st = TourState(nxt, st.visited)
-        steps.append(nxt)
+        steps[t - 1] = nxt
     return _finish(start, steps, dist, n_actual)
 
 

@@ -39,6 +39,10 @@ SIGNATURES = {
                          _P],
     "aco_fused_select_quant": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                                _F, _F, _I, _I, _P],
+    "aco_fused_walk": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
+                       _I, _F, _F, _I, _P],
+    "aco_fused_walk_quant": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                             _F, _F, _I, _I, _F, _F, _I, _P],
     "aco_pheromone_update": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong,
                              _F, _P],
     "aco_pheromone_update_tours": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],

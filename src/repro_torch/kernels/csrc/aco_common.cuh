@@ -1,5 +1,7 @@
 // Device functions shared by the construction kernels (choice_info,
-// tour_select, fused_select) and the plain C interface's conventions.
+// tour_select, fused_select, sparse_select) and the plain C interface's
+// conventions: the selection transform and arg-max, and the threefry-2x32
+// draw that the two walk kernels hash in registers.
 //
 // Every float operation that the plain PyTorch versions round separately
 // is written with an explicit rounding intrinsic (__fmul_rn, __fadd_rn):
@@ -10,6 +12,7 @@
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
+#include <cstdint>
 
 namespace aco {
 
@@ -102,6 +105,67 @@ __device__ __forceinline__ ArgMax block_argmax(ArgMax a) {
     }
   }
   return a;
+}
+
+// ------------------------------------------------------- the threefry draw
+
+// Draw layouts of the step's (m, n) uniform: sampling.uniform (packed) and
+// sampling.counter_uniform (counter).
+enum Draw : int { kPacked = 0, kCounter = 1 };
+
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
+  return __funnelshift_l(x, x, r);
+}
+
+#define ACO_TF4(r0, r1, r2, r3)               \
+  x0 += x1; x1 = rotl(x1, r0) ^ x0;           \
+  x0 += x1; x1 = rotl(x1, r1) ^ x0;           \
+  x0 += x1; x1 = rotl(x1, r2) ^ x0;           \
+  x0 += x1; x1 = rotl(x1, r3) ^ x0;
+
+// Threefry-2x32, 20 rounds (core/sampling.threefry2x32, jax.random's hash).
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t& x0, uint32_t& x1) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  x0 += k0; x1 += k1;
+  ACO_TF4(13, 15, 26, 6)  x0 += k1; x1 += k2 + 1u;
+  ACO_TF4(17, 29, 16, 24) x0 += k2; x1 += k0 + 2u;
+  ACO_TF4(13, 15, 26, 6)  x0 += k0; x1 += k1 + 3u;
+  ACO_TF4(17, 29, 16, 24) x0 += k1; x1 += k2 + 4u;
+  ACO_TF4(13, 15, 26, 6)  x0 += k2; x1 += k0 + 5u;
+}
+#undef ACO_TF4
+
+// fold_in(key, t) = threefry(key, (0, t)) (sampling.fold_in): the key of
+// construction step t.
+__device__ __forceinline__ uint2 fold_in(uint32_t k0, uint32_t k1,
+                                         uint32_t t) {
+  uint32_t x0 = 0u, x1 = t;
+  threefry2x32(k0, k1, x0, x1);
+  return make_uint2(x0, x1);
+}
+
+// U[lo, lo + span) at (ant a, city c) of the step's (m, n) draw: packed,
+// y0 ^ y1 of threefry(key, (hi, lo) of a n + c); counter, y0 of
+// threefry(key, (a 65536 + c, 0)); then sampling._uniform_from_bits with
+// its one-rounding multiply-add.
+__device__ __forceinline__ float draw_at(uint32_t k0, uint32_t k1, int a,
+                                         int c, int n, int draw, float lo,
+                                         float span) {
+  uint32_t x0, x1;
+  if (draw == kPacked) {
+    const unsigned long long flat = (unsigned long long)a * n + c;
+    x0 = (uint32_t)(flat >> 32);
+    x1 = (uint32_t)flat;
+  } else {
+    x0 = (uint32_t)a * 65536u + (uint32_t)c;
+    x1 = 0u;
+  }
+  threefry2x32(k0, k1, x0, x1);
+  const uint32_t bits = draw == kPacked ? (x0 ^ x1) : x0;
+  const float flo = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u),
+                              1.0f);
+  return fmaxf(lo, __fmaf_rn(flo, span, lo));
 }
 
 // Grid size for a grid-stride loop over `work` items.

@@ -151,7 +151,6 @@ int launch_mode(const T* tau, const float* scale, const float* eta,
 // ---------------------------------------------------------------- the walk
 
 enum Ewt : int { kEuc2d = 0, kCeil2d = 1, kAtt = 2, kRaw = 3 };
-enum Draw : int { kPacked = 0, kCounter = 1 };
 constexpr int kWalkWarps = 4;
 constexpr int kSmemCap = 232448;  // bytes of shared memory a block may use
 
@@ -168,49 +167,6 @@ __device__ __forceinline__ float lazy_dist(float2 p, float2 q, int ewt) {
     return t < r ? __fadd_rn(t, 1.0f) : t;
   }
   return __fsqrt_rn(sq);
-}
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-#define ACO_TF4(r0, r1, r2, r3)               \
-  x0 += x1; x1 = rotl(x1, r0) ^ x0;           \
-  x0 += x1; x1 = rotl(x1, r1) ^ x0;           \
-  x0 += x1; x1 = rotl(x1, r2) ^ x0;           \
-  x0 += x1; x1 = rotl(x1, r3) ^ x0;
-
-// Threefry-2x32, 20 rounds (core/sampling.threefry2x32, jax.random's hash).
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0; x1 += k1;
-  ACO_TF4(13, 15, 26, 6)  x0 += k1; x1 += k2 + 1u;
-  ACO_TF4(17, 29, 16, 24) x0 += k2; x1 += k0 + 2u;
-  ACO_TF4(13, 15, 26, 6)  x0 += k0; x1 += k1 + 3u;
-  ACO_TF4(17, 29, 16, 24) x0 += k1; x1 += k2 + 4u;
-  ACO_TF4(13, 15, 26, 6)  x0 += k2; x1 += k0 + 5u;
-}
-#undef ACO_TF4
-
-// U[lo, lo + span) at (ant a, city c) of the step's (m, n) draw.
-__device__ __forceinline__ float draw_at(uint32_t k0, uint32_t k1, int a,
-                                         int c, int n, int draw, float lo,
-                                         float span) {
-  uint32_t x0, x1;
-  if (draw == kPacked) {
-    const unsigned long long flat = (unsigned long long)a * n + c;
-    x0 = (uint32_t)(flat >> 32);
-    x1 = (uint32_t)flat;
-  } else {
-    x0 = (uint32_t)a * 65536u + (uint32_t)c;
-    x1 = 0u;
-  }
-  threefry2x32(k0, k1, x0, x1);
-  const uint32_t bits = draw == kPacked ? (x0 ^ x1) : x0;
-  const float flo = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u),
-                              1.0f);
-  return fmaxf(lo, __fmaf_rn(flo, span, lo));
 }
 
 // Page payload of row r, position j: int8 scales are per row.
@@ -321,9 +277,10 @@ __global__ void sparse_walk_kernel(WalkArgs g) {
         }
         const bool real = c >= 0 && c < n;
         const bool keep = !real || vis[c] == 0;
-        const float u = (MODE == aco::kGreedy || !real)
-                            ? 0.0f
-                            : draw_at(k0, k1, a, c, n, g.draw, g.lo, g.span);
+        const float u =
+            (MODE == aco::kGreedy || !real)
+                ? 0.0f
+                : aco::draw_at(k0, k1, a, c, n, g.draw, g.lo, g.span);
         const float w = aco::choice(tv, e, g.alpha, g.beta);
         const float v = aco::transform<MODE>(w, keep, u);
         if (best.beaten_by(v, j)) {
@@ -473,9 +430,9 @@ extern "C" int aco_sparse_walk(
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return 0;
-  if (n <= 0 || k < 0 || o < 0 || (draw != kPacked && draw != kCounter) ||
-      ewt < kEuc2d || ewt > kRaw || (payload == 1 && (!tau_scale ||
-                                                      (o > 0 && !ovf_scale))))
+  if (n <= 0 || k < 0 || o < 0 ||
+      (draw != aco::kPacked && draw != aco::kCounter) || ewt < kEuc2d ||
+      ewt > kRaw || (payload == 1 && (!tau_scale || (o > 0 && !ovf_scale))))
     return (int)cudaErrorInvalidValue;
   WalkArgs g{reinterpret_cast<const float2*>(coords), cand, cand_dist,
              cand_eta, tau, tau_scale, ovf_city, ovf_tau, ovf_scale, start,

@@ -1,28 +1,32 @@
-"""CUDA kernel: one fused construction step (choice -> select) for m ants.
+"""CUDA kernels: the dense fused construction (choice -> select).
 
 Replaces ``repro/kernels/fused_select.py::fused_select`` (``_fused_kernel``,
-``pallas_call`` at fused_select.py:176): ``fused_select`` launches the
-float32 body (K1), ``fused_select_quant`` the same kernel over an int8 or
-bfloat16 tau payload, dequantised in registers after the row gather (the
-Pallas kernel's ``quant`` epilogue, K6).  Source: ``csrc/fused_select.cu``.
+``pallas_call`` at fused_select.py:176) and the reference's ``lax.scan``
+over it (``repro/core/strategies.py`` ``_construct`` with
+``_make_fused_step``).  Source: ``csrc/fused_select.cu``.
 
-Bound on the H100: bytes.  Per (ant, city) it reads tau and eta of the
-ant's current row (4 + 4), the tabu byte (1) and the draw (4): about 13 MB
-per step at n = m = 1002, 3.9 us at 3.35 TB/s.  It runs n-1 times an
-iteration, so launch overhead weighs as much as the bytes.  The Pallas
-kernel gathers rows with one-hot MXU matmuls; here one block per ant reads
-its rows directly, weights, masks and transforms in registers, and ends in
-one block arg-max with the lowest-index tie rule.  The (m, n) weight
-matrix never exists.
+- ``fused_walk`` / ``fused_walk_quant``: the whole construction of one
+  iteration in one launch (float32 tau, K1; an int8 or bfloat16 payload
+  dequantised in registers, the Pallas kernel's ``quant`` epilogue, K6).
+  One block owns one ant for all n-1 steps; the step's threefry draw is
+  hashed in registers, only at the cities where its value can change the
+  pick.  Bound on the H100: operations, one threefry hash (about 80 integer
+  operations) per (step, ant, selectable city): about 2.4 ms at
+  n = m = 1002, where its bytes (payload, eta, tours) take 2.7-4 us.  This
+  is what the dense kernel route launches, once an iteration.
+- ``fused_select`` / ``fused_select_quant``: one step for m ants, over a
+  draw tensor built outside, with the reference kernel's own signature.
+  Bound: bytes, about 13 MB per step at n = m = 1002 (3.9 us).  Kept and
+  checked on the card; no path launches it any more.
 
-An int8 payload reads 1 byte of tau per (ant, city) instead of 4, and a
-bfloat16 payload 2.
-
-``fused_select_plain`` and ``fused_select_quant_plain`` are the same
-functions in plain PyTorch: the CPU path of ``ops.fused_select`` and the
-yardsticks of the kernel on the card.  The quantised one dequantises the
-whole matrix first (the reference's oracle); the per-row scale is constant
-along a row, so that multiplies exactly the operands the kernel does.
+``fused_walk_plain`` is the walk as the host loop of plain steps
+(``fold_in`` -> the step's (m, n) draw -> ``fused_select_plain`` -> tabu
+update): the CPU path of ``ops.fused_walk`` and the yardstick of the walk
+kernel on the card.  ``fused_select_plain`` and
+``fused_select_quant_plain`` are the one-step functions in plain PyTorch;
+the quantised one dequantises the whole matrix first (the reference's
+oracle), and the per-row scale is constant along a row, so that multiplies
+exactly the operands the kernels do.
 """
 from __future__ import annotations
 
@@ -30,9 +34,11 @@ from typing import Optional
 
 import torch
 
+from ..core import sampling
 from ..core.quant import dequantise_rows
 from . import _build
 from .choice_info import ipow
+from .sparse_select import DRAW_CODES, DRAW_MAX, DRAW_MIN
 from .tour_select import mode_code, tour_select_plain
 
 
@@ -134,3 +140,152 @@ def fused_select_quant(tau_q: torch.Tensor, tau_scale: Optional[torch.Tensor],
 
 
 fused_select_quant.launches = 0
+
+
+# ------------------------------------------------------------ the walk
+
+def fused_walk_plain(tau: torch.Tensor, eta: torch.Tensor,
+                     start: torch.Tensor, key: torch.Tensor,
+                     alpha: float = 1.0, beta: float = 2.0,
+                     n_actual: Optional[int] = None,
+                     mode: str = "iroulette", draw_mode: str = "packed",
+                     tau_scale: Optional[torch.Tensor] = None,
+                     visited: Optional[torch.Tensor] = None,
+                     first_step: int = 1, select=None) -> torch.Tensor:
+    """The walk as a host loop of plain steps, on any device.  Same
+    arguments and result as ``fused_walk`` (a quantised ``tau`` payload
+    with its int8 ``tau_scale`` as in ``fused_walk_quant``).  Step t draws
+    the full (m, n) uniform of ``fold_in(key, t)``.  ``select`` replaces
+    the plain selection of a step (``ops.fused_select``'s signature, given
+    the payload as it came): the one-step kernel route this walk replaced,
+    for timing beside it."""
+    from ..core.strategies import _draw_step_uniform
+    mode_code(mode)
+    if draw_mode not in DRAW_CODES:
+        raise ValueError(f"fused_walk: unknown draw_mode {draw_mode!r}")
+    m, n = start.shape[0], tau.shape[1]
+    dev = start.device
+    ants = torch.arange(m, device=dev)
+    vis = (torch.zeros((m, n), dtype=torch.bool, device=dev)
+           if visited is None else visited.clone())
+    vis[ants, start.long()] = True
+    scale = tau_scale if tau.dtype == torch.int8 else None
+    if select is None:
+        tau_f = dequantise_rows(tau, scale)
+
+        def select(tau, eta, cur, visited, rand, alpha, beta, n_actual,
+                   mode, tau_scale=None):
+            return fused_select_plain(tau_f, eta, cur, visited, rand, alpha,
+                                      beta, n_actual, mode)
+
+    out = torch.empty((max(n - first_step, 0), m), dtype=torch.int32,
+                      device=dev)
+    keys = sampling.fold_in(key, torch.arange(first_step, n, device=dev))
+    cur = start
+    for t in range(first_step, n):
+        if n_actual is not None and t >= n_actual:
+            # the phantom tail in fixed index order, as the reference
+            nxt = torch.full((m,), t, dtype=torch.int32, device=dev)
+        else:
+            u = _draw_step_uniform(keys[t - first_step], (m, n), draw_mode)
+            nxt = select(tau, eta, cur, vis, u, alpha, beta, n_actual, mode,
+                         tau_scale=scale)
+        vis[ants, nxt.long()] = True
+        out[t - first_step] = nxt
+        cur = nxt
+    return out
+
+
+def _launch_walk(name: str, tau: torch.Tensor, scale, eta: torch.Tensor,
+                 start: torch.Tensor, key: torch.Tensor, alpha: float,
+                 beta: float, n_actual: Optional[int], mode: str,
+                 draw_mode: str, visited: Optional[torch.Tensor],
+                 first_step: int) -> torch.Tensor:
+    code = mode_code(mode)
+    if draw_mode not in DRAW_CODES:
+        raise ValueError(f"{name}: unknown draw_mode {draw_mode!r}")
+    n_rows, n = tau.shape
+    dev = tau.device
+    _build.require(f"{name} eta", eta, torch.float32, tau.shape, dev)
+    m = start.shape[0]
+    _build.require(f"{name} start", start, torch.int32, (m,), dev)
+    _build.require(f"{name} key", key, torch.int64, (2,), dev)
+    if visited is not None:
+        _build.require(f"{name} visited", visited, torch.bool, (m, n), dev)
+    if (tau.data_ptr() | eta.data_ptr()) % 16:
+        raise ValueError(f"{name}: tau and eta must be 16-byte aligned")
+    if draw_mode == "counter" and n > sampling.COUNTER_STRIDE:
+        raise ValueError(f"{name}: counter draws need n <= "
+                         f"{sampling.COUNTER_STRIDE}, got {n}")
+    if first_step < 1:
+        raise ValueError(f"{name}: first_step {first_step} < 1")
+    # the quantised entry takes the payload kind and the int8 scale first
+    payload = () if name == "fused_walk" else (
+        1 if tau.dtype == torch.int8 else 2,
+        None if scale is None else scale.data_ptr())
+    n_act = n if n_actual is None else int(n_actual)
+    out = torch.empty((max(n - first_step, 0), m), dtype=torch.int32,
+                      device=dev)
+    span = sampling.uniform_span(draw_mode, DRAW_MIN, DRAW_MAX)
+    _build.launch(name, dev, tau.data_ptr(), *payload, eta.data_ptr(),
+                  n_rows, start.data_ptr(),
+                  None if visited is None else visited.data_ptr(),
+                  key.data_ptr(), out.data_ptr(), m, n, int(first_step),
+                  float(alpha), float(beta), code, DRAW_CODES[draw_mode],
+                  DRAW_MIN, span, n_act)
+    return out
+
+
+def fused_walk(tau: torch.Tensor, eta: torch.Tensor, start: torch.Tensor,
+               key: torch.Tensor, alpha: float = 1.0, beta: float = 2.0,
+               n_actual: Optional[int] = None, mode: str = "iroulette",
+               draw_mode: str = "packed",
+               visited: Optional[torch.Tensor] = None,
+               first_step: int = 1) -> torch.Tensor:
+    """Launch the walk kernel on CUDA tensors; raises on anything else.
+
+    tau/eta (R, n) float32, 16-byte aligned; ``start`` (m,) int32, the
+    ants' first cities; ``key`` (2,) int64, the construction key (step t
+    draws from ``fold_in(key, t)``).  The ants' tabu rows start from
+    ``visited`` (m, n) bool, or clear, with each start city marked.  Runs
+    steps t = first_step .. n-1; steps t >= n_actual emit city t.  Returns
+    the picked cities, (n - first_step, m) int32.  The kernel reads each
+    row in 16-byte chunks aligned in the flat array: a chunk that holds one
+    element of a row lies in that array's 16-byte granule."""
+    _build.require("fused_walk tau", tau, torch.float32)
+    out = _launch_walk("fused_walk", tau, None, eta, start, key, alpha, beta,
+                       n_actual, mode, draw_mode, visited, first_step)
+    fused_walk.launches += 1
+    return out
+
+
+fused_walk.launches = 0
+
+
+def fused_walk_quant(tau_q: torch.Tensor, tau_scale: Optional[torch.Tensor],
+                     eta: torch.Tensor, start: torch.Tensor,
+                     key: torch.Tensor, alpha: float = 1.0,
+                     beta: float = 2.0, n_actual: Optional[int] = None,
+                     mode: str = "iroulette", draw_mode: str = "packed",
+                     visited: Optional[torch.Tensor] = None,
+                     first_step: int = 1) -> torch.Tensor:
+    """``fused_walk`` over an int8 (with its (R, 1) float32 ``tau_scale``)
+    or bfloat16 payload on CUDA tensors; raises on anything else."""
+    _build.require("fused_walk_quant tau", tau_q,
+                   (torch.int8, torch.bfloat16))
+    scale = None
+    if tau_q.dtype == torch.int8:
+        if tau_scale is None:
+            raise ValueError("fused_walk_quant: an int8 payload needs its "
+                             "per-row scale")
+        _build.require("fused_walk_quant scale", tau_scale, torch.float32,
+                       (tau_q.shape[0], 1), tau_q.device)
+        scale = tau_scale
+    out = _launch_walk("fused_walk_quant", tau_q, scale, eta, start, key,
+                       alpha, beta, n_actual, mode, draw_mode, visited,
+                       first_step)
+    fused_walk_quant.launches += 1
+    return out
+
+
+fused_walk_quant.launches = 0

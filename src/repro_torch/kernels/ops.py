@@ -30,6 +30,8 @@ from . import two_opt as _to
 KERNELS = {
     "fused_select": _fs.fused_select,
     "fused_select_quant": _fs.fused_select_quant,
+    "fused_walk": _fs.fused_walk,
+    "fused_walk_quant": _fs.fused_walk_quant,
     "pheromone_update": _pu.pheromone_update,
     "pheromone_update_tours": _pu.pheromone_update_tours,
     "choice_info": _ci.choice_info,
@@ -171,6 +173,31 @@ def fused_select(tau: torch.Tensor, eta: torch.Tensor, cur: torch.Tensor,
                                       beta, n_actual, mode)
     return _fs.fused_select(tau, eta, cur, visited, rand, alpha, beta,
                             n_actual, mode)
+
+
+def fused_walk(tau: torch.Tensor, eta: torch.Tensor, start: torch.Tensor,
+               key: torch.Tensor, alpha: float = 1.0, beta: float = 2.0,
+               n_actual: Optional[int] = None, mode: str = "iroulette",
+               draw_mode: str = "packed",
+               tau_scale: Optional[torch.Tensor] = None,
+               visited: Optional[torch.Tensor] = None,
+               first_step: int = 1) -> torch.Tensor:
+    """The dense fused construction walk: steps first_step .. n-1 of every
+    ant (row gather, tau^a * eta^b, the draw of ``fold_in(key, t)``, mask,
+    select, tabu update), as (n - first_step, m) int32 cities.  An int8 or
+    bfloat16 ``tau`` is a quantised payload; ``tau_scale`` is the int8
+    per-row scale."""
+    quantised = tau.dtype in (torch.int8, torch.bfloat16)
+    if _plain(tau):
+        return _fs.fused_walk_plain(tau, eta, start, key, alpha, beta,
+                                    n_actual, mode, draw_mode, tau_scale,
+                                    visited, first_step)
+    if quantised:
+        return _fs.fused_walk_quant(tau, tau_scale, eta, start, key, alpha,
+                                    beta, n_actual, mode, draw_mode, visited,
+                                    first_step)
+    return _fs.fused_walk(tau, eta, start, key, alpha, beta, n_actual, mode,
+                          draw_mode, visited, first_step)
 
 
 def pheromone_update(tau: torch.Tensor, tours: torch.Tensor, w: torch.Tensor,

@@ -13,8 +13,9 @@ pages; 2-opt move deltas and indices bitwise; the edge-stream update
 bitwise where each cell gets at most one deposit, rtol 1e-5 / atol 1e-7
 where atomics sum several deposits in another order; the tours-driven
 update (the colony step's) bitwise for any number of ants, and the same
-from launch to launch; the sparse walk kernel bitwise against the plain
-walk on the card (and, for iroulette and greedy, on the CPU).
+from launch to launch; the dense and the sparse walk kernels bitwise
+against their plain walks on the card (and, for iroulette and greedy, on
+the CPU).
 """
 import numpy as np
 import pytest
@@ -124,13 +125,14 @@ def test_kernel_route_on_card_equals_cpu_route():
     route is launched."""
     dev = cuda_device()
     inst = tsp.random_instance(60, seed=2)
-    for construction, launched in (("data_parallel", "fused_select"),
-                                   ("pallas", "tour_select")):
+    for construction, launched, per_it in (
+            ("data_parallel", "fused_walk", 1), ("pallas", "tour_select", 59)):
         cfg = aco.ACOConfig(variant="mmas", iterations=4, seed=5,
                             use_pallas=True, construction=construction)
         ops.reset_launch_counts()
         gpu = aco.run(inst, cfg, device=dev)
-        assert ops.launch_counts()[launched] == 4 * 59
+        assert ops.launch_counts()[launched] == 4 * per_it
+        assert ops.launch_counts()["fused_select"] == 0
         cpu = aco.run(inst, cfg, device="cpu")
         for a, b in zip(gpu, cpu):
             assert torch.equal(a.cpu(), b), construction
@@ -199,7 +201,8 @@ def test_local_search_and_quantised_colony_on_card_equal_cpu():
         counts = ops.launch_counts()
         assert counts["two_opt_best"] == localsearch.improve.rounds
         if "tau_dtype" in kw:
-            assert counts["fused_select_quant"] == 3 * 59
+            assert counts["fused_walk_quant"] == 3
+            assert counts["fused_select_quant"] == 0
         cpu = aco.run(inst, cfg, device="cpu")
         for a, b in zip(gpu[1:], cpu[1:]):
             assert torch.equal(a.cpu(), b), kw
@@ -309,3 +312,53 @@ def test_sparse_walk_kernel_bitwise(tau_dtype, case):
                                             "fallbacks")):
             assert torch.equal(g.cpu(), w), (mode, what, "cpu")
         assert torch.equal(vis_k.cpu(), vis_c), mode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["packed", "counter", "padded", "window"])
+@pytest.mark.parametrize("tau_dtype", ["fp32", "int8", "bf16"])
+def test_fused_walk_kernel_bitwise(tau_dtype, case):
+    """One fused_walk launch against the plain walk on the card (every step
+    through the full draw and fused_select_plain): the cities bitwise in
+    all three modes; iroulette and greedy also against the CPU.  n = 301
+    (rows start off 16-byte boundaries), m = 40; padded: 293 real cities;
+    window: the walk's last 60 steps from a random mid-walk state (the
+    route's shapes are in chip_smoke.py)."""
+    dev = cuda_device()
+    n, m = 301, 40
+    n_actual = 293 if case == "padded" else None
+    draw = "counter" if case == "counter" else "packed"
+    rng = np.random.default_rng(n + m)
+    tau = torch.tensor((rng.random((n, n)) * 1e-2 + 1e-3).astype(np.float32),
+                       device=dev)
+    eta = torch.tensor((1.0 / (rng.random((n, n)) * 100 + 1)).astype(
+        np.float32), device=dev)
+    scale = None
+    if tau_dtype != "fp32":
+        qt = quant.quantise(tau, tau_dtype,
+                            key=torch.tensor([0, n], device=dev))
+        tau, scale = qt.q, (qt.scale if tau_dtype == "int8" else None)
+    key = torch.tensor([3, 11], device=dev)
+    visited, first = None, 1
+    if case == "window":
+        visited = torch.tensor(rng.random((m, n)) < 0.8, device=dev)
+        first = n - 60
+    start = torch.tensor(rng.integers(0, n_actual or n, m).astype(np.int32),
+                         device=dev)
+    for mode in MODES:
+        ops.reset_launch_counts()
+        got = ops.fused_walk(tau, eta, start, key, 1.0, 2.0, n_actual, mode,
+                             draw, scale, visited, first)
+        name = "fused_walk" if tau_dtype == "fp32" else "fused_walk_quant"
+        assert ops.launch_counts()[name] == 1
+        want = fs.fused_walk_plain(tau, eta, start, key, 1.0, 2.0, n_actual,
+                                   mode, draw, scale, visited, first)
+        assert torch.equal(got, want), mode
+        if mode == "gumbel":
+            continue
+        cpu = [None if x is None else x.cpu()
+               for x in (tau, eta, start, key, scale, visited)]
+        want_c = fs.fused_walk_plain(cpu[0], cpu[1], cpu[2], cpu[3], 1.0,
+                                     2.0, n_actual, mode, draw, cpu[4],
+                                     cpu[5], first)
+        assert torch.equal(got.cpu(), want_c), (mode, "cpu")

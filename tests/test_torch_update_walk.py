@@ -39,7 +39,7 @@ from repro_torch.kernels import sparse_select as ss  # noqa: E402
 from repro_torch.kernels.choice_info import ipow  # noqa: E402
 from repro_torch.kernels.tour_select import transform  # noqa: E402
 from repro_torch.sparse import construct, store  # noqa: E402
-from torch_parity import assert_bitwise  # noqa: E402
+from torch_parity import OnCard, assert_bitwise  # noqa: E402
 
 MODES = ["iroulette", "greedy", "gumbel"]
 
@@ -262,22 +262,6 @@ def test_ops_sparse_walk_on_cpu_is_the_host_loop():
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
-class _OnCard:
-    """A CPU tensor that reports a CUDA device: it reaches the launchers'
-    dtype and shape checks, which run before anything touches a card."""
-
-    def __init__(self, t):
-        self.t = t
-        self.device = torch.device("cuda", 0)
-        self.dtype, self.shape = t.dtype, t.shape
-
-    def is_contiguous(self):
-        return self.t.is_contiguous()
-
-    def data_ptr(self):
-        return self.t.data_ptr()
-
-
 def test_new_launchers_refuse_cpu_tensors_and_bad_inputs():
     """No fallback: CPU tensors are refused, and so are wrong dtypes,
     shapes and options, before any launch."""
@@ -286,7 +270,7 @@ def test_new_launchers_refuse_cpu_tensors_and_bad_inputs():
     w = torch.rand(3)
     with pytest.raises(ValueError, match="CUDA tensor"):
         pu.pheromone_update_tours(tau, tours, w, 0.5)
-    C = _OnCard
+    C = OnCard
     with pytest.raises(TypeError, match="int32"):
         pu.pheromone_update_tours(C(tau), C(tours.long()), C(w), 0.5)
     with pytest.raises(ValueError, match="shape"):

@@ -65,6 +65,34 @@ non-zero:
    MMAS Partial-ACO (window 64, best never rises, no worse than the NN
    tour), AS and ACS, held to 1.2 x the NN tour; each run launches the
    walk kernel once per iteration and the one-step K7 never;
+   batched   -- the batched engine (``solver.engine.solve_instances`` /
+   ``run_batch``) on the kernel route: MMAS over
+   ``tsp.random_instance(n, seed=n)`` for n = 613, 801, 1002, 1024 in one
+   bucket of 1024 (m = 1024 ants a slot), seeds 0-3, budgets (3, 5, 4, 5):
+   each slot bitwise its solo run in the same bucket (best_len, best_tour,
+   iteration, key, tau), the n = 1024 slot bitwise ``aco.run`` of the
+   unpadded instance, iterations equal to the budgets, ``fused_walk`` and
+   ``pheromone_update_tours`` launched once per slot-iteration (17) and
+   the one-step kernels never, every real prefix a permutation with the
+   phantom tail in index order, each best within 1.2 x its NN tour; MMAS +
+   2-opt over an int8 store (two slots, two iterations; ``two_opt_best``
+   once per local-search round reported); sparse MMAS (k = 16 + 4,
+   m = 64) on n = 1500 and 2000 in bucket 2048, 10 iterations, batched ==
+   solo, 20 ``sparse_walk`` launches; small buckets (n <= 64) card == CPU
+   for AS, MMAS + 2-opt, int8, sparse, ``construction="pallas"`` and
+   ``patience=2``, and a run chunked in 2s == one long call.  Prints the
+   batched ``run_batch`` time per engine iteration beside the sum of its
+   slots' solo runs, and a ``torch.profiler`` profile of one engine
+   iteration at B = 4, bucket 1024;
+   service   -- ``SolverService`` (MMAS, kernel route, ``metrics=True``,
+   ``max_batch=4``, ``patience=3``, 6 iterations): six requests (n = 613,
+   801, 1002, 1002, 1500, 2000) from two tenants, one job in bucket 1024
+   and one in 2048, drained plain, with checkpoints every 2 iterations
+   and one crash injected after a chunk, and with metrics off: the three
+   agree bitwise (best_len, best_tour, iterations), the first two in
+   their metrics rows too; the trace and the event log validate
+   (``obs.validate``).  Prints instances/s, mean and max latency,
+   ``solve_s`` per job and the time of a checkpoint save;
 6. profile -- device busy time and idle share of one AS iteration at
    n = 1002, and the kernels that take most of it; the split of one MMAS
    + 2-opt iteration over an int8 store into construction, local search
@@ -1308,6 +1336,410 @@ def phase_sparse(launches: dict) -> None:
             + " ".join(f"{b / c_nn:.4f}" for b in bests))
 
 
+# The batched drain service at the paper's sizes: one bucket of 1024
+# (n = 613 .. 1024) and one of 2048 (n = 1500 .. 2000); m follows the
+# reference's rule, the padded width's num_ants.  The rehearsal on the CPU
+# shrinks these.
+DEV = "cuda"
+BATCH_NS, BATCH_PAD = (613, 801, 1002, 1024), 1024
+BATCH_SEEDS, BATCH_BUDGETS = (0, 1, 2, 3), (3, 5, 4, 5)
+SPARSE_BATCH_NS, SPARSE_BATCH_PAD = (1500, 2000), 2048
+SERVICE_NS = (613, 801, 1002, 1002, 1500, 2000)
+SMALL_NS, SMALL_PAD = (40, 50, 64), 64
+
+
+def _sync():
+    import torch
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def _leaves_equal(a, b) -> bool:
+    import torch
+    from repro_torch import tree
+    return all(torch.equal(x.cpu(), y.cpu())
+               for x, y in zip(tree.flatten(a), tree.flatten(b)))
+
+
+def _counted_batch(insts, cfg, **kw):
+    """solve_instances on the card with launch counts zeroed first:
+    (states, batch, counts, set-up + run seconds)."""
+    from repro_torch.kernels import ops
+    from repro_torch.solver import engine
+    _sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    states, b = engine.solve_instances(insts, cfg, device=DEV, **kw)
+    _sync()
+    return states, b, ops.launch_counts(), time.perf_counter() - t0
+
+
+def _timed_run_batch(insts, cfg, seeds, budgets, n_pad):
+    """Set-up (batch + states) and ``run_batch`` timed apart on the host
+    clock around synchronised work: (states, batch, set-up s, run s)."""
+    from repro_torch.solver import batch, engine
+    _sync()
+    t0 = time.perf_counter()
+    b = batch.make_batch(insts, n_pad, cfg.nn_k, device=DEV)
+    states = engine.init_states(insts, cfg, seeds, n_pad, device=DEV)
+    _sync()
+    t1 = time.perf_counter()
+    states = engine.run_batch(b.problem, states, budgets, cfg, max(budgets),
+                              donate=True)[0]
+    _sync()
+    return states, b, t1 - t0, time.perf_counter() - t1
+
+
+def _check_counts(label, counts, want):
+    for k, v in counts.items():
+        if v != want.get(k, 0):
+            raise AssertionError(f"{label}: {k} launched {v} times, "
+                                 f"expected {want.get(k, 0)}")
+
+
+def _check_padded_tours(label, states, insts, slack):
+    """Each slot's real prefix is a permutation of its cities, the phantom
+    tail in index order, and its best no worse than ``slack`` x its NN
+    tour; returns best / NN tour per slot."""
+    import numpy as np
+    import torch
+    from repro_torch.core import tsp
+    tours = states.best_tour.cpu().numpy()
+    ratios = []
+    for i, inst in enumerate(insts):
+        n, t = inst.n, tours[i]
+        if not (np.array_equal(np.sort(t[:n]), np.arange(n))
+                and np.array_equal(t[n:], np.arange(n, t.shape[0]))):
+            raise AssertionError(f"{label} slot {i}: best tour is not a "
+                                 "real permutation + phantom tail")
+        best = float(states.best_len[i])
+        if not torch.isfinite(states.best_len[i]):
+            raise AssertionError(f"{label} slot {i}: best_len not finite")
+        _, c_nn = tsp.nearest_neighbour_tour(inst.distances())
+        if best > slack * c_nn:
+            raise AssertionError(f"{label} slot {i}: best {best} > {slack} "
+                                 f"x the NN tour {c_nn}")
+        ratios.append(best / c_nn)
+    return ratios
+
+
+def phase_batched(launches: dict) -> None:
+    """The batched engine (``solver.engine``) on the kernel route: one
+    bucket of four MMAS colonies at the paper's sizes, each slot bitwise
+    its solo run; MMAS + 2-opt over an int8 store; a sparse bucket of 2048;
+    small buckets card == CPU; the batched time beside the solo runs' and
+    a profile of one engine iteration."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import aco, localsearch, tsp
+    from repro_torch.kernels import ops
+    from repro_torch.solver import batch, engine
+    from repro_torch import tree
+
+    # -- MMAS, four slots in one bucket, mixed budgets
+    insts = [tsp.random_instance(n, seed=n) for n in BATCH_NS]
+    budgets = list(BATCH_BUDGETS)
+    cfg = aco.ACOConfig(variant="mmas", use_pallas=True,
+                        iterations=max(budgets))
+    states, b, counts, secs = _counted_batch(
+        insts, cfg, iterations=budgets, seeds=BATCH_SEEDS, n_pad=BATCH_PAD)
+    total = sum(budgets)
+    _check_counts("batched mmas", counts,
+                  {"fused_walk": total, "pheromone_update_tours": total})
+    for k in ("fused_walk", "pheromone_update_tours"):
+        launches[k] = launches.get(k, 0) + counts[k]
+    if states.iteration.tolist() != budgets:
+        raise AssertionError(f"batched mmas: iterations "
+                             f"{states.iteration.tolist()} != {budgets}")
+    for i, inst in enumerate(insts):
+        solo, _ = engine.solve_instances(
+            [inst], cfg, iterations=[budgets[i]], seeds=[BATCH_SEEDS[i]],
+            n_pad=BATCH_PAD, device=DEV)
+        if not _leaves_equal(tree.index(states, i), tree.index(solo, 0)):
+            raise AssertionError(f"batched mmas slot {i} (n={inst.n}) != "
+                                 "its solo run")
+    # the unpadded slot is bitwise aco.run of the unpadded instance
+    last = len(insts) - 1
+    if insts[last].n == BATCH_PAD:
+        plain = aco.run(insts[last], aco.ACOConfig(
+            variant="mmas", use_pallas=True, iterations=budgets[last],
+            seed=BATCH_SEEDS[last]), device=DEV)
+        if not _leaves_equal(tree.index(states, last), plain):
+            raise AssertionError("batched mmas: the exact-fit slot != "
+                                 "aco.run of the unpadded instance")
+    ratios = _check_padded_tours("batched mmas", states, insts, 1.2)
+    log(f"[batched] MMAS bucket {BATCH_PAD}, n={list(BATCH_NS)}, budgets "
+        f"{budgets}: {secs:.2f} s incl. set-up; every slot bitwise its solo "
+        f"run (best_len, best_tour, iteration, key, tau), the n={BATCH_PAD} "
+        f"slot bitwise aco.run unpadded; fused_walk={counts['fused_walk']}, "
+        f"pheromone_update_tours={counts['pheromone_update_tours']}, "
+        f"one-step kernels 0; best / NN tour "
+        + " ".join(f"{r:.3f}" for r in ratios))
+
+    # -- the batched run beside the sum of its slots' solo runs (run_batch
+    # only, set-up apart), in turns: batched, solo x4, batched
+    bt_run, solo_run, bt_setup, solo_setup = [], [], [], []
+    for _ in range(2):
+        _, _, su, run = _timed_run_batch(insts, cfg, list(BATCH_SEEDS),
+                                         budgets, BATCH_PAD)
+        bt_setup.append(su)
+        bt_run.append(run)
+        su_sum = run_sum = 0.0
+        for i, inst in enumerate(insts):
+            _, _, su, run = _timed_run_batch([inst], cfg, [BATCH_SEEDS[i]],
+                                             [budgets[i]], BATCH_PAD)
+            su_sum += su
+            run_sum += run
+        solo_setup.append(su_sum)
+        solo_run.append(run_sum)
+    engine_its = max(budgets)
+    log(f"[batched] time: batched run_batch {min(bt_run) * 1e3:.1f} ms "
+        f"(runs {', '.join(f'{t * 1e3:.1f}' for t in bt_run)}) = "
+        f"{min(bt_run) / engine_its * 1e3:.1f} ms per engine iteration "
+        f"({engine_its} engine iterations, {total} slot-iterations, "
+        f"{min(bt_run) / total * 1e3:.2f} ms each) | sum of the four solo "
+        f"run_batch calls {min(solo_run) * 1e3:.1f} ms (runs "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in solo_run)}) = "
+        f"{min(solo_run) / engine_its * 1e3:.1f} ms per engine iteration; "
+        f"batched / solo {min(bt_run) / min(solo_run):.3f} | set-up "
+        f"batched {min(bt_setup):.2f} s, solo sum {min(solo_setup):.2f} s")
+
+    # -- one engine iteration at B = 4, every slot active, profiled
+    b1 = batch.make_batch(insts, BATCH_PAD, cfg.nn_k, device=DEV)
+    s1 = engine.init_states(insts, cfg, list(BATCH_SEEDS), BATCH_PAD,
+                            device=DEV)
+    s1 = engine.run_batch(b1.problem, s1, [1] * 4, cfg, 1)[0]   # warm
+    _sync()
+    t0 = time.perf_counter()
+    engine.run_batch(b1.problem, s1, [2] * 4, cfg, 1)
+    _sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [ProfilerActivity.CUDA] if DEV == "cuda" else \
+        [ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        engine.run_batch(b1.problem, s1, [2] * 4, cfg, 1)
+        _sync()
+    per_name = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0) or 0)
+        if us > 0 and DEV == "cuda":
+            per_name[e.key] = (per_name.get(e.key, (0.0, 0))[0] + us,
+                               e.count)
+    busy_ms = sum(us for us, _ in per_name.values()) / 1e3
+    log(f"[batched] profile: one engine iteration, B=4 MMAS slots, bucket "
+        f"{BATCH_PAD}: wall {wall_ms:.1f} ms (no profiler), device busy "
+        f"{busy_ms:.1f} ms, device idle share {1 - busy_ms / wall_ms:.3f}")
+    for name, (us, count) in sorted(per_name.items(),
+                                    key=lambda kv: -kv[1][0])[:6]:
+        log(f"[batched]   {us / 1e3:8.2f} ms  {count:6d} launches  "
+            f"{name[:90]}")
+
+    # -- MMAS + 2-opt over an int8 store: two slots, two iterations
+    pair = [insts[0], insts[2]]
+    cfg_q = aco.ACOConfig(variant="mmas", use_pallas=True, iterations=2,
+                          local_search="2opt", tau_dtype="int8")
+    localsearch.improve.rounds = 0
+    states, _, counts, secs = _counted_batch(pair, cfg_q, seeds=[0, 1],
+                                             n_pad=BATCH_PAD)
+    rounds = localsearch.improve.rounds
+    if rounds == 0:
+        raise AssertionError("batched mmas+2opt int8: no local-search round")
+    _check_counts("batched mmas+2opt int8", counts,
+                  {"fused_walk_quant": 4, "pheromone_update_tours": 4,
+                   "two_opt_best": rounds})
+    launches["fused_walk_quant_int8"] = \
+        launches.get("fused_walk_quant_int8", 0) + counts["fused_walk_quant"]
+    launches["two_opt_best"] = launches.get("two_opt_best", 0) + rounds
+    launches["pheromone_update_tours"] += 4
+    for i, inst in enumerate(pair):
+        solo, _ = engine.solve_instances([inst], cfg_q, seeds=[i],
+                                         n_pad=BATCH_PAD, device=DEV)
+        if not _leaves_equal(tree.index(states, i), tree.index(solo, 0)):
+            raise AssertionError(f"batched mmas+2opt int8 slot {i} != solo")
+    ratios = _check_padded_tours("batched mmas+2opt int8", states, pair,
+                                 1.2)
+    log(f"[batched] MMAS + 2-opt, int8 store, n={[i.n for i in pair]} in "
+        f"bucket {BATCH_PAD}, x2: {secs:.2f} s incl. set-up; slots bitwise "
+        f"their solo runs; fused_walk_quant={counts['fused_walk_quant']}, "
+        f"two_opt_best={counts['two_opt_best']} = local-search rounds "
+        f"{rounds}; best / NN tour " + " ".join(f"{r:.3f}" for r in ratios))
+
+    # -- sparse MMAS (k = 16 + 4, m = 64), bucket 2048, 10 iterations
+    sinsts = [tsp.random_instance(n, seed=n) for n in SPARSE_BATCH_NS]
+    cfg_s = aco.ACOConfig(variant="mmas", sparse=True, sparse_k=SPARSE_K,
+                          m=SPARSE_M, use_pallas=True, iterations=10)
+    states, sb, counts, secs = _counted_batch(sinsts, cfg_s, seeds=[0, 1],
+                                              n_pad=SPARSE_BATCH_PAD)
+    _check_counts("batched sparse", counts,
+                  {"sparse_walk": 10 * len(sinsts)})
+    launches["sparse_walk"] = launches.get("sparse_walk", 0) + \
+        counts["sparse_walk"]
+    for i, inst in enumerate(sinsts):
+        solo, _ = engine.solve_instances([inst], cfg_s, seeds=[i],
+                                         n_pad=SPARSE_BATCH_PAD, device=DEV)
+        if not _leaves_equal(tree.index(states, i), tree.index(solo, 0)):
+            raise AssertionError(f"batched sparse slot {i} != solo")
+    rows = engine.collect(states, sb)
+    for r, inst in zip(rows, sinsts):
+        if not tsp.is_valid_tour(r["best_tour"]) or r["iterations"] != 10:
+            raise AssertionError(f"batched sparse {inst.n}: bad result")
+    log(f"[batched] sparse MMAS k={SPARSE_K}+4 m={SPARSE_M}, "
+        f"n={list(SPARSE_BATCH_NS)} in bucket {SPARSE_BATCH_PAD}, x10: "
+        f"{secs:.2f} s incl. set-up; slots bitwise their solo runs; "
+        f"sparse_walk={counts['sparse_walk']}; best "
+        + ", ".join(f"{r['best_len']:.1f}" for r in rows))
+
+    # -- small buckets: the card's batched kernel route == the CPU's
+    small = [tsp.random_instance(n, seed=n) for n in SMALL_NS]
+    cases = [
+        ("as", dict(variant="as"), {}),
+        ("mmas + 2opt", dict(variant="mmas", local_search="2opt",
+                             ls_rounds=8), {}),
+        ("mmas int8", dict(variant="mmas", tau_dtype="int8"), {}),
+        ("as pallas", dict(variant="as", construction="pallas"), {}),
+        ("sparse mmas", dict(variant="mmas", sparse=True, sparse_k=6,
+                             m=16), {}),
+        ("mmas patience=2", dict(variant="mmas"), dict(patience=2)),
+    ]
+    for label, kw, call in cases:
+        c = aco.ACOConfig(use_pallas=True, iterations=6, **kw)
+        got, _ = engine.solve_instances(small, c, iterations=[6, 4, 5],
+                                        seeds=[1, 2, 3], n_pad=SMALL_PAD,
+                                        device=DEV, **call)
+        want, _ = engine.solve_instances(small, c, iterations=[6, 4, 5],
+                                         seeds=[1, 2, 3], n_pad=SMALL_PAD,
+                                         device="cpu", **call)
+        if not _leaves_equal(got, want):
+            raise AssertionError(f"small batched {label}: card != CPU")
+    c = aco.ACOConfig(variant="mmas", use_pallas=True, iterations=7)
+    sb = batch.make_batch(small, SMALL_PAD, c.nn_k, device=DEV)
+    init = engine.init_states(small, c, [1, 2, 3], SMALL_PAD, device=DEV)
+    long = engine.run_batch(sb.problem, init, [7, 5, 6], c, 7, patience=2)
+    carry = (init, None)
+    for _ in range(4):
+        carry = engine.run_batch(sb.problem, carry[0], [7, 5, 6], c, 2,
+                                 patience=2, since=carry[1])
+    if not _leaves_equal(long, carry):
+        raise AssertionError("small batched: chunks of 2 != one long call")
+    log(f"[batched] small buckets (n={list(SMALL_NS)}, bucket {SMALL_PAD}): "
+        f"card == CPU bitwise for "
+        + ", ".join(label for label, _, _ in cases)
+        + "; a run chunked in 2s == one long call (patience=2)")
+
+
+def phase_service(launches: dict) -> None:
+    """``SolverService`` on the kernel route: six requests from two
+    tenants into buckets 1024 and 2048, drained plain, checkpointed with a
+    crash injected after a chunk, and with metrics off; the three agree
+    bitwise, the first two in their metrics rows too; trace and events
+    validate."""
+    import tempfile
+    import torch
+    from repro_torch import obs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import aco, tsp
+    from repro_torch.kernels import ops
+    from repro_torch.obs import validate
+    from repro_torch.solver import engine, service
+    insts = [tsp.random_instance(n, seed=i)
+             for i, n in enumerate(SERVICE_NS)]
+    cfg = aco.ACOConfig(variant="mmas", use_pallas=True, metrics=True,
+                        iterations=6)
+
+    def drain(c, tel=None, **kw):
+        svc = service.SolverService(c, max_batch=4, patience=3,
+                                    telemetry=tel, device=DEV, **kw)
+        for i, inst in enumerate(insts):
+            svc.submit(inst, tenant=("tenant-a", "tenant-b")[i % 2])
+        return svc, svc.run()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tel = obs.Telemetry(events_path=os.path.join(tmp, "events.jsonl"))
+        _sync()
+        ops.reset_launch_counts()
+        svc, plain = drain(cfg, tel)
+        _sync()
+        counts = ops.launch_counts()
+        its = sum(r.iterations for r in plain)
+        _check_counts("service", counts,
+                      {"fused_walk": its, "pheromone_update_tours": its})
+        for k in ("fused_walk", "pheromone_update_tours"):
+            launches[k] = launches.get(k, 0) + counts[k]
+        tel.close()
+        trace = tel.tracer.to_chrome()
+        n_trace = validate.validate_chrome_trace(trace)
+        n_events = validate.validate_event_log_file(
+            os.path.join(tmp, "events.jsonl"))
+        stats = svc.stats
+        if stats["buckets"] != {str(BATCH_PAD): 4,
+                                str(SPARSE_BATCH_PAD): 2} or \
+                stats["batches"] != 2:
+            raise AssertionError(f"service: buckets {stats['buckets']}, "
+                                 f"batches {stats['batches']}")
+        for r, inst in zip(plain, insts):
+            if not (tsp.is_valid_tour(r.best_tour) and r.n == inst.n
+                    and r.metrics["best_len"] == r.best_len):
+                raise AssertionError(f"service: bad result {r.request_id}")
+
+        # checkpointed, one crash injected after a chunk
+        real_run_batch, real_save = engine.run_batch, CheckpointManager.save
+        crashes, saves = {"left": 1}, []
+
+        def flaky(*a, **kw):
+            out = real_run_batch(*a, **kw)
+            if int(out[0].iteration.max()) >= 4 and crashes["left"]:
+                crashes["left"] -= 1
+                raise RuntimeError("injected crash after chunk")
+            return out
+
+        def timed_save(self, step, state):
+            _sync()
+            t0 = time.perf_counter()
+            real_save(self, step, state)
+            saves.append(time.perf_counter() - t0)
+
+        engine.run_batch, CheckpointManager.save = flaky, timed_save
+        try:
+            _, ckpt = drain(cfg, checkpoint_dir=os.path.join(tmp, "ck"),
+                            ckpt_chunk=2)
+        finally:
+            engine.run_batch, CheckpointManager.save = real_run_batch, \
+                real_save
+        if crashes["left"]:
+            raise AssertionError("service: the crash was never injected")
+    _, off = drain(dataclasses.replace(cfg, metrics=False))
+    for a, b, c in zip(plain, ckpt, off):
+        if not (a.best_len == b.best_len == c.best_len
+                and a.iterations == b.iterations == c.iterations
+                and (a.best_tour == b.best_tour).all()
+                and (a.best_tour == c.best_tour).all()):
+            raise AssertionError(f"service request {a.request_id}: the "
+                                 "three drains disagree")
+        if a.metrics != b.metrics or c.metrics is not None:
+            raise AssertionError(f"service request {a.request_id}: "
+                                 "metrics rows differ")
+    jobs = {}
+    for r in plain:
+        jobs.setdefault(r.bucket, r.solve_s)
+    log(f"[service] MMAS kernel route, metrics on, max_batch 4, patience 3, "
+        f"6 iterations: {len(plain)} requests from 2 tenants, buckets "
+        f"{stats['buckets']}: {stats['instances_per_s']:.3f} instances/s, "
+        f"wall {stats['wall_s']:.2f} s, latency mean "
+        f"{stats['latency_mean_s']:.2f} s, max {stats['latency_max_s']:.2f} "
+        f"s; solve_s per job "
+        + ", ".join(f"bucket {k}: {v:.2f} s" for k, v in sorted(jobs.items()))
+        + f"; iterations {[r.iterations for r in plain]}; "
+        f"fused_walk={counts['fused_walk']}")
+    log(f"[service] plain == checkpointed with a crash (ckpt_chunk 2; "
+        f"{len(saves)} saves, {statistics.median(saves) * 1e3:.1f} ms a "
+        f"save, median, max {max(saves) * 1e3:.1f} ms) == metrics off: "
+        f"best_len, best_tour, iterations bitwise; metrics rows equal; "
+        f"trace ({n_trace} events) and event log ({n_events} records) "
+        f"validate; best / request "
+        + ", ".join(f"{r.best_len:.1f}" for r in plain))
+
+
 def phase_sparse_split() -> None:
     """Where one sparse MMAS iteration over an int8 store goes at
     n = 2392, k = 16, m = 64 (host clock between synchronisations, median
@@ -1495,6 +1927,8 @@ def main() -> int:
     launches: dict = {}
     phase_main(launches)
     phase_sparse(launches)
+    phase_batched(launches)
+    phase_service(launches)
     phase_profile()
     phase_split()
     phase_sparse_split()

@@ -12,6 +12,12 @@ payload travels as its raw 16 bits: any 2-byte payload array (the
 reference's ``bfloat16``, or ``int16`` holding the bits) comes in as
 ``torch.bfloat16``, and ``state_to_numpy`` gives the payload back as
 ``int16`` bits.
+
+The stacked counterparts carry a batch of the reference's solver across:
+``problem_batch_from_numpy`` (a ``ProblemBatch.problem``: fields (B, ...),
+``n_actual`` (B,) becoming the port's host tuple), ``states_from_numpy`` /
+``states_to_numpy`` (a dense or sparse state stack, leaves (B, ...)) and
+``metrics_to_numpy`` (StepMetrics rows).
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 
 from . import device as _device
 from .core import aco, quant
+from .obs import metrics as obs_metrics
 from .sparse import store
 
 
@@ -156,3 +163,47 @@ def sparse_problem_to_numpy(problem: store.SparseProblem) -> dict:
     if problem.n_actual is not None:
         out["n_actual"] = np.int32(problem.n_actual)
     return out
+
+
+def problem_batch_from_numpy(dist, eta, nn, n_actual, hyper=None,
+                             device: _device.DeviceLike = None
+                             ) -> aco.Problem:
+    """A reference ``ProblemBatch.problem`` (fields (B, ...), ``n_actual``
+    (B,); ``hyper`` its stacked ``(alpha, beta, rho, q)`` or None) -> the
+    port's stacked ``Problem`` with ``n_actual`` a host tuple."""
+    dev = _device.resolve(device)
+    h = None
+    if hyper is not None:
+        h = aco.Hyper(*(torch.tensor(np.asarray(x, np.float32), device=dev)
+                        for x in hyper))
+    return aco.Problem(
+        dist=torch.tensor(np.asarray(dist, np.float32), device=dev),
+        eta=torch.tensor(np.asarray(eta, np.float32), device=dev),
+        nn=torch.tensor(np.asarray(nn, np.int32), device=dev),
+        n_actual=tuple(int(x) for x in np.asarray(n_actual)),
+        hyper=h)
+
+
+def states_from_numpy(device: _device.DeviceLike = None, **fields):
+    """A reference state stack's fields (NumPy, leaves (B, ...); keys
+    (B, 2) uint32; quantised pages as ``(q, scale, err)``) -> the port's
+    stacked ``ColonyState``, or ``SparseColonyState`` when the fields hold
+    ``tau_def``."""
+    if "tau_def" in fields:
+        return sparse_state_from_numpy(device=device, **fields)
+    return state_from_numpy(device=device, **fields)
+
+
+def states_to_numpy(states) -> dict:
+    """The port's dense or sparse state stack as NumPy arrays, in the
+    reference's dtypes."""
+    if isinstance(states, store.SparseColonyState):
+        return sparse_state_to_numpy(states)
+    return state_to_numpy(states)
+
+
+def metrics_to_numpy(mets) -> dict:
+    """StepMetrics (scalar, (B,) rows or stacked over iterations) -> a dict
+    of NumPy arrays by field."""
+    return {f: v.cpu().numpy()
+            for f, v in zip(obs_metrics.StepMetrics._fields, mets)}

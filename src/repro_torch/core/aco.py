@@ -17,11 +17,16 @@ the ``choice_info`` kernel, and the update is the fused
 payload, dequantised inside the kernel.  On CPU tensors the kernels'
 plain versions run instead (``kernels/ops.py``).
 
-Entry points (``make_problem``, ``init_colony``, ``run``) take a ``device``
-and run on CUDA when none is given (``repro_torch.device.resolve``).
-``sparse=True`` runs the O(n·k) paged route of ``repro_torch.sparse``.
-Combinations not ported yet raise ``NotImplementedError`` naming the
-ROADMAP item that will port them.
+Entry points (``make_problem``, ``init_colony``, ``run``, ``Hyper.make``)
+take a ``device`` and run on CUDA when none is given
+(``repro_torch.device.resolve``).  ``sparse=True`` runs the O(n·k) paged
+route of ``repro_torch.sparse``.  ``metrics=True`` makes ``colony_step``
+return an ``obs.StepMetrics`` as well, read from intermediates the step
+computes anyway, so the state is bitwise the same either way.  A
+``Problem.hyper`` (per-instance alpha/beta/rho/q as float32 scalar
+tensors) overrides the config's fields on the pure route.  Combinations
+not ported yet raise ``NotImplementedError`` naming the ROADMAP item that
+will port them.
 """
 from __future__ import annotations
 
@@ -85,19 +90,53 @@ class ColonyState(NamedTuple):
     key: torch.Tensor        # (2,) int64 threefry key (two uint32 words)
 
 
+class Hyper(NamedTuple):
+    """Per-instance ACO hyperparameters as float32 scalar tensors.
+
+    Attached to ``Problem.hyper`` they override the ``ACOConfig`` fields
+    of the same name inside ``colony_step``, so one batch
+    (``solver.engine``) can mix tuning profiles across slots.  The
+    exponents then take the generic ``x ** p`` of
+    ``strategies.choice_matrix`` instead of the integer folding, and
+    ``1 - rho``, ``rho * q`` and the MMAS bounds are computed in float32
+    at run time, as the reference's traced operands are: numbers compare
+    only within one operand mode, so batched == solo holds bitwise when
+    both carry a Hyper.  The kernel route rejects a Hyper.
+    """
+    alpha: torch.Tensor      # () float32 choice exponent on tau
+    beta: torch.Tensor       # () float32 choice exponent on eta
+    rho: torch.Tensor        # () float32 evaporation rate
+    q: torch.Tensor          # () float32 deposit numerator
+
+    @classmethod
+    def make(cls, cfg: "ACOConfig", alpha: Optional[float] = None,
+             beta: Optional[float] = None, rho: Optional[float] = None,
+             q: Optional[float] = None,
+             device: _device.DeviceLike = None) -> "Hyper":
+        """Profile from a config plus any per-field overrides."""
+        dev = _device.resolve(device)
+
+        def pick(v, d):
+            return torch.tensor(np.float32(d if v is None else v),
+                                device=dev)
+        return cls(pick(alpha, cfg.alpha), pick(beta, cfg.beta),
+                   pick(rho, cfg.rho), pick(q, cfg.q))
+
+
 class Problem(NamedTuple):
     """Device-resident constants for one TSP instance.
 
     ``n_actual`` is None for ordinary instances; for a padded instance
     (``tsp.pad_instance``: phantom cities at inf distance, eta exactly 0)
     it is the host int count of real cities and makes colony_step
-    mask-aware.  ``hyper`` (per-instance hyperparameters) is not ported.
+    mask-aware.  ``hyper`` is None, or a ``Hyper`` whose operands take
+    precedence over the config's alpha/beta/rho/q.
     """
     dist: torch.Tensor       # (n, n) float32
     eta: torch.Tensor        # (n, n) float32 (1/d)
     nn: torch.Tensor         # (n, k) int32
     n_actual: Optional[int] = None
-    hyper: Optional[object] = None
+    hyper: Optional[Hyper] = None
 
 
 def make_problem(instance: tsp.TSPInstance, nn_k: int = 30,
@@ -151,28 +190,33 @@ def init_colony(instance: tsp.TSPInstance, cfg: ACOConfig,
 
 
 def _check_supported(problem: Problem, cfg: ACOConfig) -> None:
-    """The combinations this port does not serve yet, with their ROADMAP
-    item; the kernel-route rejections keep the reference's messages."""
+    """The kernel route's and the quantised store's rejections, with the
+    reference's messages (a Hyper on either raises)."""
     from ..kernels import ops as kops
     if cfg.use_pallas or cfg.tau_dtype != "fp32":
         kops.check_kernel_route(masked=problem.n_actual is not None,
                                 hyper=problem.hyper is not None,
                                 tau_dtype=cfg.tau_dtype)
-    todo = []
-    if cfg.metrics:
-        todo.append("metrics=True (ROADMAP queue 1 item 12)")
-    if problem.hyper is not None:
-        todo.append("Problem.hyper (ROADMAP queue 1 item 6)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+
+
+Scalar = Union[float, torch.Tensor]
+
+
+def operand(value: Scalar, like: torch.Tensor) -> torch.Tensor:
+    """A Hyper operand as it is; a config float as a float32 scalar on
+    ``like``'s device (``floatops.const``)."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return floatops.const(value, like)
 
 
 def _choice(tau: torch.Tensor, eta: torch.Tensor, cfg: ACOConfig,
+            alpha: Scalar, beta: Scalar,
             n_actual: Optional[int]) -> torch.Tensor:
     if cfg.use_pallas:
         from ..kernels import ops as kops
-        return kops.choice_info(tau, eta, cfg.alpha, cfg.beta, n_actual)
-    return strategies.choice_matrix(tau, eta, cfg.alpha, cfg.beta)
+        return kops.choice_info(tau, eta, alpha, beta, n_actual)
+    return strategies.choice_matrix(tau, eta, alpha, beta)
 
 
 def ls_config(cfg: ACOConfig) -> localsearch.LocalSearchConfig:
@@ -213,15 +257,18 @@ def _apply_local_search(problem: Problem, res: strategies.TourResult,
 
 
 def mmas_bounds(best_len: torch.Tensor, cfg: ACOConfig, n: int,
-                n_actual: Optional[int]) -> tuple[torch.Tensor, torch.Tensor]:
+                n_actual: Optional[int], q: Optional[Scalar] = None,
+                rho: Optional[Scalar] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """MMAS trail limits: tau_max = q / (rho * best_len), tau_min =
     tau_max / (2 n), in the numbers of the reference's jitted step: XLA
     turns the division by the compile-time constant 2n into a
     multiplication by its float32 reciprocal.  A padded instance's
     n_actual is a traced value there, and XLA rewrites
-    (q / (rho * len)) / (2 n) as q / (rho * (len * 2 n))."""
-    q = floatops.const(cfg.q, best_len)
-    rho = floatops.const(cfg.rho, best_len)
+    (q / (rho * len)) / (2 n) as q / (rho * (len * 2 n)).  ``q``/``rho``
+    override the config's (a Hyper's operands)."""
+    q = operand(cfg.q if q is None else q, best_len)
+    rho = operand(cfg.rho if rho is None else rho, best_len)
     tau_max = q / (rho * best_len)
     if n_actual is None:
         recip = np.float32(1.0) / np.float32(2.0 * n)
@@ -231,14 +278,21 @@ def mmas_bounds(best_len: torch.Tensor, cfg: ACOConfig, n: int,
 
 
 def colony_step(problem: Problem, state: ColonyState,
-                cfg: ACOConfig) -> tuple[ColonyState, torch.Tensor]:
+                cfg: ACOConfig) -> tuple:
     """One full ACO iteration: construct m tours, update pheromone, track
-    best.  Returns (new_state, iteration_best_length)."""
+    best.  Returns (new_state, iteration_best_length); with
+    ``cfg.metrics``, (new_state, iteration_best_length, obs.StepMetrics).
+    The metrics are read-only reductions over this step's intermediates:
+    no extra draw, no reordering, so the state is bitwise the same."""
     _check_supported(problem, cfg)
     n = problem.dist.shape[0]
     m = cfg.num_ants(n)
     n_act = problem.n_actual
-    rho, q = cfg.rho, cfg.q
+    h = problem.hyper
+    alpha = cfg.alpha if h is None else h.alpha
+    beta = cfg.beta if h is None else h.beta
+    rho = cfg.rho if h is None else h.rho
+    q = cfg.q if h is None else h.q
     quantised = quant.is_quantised(cfg.tau_dtype)
     if quantised:
         # The extra key feeds quantise-on-store; the fp32 split is
@@ -257,7 +311,7 @@ def colony_step(problem: Problem, state: ColonyState,
     choice_info = None
     tau_c, tau_scale = tau_full, None
     if method != "fused":
-        choice_info = _choice(tau_full, problem.eta, cfg, n_act)
+        choice_info = _choice(tau_full, problem.eta, cfg, alpha, beta, n_act)
     elif quantised:
         # The fused kernel dequantises the resident payload itself.
         tau_c = state.tau.q
@@ -266,11 +320,13 @@ def colony_step(problem: Problem, state: ColonyState,
     res = strategies.construct_tours(
         k_tour, problem.dist, choice_info, m, method=method,
         selection=cfg.selection, tau=tau_c, eta=problem.eta,
-        alpha=cfg.alpha, beta=cfg.beta, n_actual=n_act,
+        alpha=alpha, beta=beta, n_actual=n_act,
         draw_mode=cfg.draw_mode, tau_scale=tau_scale)
 
+    pre_ls_lengths = None
     if cfg.local_search != "none":
         # improved tours drive best-tracking and the deposit
+        pre_ls_lengths = res.lengths
         res = _apply_local_search(problem, res, int(state.iteration), cfg)
 
     it_best_idx = torch.argmin(res.lengths)
@@ -282,16 +338,18 @@ def colony_step(problem: Problem, state: ColonyState,
     best_tour = torch.where(improved, it_best_tour, state.best_tour)
 
     if cfg.variant == "as":
-        dep_tours, dep_w = res.tours, floatops.const(q, res.lengths) / res.lengths
+        dep_tours, dep_w = res.tours, operand(q, res.lengths) / res.lengths
     elif cfg.variant == "mmas":
         if cfg.mmas_best == "global":
             dep_tours, dep_len = best_tour[None, :], best_len
         else:
             dep_tours, dep_len = it_best_tour[None, :], it_best_len
-        dep_w = (floatops.const(q, dep_len) / dep_len)[None]
+        dep_w = (operand(q, dep_len) / dep_len)[None]
     elif cfg.variant == "acs":
         dep_tours = best_tour[None, :]
-        dep_w = (floatops.const(rho * q, best_len) / best_len)[None]
+        rho_q = rho * q if h is not None else floatops.const(rho * q,
+                                                              best_len)
+        dep_w = (rho_q / best_len)[None]
     else:
         raise ValueError(f"unknown variant {cfg.variant}")
 
@@ -305,14 +363,16 @@ def colony_step(problem: Problem, state: ColonyState,
                                n_actual=n_act)
 
     # MMAS/ACS normalisations use the real city count of padded instances.
+    clamp = None
     if cfg.variant == "mmas":
-        tau_min, tau_max = mmas_bounds(best_len, cfg, n, n_act)
+        tau_min, tau_max = mmas_bounds(best_len, cfg, n, n_act, q, rho)
         tau = torch.clamp(tau, min=tau_min, max=tau_max)
+        clamp = (tau_min, tau_max)
     elif cfg.variant == "acs":
         # Parallel-ACS local rule: decay edges crossed this iteration.
         n_eff = n if n_act is None else n_act
         f, t = pheromone.tour_edges(res.tours, n_act)
-        tau0 = floatops.const(q, best_len) / (
+        tau0 = operand(q, best_len) / (
             floatops.const(n_eff, best_len)
             * torch.maximum(best_len, floatops.const(1e-9, best_len)))
         ew = None
@@ -324,14 +384,22 @@ def colony_step(problem: Problem, state: ColonyState,
         tau = pheromone.local_update_acs(tau, f.reshape(-1), t.reshape(-1),
                                          cfg.xi, tau0, w=ew)
 
+    # quantise-on-store: the next resident payload; metrics below read the
+    # exact fp32 tau of this step, before the store rounds it
+    tau_store = tau
     if quantised:
-        # quantise-on-store: the next resident payload
-        tau = quant.requantise(tau, state.tau, cfg.tau_dtype,
-                               quant.round_key(cfg.tau_round, k_q))
+        tau_store = quant.requantise(tau, state.tau, cfg.tau_dtype,
+                                     quant.round_key(cfg.tau_round, k_q))
 
-    new_state = ColonyState(tau, best_tour, best_len, state.iteration + 1,
-                            key)
-    return new_state, it_best_len
+    new_state = ColonyState(tau_store, best_tour, best_len,
+                            state.iteration + 1, key)
+    if not cfg.metrics:
+        return new_state, it_best_len
+    from ..obs import metrics as obs_metrics
+    mets = obs_metrics.step_metrics(
+        res.lengths, it_best_len, best_len, improved, tau, clamp,
+        pre_ls_lengths)
+    return new_state, it_best_len, mets
 
 
 def run(instance: tsp.TSPInstance, cfg: ACOConfig,
@@ -365,10 +433,23 @@ def run(instance: tsp.TSPInstance, cfg: ACOConfig,
 
 
 def run_scan(problem: Problem, state: ColonyState, cfg: ACOConfig,
-             iterations: int) -> tuple[ColonyState, torch.Tensor]:
-    """Multi-iteration driver: (state, it_best per iteration)."""
-    it_best = []
+             iterations: int) -> tuple:
+    """Multi-iteration driver: (state, it_best per iteration).  With
+    ``cfg.metrics`` the second element is ``(it_best, StepMetrics)``, every
+    field stacked over iterations, ``stagnation`` stamped from the loop's
+    own count of non-improving iterations."""
+    it_best, rows = [], []
+    since = torch.zeros((), dtype=torch.int32, device=state.key.device)
     for _ in range(iterations):
-        state, best = colony_step(problem, state, cfg)
-        it_best.append(best)
-    return state, torch.stack(it_best)
+        out = colony_step(problem, state, cfg)
+        state = out[0]
+        it_best.append(out[1])
+        if cfg.metrics:
+            m = out[2]
+            since = torch.where(m.improved > 0, torch.zeros_like(since),
+                                since + 1)
+            rows.append(m._replace(stagnation=since))
+    if not cfg.metrics:
+        return state, torch.stack(it_best)
+    from ..obs import metrics as obs_metrics
+    return state, (torch.stack(it_best), obs_metrics.stack(rows))

@@ -28,6 +28,7 @@ from . import floatops
 NActual = Union[int, None]
 
 STRATEGIES = ("scatter", "reduction")
+NOT_PORTED = ("s2g", "s2g_tiled", "onehot")     # ROADMAP queue 1 item 4
 
 
 def evaporate(tau: torch.Tensor, rho: float) -> torch.Tensor:
@@ -91,7 +92,7 @@ def deposit(n: int, tours: torch.Tensor, w: torch.Tensor,
         return deposit_scatter(n, tours, w, n_actual=n_actual)
     if strategy == "reduction":
         return deposit_reduction(n, tours, w, n_actual=n_actual)
-    if strategy in ("s2g", "s2g_tiled", "onehot"):
+    if strategy in NOT_PORTED:
         raise NotImplementedError(
             f"deposit strategy {strategy!r} is not ported yet "
             "(ROADMAP queue 1 item 4); use 'scatter' or 'reduction'")
@@ -99,12 +100,15 @@ def deposit(n: int, tours: torch.Tensor, w: torch.Tensor,
 
 
 def update(tau: torch.Tensor, tours: torch.Tensor, w: torch.Tensor,
-           rho: float, strategy: str = "scatter", tile: int = 64,
-           n_actual: NActual = None) -> torch.Tensor:
+           rho: Union[float, torch.Tensor], strategy: str = "scatter",
+           tile: int = 64, n_actual: NActual = None) -> torch.Tensor:
     """Full pheromone update: evaporation (eq. 2) + deposit (eq. 3/4),
-    ``(1 - rho) * tau + D`` rounded once."""
+    ``(1 - rho) * tau + D`` rounded once.  A tensor ``rho`` (a Hyper's
+    operand) takes ``1 - rho`` in float32, as a traced operand does."""
     d = deposit(tau.shape[0], tours, w, strategy, tile, n_actual)
-    return torch.addcmul(d, floatops.const(1.0 - rho, tau), tau)
+    keep = 1.0 - rho if isinstance(rho, torch.Tensor) \
+        else floatops.const(1.0 - rho, tau)
+    return torch.addcmul(d, keep, tau)
 
 
 def local_update_acs(tau: torch.Tensor, frm: torch.Tensor, to: torch.Tensor,

@@ -171,9 +171,14 @@ def construct_tours(
     return _finish(start, steps, dist, n_actual)
 
 
-def choice_matrix(tau: torch.Tensor, eta: torch.Tensor, alpha: float,
-                  beta: float) -> torch.Tensor:
+def choice_matrix(tau: torch.Tensor, eta: torch.Tensor,
+                  alpha: Union[float, torch.Tensor],
+                  beta: Union[float, torch.Tensor]) -> torch.Tensor:
     """The paper's Choice kernel on the pure route: tau^a * eta^b, with
-    integer exponents up to 4 folded into repeated products (the same
-    folding as the ``choice_info`` kernel)."""
-    return ipow(tau, alpha) * ipow(eta, beta)
+    host-float integer exponents up to 4 folded into repeated products
+    (the same folding as the ``choice_info`` kernel).  Tensor exponents
+    (a ``Hyper``'s operands) take the generic ``x ** p``, as the
+    reference's traced exponents do."""
+    def pw(x, p):
+        return x ** p if isinstance(p, torch.Tensor) else ipow(x, p)
+    return pw(tau, alpha) * pw(eta, beta)

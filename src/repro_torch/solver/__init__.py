@@ -1,0 +1,22 @@
+"""Instance-batched solver: pad, bucket and batch many TSP instances.
+
+The PyTorch port of ``repro.solver``, drain mode:
+
+- batch.py    pads instances to power-of-two bucket sizes with masked
+              phantom cities and stacks them into a ProblemBatch (or a
+              SparseBatch of candidate pages);
+- engine.py   advances B colonies per call with per-instance budgets,
+              patience and a done mask, by stepping each active slot's
+              view of the stacked state;
+- service.py  a drain-the-queue request loop with throughput stats and
+              supervisor/checkpoint crash recovery.
+
+The streaming service, multi-device placement and the program cache are
+not ported yet (ROADMAP queue 1 items 11b, 14 and 15).
+"""
+from .batch import (ProblemBatch, SparseBatch, bucket_ladder,  # noqa: F401
+                    bucket_size, make_batch, make_sparse_batch,
+                    padded_problem)
+from .engine import (collect, init_sparse_states, init_state,  # noqa: F401
+                     init_states, run_batch, solve_instances)
+from .service import SolveRequest, SolveResult, SolverService  # noqa: F401

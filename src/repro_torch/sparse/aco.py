@@ -102,11 +102,11 @@ def sparse_colony_step(problem: SparseProblem, state: SparseColonyState,
     """One full sparse ACO iteration; mirrors ``aco.colony_step``.
 
     ``ewt``: TSPLIB rounding rule for the lazy off-list distances.
-    Returns (new_state, it_best_len).
+    Returns (new_state, it_best_len); with ``cfg.metrics``, also an
+    ``obs.StepMetrics`` (tau statistics over the (n, k) pages, overflow
+    adoptions and evictions from the ovf_city delta), read-only and
+    bitwise neutral to the state.
     """
-    if cfg.metrics:
-        raise NotImplementedError(
-            "not ported yet: metrics=True (ROADMAP queue 1 item 12)")
     n = problem.n
     m = cfg.num_ants(n)
     n_act = problem.n_actual
@@ -168,11 +168,13 @@ def sparse_colony_step(problem: SparseProblem, state: SparseColonyState,
         quant.dequantise(state.ovf_tau), problem.cand, dep_tours, dep_w,
         rho, adopt, n_act)
 
+    clamp = None
     if cfg.variant == "mmas":
         tau_min, tau_max = dense_aco.mmas_bounds(best_len, cfg, n, n_act)
         tau = torch.clamp(tau, min=tau_min, max=tau_max)
         tau_def = torch.clamp(tau_def, min=tau_min, max=tau_max)
         ovf_tau = torch.clamp(ovf_tau, min=tau_min, max=tau_max)
+        clamp = (tau_min, tau_max)
     elif cfg.variant == "acs":
         n_eff = n if n_act is None else n_act
         tau0 = floatops.const(q, best_len) / (
@@ -182,18 +184,34 @@ def sparse_colony_step(problem: SparseProblem, state: SparseColonyState,
             tau, tau_def, ovf_tau, problem.cand, res.tours, cfg.xi, tau0,
             n_act)
 
+    # quantise-on-store: pages and overflow each with their own key; the
+    # metrics below read the exact fp32 pages of this step
+    tau_store, ovf_store = tau, ovf_tau
     if quantised:
-        # quantise-on-store: pages and overflow each with their own key
         k_q1, k_q2 = sampling.split(k_q)
-        tau = quant.requantise(tau, state.tau, cfg.tau_dtype,
-                               quant.round_key(cfg.tau_round, k_q1))
-        ovf_tau = quant.requantise(ovf_tau, state.ovf_tau, cfg.tau_dtype,
-                                   quant.round_key(cfg.tau_round, k_q2))
+        tau_store = quant.requantise(tau, state.tau, cfg.tau_dtype,
+                                     quant.round_key(cfg.tau_round, k_q1))
+        ovf_store = quant.requantise(ovf_tau, state.ovf_tau, cfg.tau_dtype,
+                                     quant.round_key(cfg.tau_round, k_q2))
 
-    new_state = SparseColonyState(tau, tau_def, ovf_city, ovf_tau,
+    new_state = SparseColonyState(tau_store, tau_def, ovf_city, ovf_store,
                                   best_tour, best_len, state.iteration + 1,
                                   key)
-    return new_state, it_best_len
+    if not cfg.metrics:
+        return new_state, it_best_len
+    from ..obs import metrics as obs_metrics
+    # overflow churn from the ovf_city delta: a slot whose city changed to
+    # a non-empty one was adopted; if it held another city before, that
+    # city was evicted to make room
+    changed = ovf_city != state.ovf_city
+    filled = ovf_city != store.OVF_EMPTY
+    adopted = (changed & filled).sum(dtype=torch.int32)
+    evicted = (changed & filled
+               & (state.ovf_city != store.OVF_EMPTY)).sum(dtype=torch.int32)
+    mets = obs_metrics.step_metrics(
+        res.lengths, it_best_len, best_len, improved, tau, clamp,
+        ovf_adopted=adopted, ovf_evicted=evicted)
+    return new_state, it_best_len, mets
 
 
 def run_sparse(instance: tsp.TSPInstance, cfg: dense_aco.ACOConfig,

@@ -27,6 +27,7 @@ jitted steps XLA rounds ``dx*dx + dy*dy`` once (a fused multiply-add,
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
@@ -268,3 +269,13 @@ def dense_resident_bytes(n: int) -> int:
     """What the dense route keeps resident for one colony: dist + eta +
     tau, three (n, n) float32 tensors."""
     return 3 * n * n * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseBatchMeta:
+    """Static facts a sparse bucket shares: one rounding rule and one
+    candidate width per batch (``solver.batch.make_sparse_batch`` rejects a
+    bucket that mixes rounding rules)."""
+    ewt: str
+    k: int
+    n_pad: int

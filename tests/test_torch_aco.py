@@ -182,8 +182,6 @@ def test_sequential_oracle_is_the_reference():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(sparse=True, metrics=True), "item 12"),
-    (dict(metrics=True), "item 12"),
     (dict(deposit="onehot"), "item 4"),
     (dict(construction="nn_list"), "item 5"),
 ])
@@ -211,13 +209,12 @@ def test_local_search_and_quantised_tau_now_run(kw, use_pallas):
 
 def test_hyper_raises_with_reference_message_on_kernel_route():
     inst = ttsp.circle_instance(9)
-    prob = taco.make_problem(inst, 4, device="cpu")._replace(hyper=object())
-    for use_pallas, err in ((True, tops.UnsupportedKernelRoute),
-                            (False, NotImplementedError)):
-        cfg = taco.ACOConfig(use_pallas=use_pallas)
-        st = taco.init_colony(inst, cfg, device="cpu")
-        with pytest.raises(err):
-            taco.colony_step(prob, st, cfg)
+    cfg = taco.ACOConfig(use_pallas=True)
+    prob = taco.make_problem(inst, 4, device="cpu")._replace(
+        hyper=taco.Hyper.make(cfg, device="cpu"))
+    st = taco.init_colony(inst, cfg, device="cpu")
+    with pytest.raises(tops.UnsupportedKernelRoute, match="use_pallas"):
+        taco.colony_step(prob, st, cfg)
 
 
 def test_entry_points_need_an_explicit_cpu():

@@ -362,3 +362,48 @@ def test_fused_walk_kernel_bitwise(tau_dtype, case):
                                      2.0, n_actual, mode, draw, cpu[4],
                                      cpu[5], first)
         assert torch.equal(got.cpu(), want_c), (mode, "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(variant="mmas"),
+                                dict(variant="as", tau_dtype="int8",
+                                     local_search="2opt", ls_rounds=6)])
+def test_batched_kernel_route_on_card_equals_cpu_and_solo(kw):
+    """The batched engine on the card: every slot of a masked bucket is
+    bitwise its solo run, and the whole stack bitwise the CPU's."""
+    from repro_torch import tree
+    from repro_torch.solver import engine
+    dev = cuda_device()
+    insts = [tsp.random_instance(n, seed=n) for n in (40, 57, 64)]
+    cfg = aco.ACOConfig(use_pallas=True, iterations=5, **kw)
+    got, _ = engine.solve_instances(insts, cfg, iterations=[5, 3, 4],
+                                    n_pad=64, device=dev)
+    want, _ = engine.solve_instances(insts, cfg, iterations=[5, 3, 4],
+                                     n_pad=64, device="cpu")
+    for a, b in zip(tree.flatten(got), tree.flatten(want)):
+        assert torch.equal(a.cpu(), b)
+    for i, inst in enumerate(insts):
+        solo, _ = engine.solve_instances([inst], cfg,
+                                         iterations=[[5, 3, 4][i]],
+                                         seeds=[cfg.seed + i], n_pad=64,
+                                         device=dev)
+        for a, b in zip(tree.flatten(tree.index(got, i)),
+                        tree.flatten(tree.index(solo, 0))):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_the_card(tmp_path):
+    """A state saved from the card restores bitwise onto the template's
+    device (bf16 payload as raw bits)."""
+    from repro_torch import checkpoint, tree
+    dev = cuda_device()
+    inst = tsp.random_instance(30, seed=1)
+    st = aco.run(inst, aco.ACOConfig(iterations=2, tau_dtype="bf16",
+                                     use_pallas=True), device=dev)
+    path = str(tmp_path / "c.npz")
+    checkpoint.save_pytree(path, st, step=2)
+    rest = checkpoint.load_pytree(path, tree.map(torch.zeros_like, st))
+    for a, b in zip(tree.flatten(st), tree.flatten(rest)):
+        assert b.device == a.device and b.dtype == a.dtype
+        assert torch.equal(a, b)

@@ -547,9 +547,3 @@ def test_route_rejections_keep_reference_messages(kw):
                                    **extra)
         assert str(got.value) == str(want.value)
 
-
-def test_sparse_metrics_not_ported_yet():
-    inst = ttsp.circle_instance(9)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        taco.run(inst, taco.ACOConfig(sparse=True, metrics=True,
-                                      iterations=1), device="cpu")

@@ -6,6 +6,11 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --solo ROOT [ROOT ...]`` instead runs the solo
+paths' timing phases ([main], [profile], [split], [sparse-split]) of each
+checkout's own chip_smoke.py, one process per ROOT in the order given: an
+A/B of two commits on one card reads parent, change, change, parent.
+
 Phases, each printing its own lines; any failure raises and exits
 non-zero:
 
@@ -72,9 +77,15 @@ non-zero:
    each slot bitwise its solo run in the same bucket (best_len, best_tour,
    iteration, key, tau), the n = 1024 slot bitwise ``aco.run`` of the
    unpadded instance, iterations equal to the budgets, ``fused_walk`` and
-   ``pheromone_update_tours`` launched once per slot-iteration (17) and
-   the one-step kernels never, every real prefix a permutation with the
-   phantom tail in index order, each best within 1.2 x its NN tour; MMAS +
+   ``pheromone_update_tours`` launched once per engine iteration (5),
+   serving one slot-launch per slot-iteration (17), and the one-step
+   kernels never, every real prefix a permutation with the phantom tail in
+   index order, each best within 1.2 x its NN tour; the instance axis at
+   the bucket's shapes: one walk launch over the four slots' stack (one
+   slot inactive) bitwise single launches in fp32/int8/bf16 x three modes
+   and the plain walks, one update launch (m = 1024 and 1) bitwise single
+   launches and the plain updates, the stack's walk timed beside four
+   single launches; MMAS +
    2-opt over an int8 store (two slots, two iterations; ``two_opt_best``
    once per local-search round reported); sparse MMAS (k = 16 + 4,
    m = 64) on n = 1500 and 2000 in bucket 2048, 10 iterations, batched ==
@@ -93,6 +104,18 @@ non-zero:
    their metrics rows too; the trace and the event log validate
    (``obs.validate``).  Prints instances/s, mean and max latency,
    ``solve_s`` per job and the time of a checkpoint save;
+   streaming -- ``StreamingSolverService`` (MMAS, kernel route,
+   ``metrics=True``, ``max_batch=4``, ``chunk=2``, ``max_waiting=6``):
+   ``make_poisson_trace(12, rate=20, n 520-1024, budgets (4, 4, 4, 12),
+   tenants a/b)`` replayed with two more requests (n = 1500, 2000) in
+   bucket 2048 and one (n = 900, 200 iterations) whose 0.5 s deadline
+   lapses while it runs: every completed result bitwise its solo
+   ``run_batch`` on the card and the drain service's result, the expired
+   one a valid partial tour with fewer iterations than its budget, walk
+   and update launches equal to the pools' engine iterations and
+   slot-launches to the slot-iterations, trace and events valid.  Prints
+   instances/s, latency mean / p95 / max and mean occupancy beside
+   ``SolverService`` draining the same requests;
 6. profile -- device busy time and idle share of one AS iteration at
    n = 1002, and the kernels that take most of it; the split of one MMAS
    + 2-opt iteration over an int8 store into construction, local search
@@ -1423,6 +1446,112 @@ def _check_padded_tours(label, states, insts, slack):
     return ratios
 
 
+def _batched_kernels(insts, cfg) -> None:
+    """The instance axis at bucket 1024: one walk launch over the four
+    slots' stack (the bucket's own eta, mixed n_actual, the third slot
+    inactive) bitwise four single launches in fp32, int8 and bf16 and all
+    three modes, and the fp32 iroulette stack bitwise the plain walks on
+    the card; one tours-driven update (AS, m = 1024, and MMAS, m = 1) over
+    the stack bitwise single launches and the plain updates on the CPU.
+    Then the stack's walk with every slot active timed beside four single
+    launches."""
+    import torch
+    from repro_torch.core import aco, quant, sampling
+    from repro_torch.kernels import fused_select as fs
+    from repro_torch.kernels import ops, pheromone_update as pu
+    from repro_torch.solver import batch
+    t0 = time.perf_counter()
+    dev = torch.device(DEV)
+    nb = len(insts)
+    bt = batch.make_batch(insts, BATCH_PAD, cfg.nn_k, device=DEV)
+    eta, n_act = bt.problem.eta, aco.slot_n_actual(bt.problem, dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tau = torch.rand((nb, BATCH_PAD, BATCH_PAD), generator=gen,
+                     device=dev) * 1e-3 + 1e-4
+    start = torch.stack([torch.randint(0, n, (BATCH_PAD,), generator=gen,
+                                       device=dev, dtype=torch.int32)
+                         for n in BATCH_NS])
+    keys = torch.stack([sampling.prng_key(40 + i, dev) for i in range(nb)])
+    active = tuple(i != 2 for i in range(nb))
+    steps = None
+    for dtype in ("fp32",) + QUANT:
+        q, scale = tau, None
+        if dtype != "fp32":
+            qt = quant.quantise(tau, dtype, key=sampling.prng_key(3, dev))
+            q, scale = qt.q, (qt.scale if dtype == "int8" else None)
+        for mode in MODES:
+            got = ops.fused_walk(q, eta, start, keys, 1.0, 2.0, n_act, mode,
+                                 tau_scale=scale, active=active)
+            if got[2].any():
+                raise AssertionError("batched fused_walk wrote an inactive "
+                                     "slot")
+            for i in range(nb):
+                if not active[i]:
+                    continue
+                one = ops.fused_walk(q[i], eta[i], start[i], keys[i], 1.0,
+                                     2.0, BATCH_NS[i], mode,
+                                     tau_scale=None if scale is None
+                                     else scale[i])
+                if not torch.equal(got[i], one):
+                    raise AssertionError(f"batched fused_walk slot {i} != "
+                                         f"its single launch ({dtype}, "
+                                         f"{mode})")
+            if dtype == "fp32" and mode == "iroulette":
+                steps = got
+                want = fs.fused_walk_plain(q, eta, start, keys, 1.0, 2.0,
+                                           n_act, mode, active=active)
+                if not torch.equal(got, want):
+                    raise AssertionError("batched fused_walk != the plain "
+                                         "walks")
+    tours = torch.cat([start[:, None], steps], dim=1).transpose(1, 2)
+    tours = tours.contiguous()
+    for i in range(nb):
+        if not active[i]:       # an inactive slot's tours: any permutation
+            tours[i] = torch.arange(BATCH_PAD, dtype=torch.int32,
+                                    device=dev)
+    w = torch.rand((nb, BATCH_PAD), generator=gen, device=dev)
+    for m in (BATCH_PAD, 1):
+        got = ops.pheromone_update(tau, tours[:, :m].contiguous(),
+                                   w[:, :m].contiguous(), 0.1, n_act,
+                                   active=active)
+        # the plain update on the CPU: the card's index_add_ sums a cell's
+        # deposits in atomic order
+        want = pu.pheromone_update_tours_plain(
+            tau.cpu(), tours[:, :m].cpu(), w[:, :m].cpu(), 0.1, n_act.cpu(),
+            active=active)
+        for i in range(nb):
+            if not active[i]:
+                continue
+            one = ops.pheromone_update(tau[i], tours[i, :m].contiguous(),
+                                       w[i, :m].contiguous(), 0.1,
+                                       BATCH_NS[i])
+            if not (torch.equal(got[i], one)
+                    and torch.equal(got[i].cpu(), want[i])):
+                raise AssertionError(f"batched pheromone_update_tours slot "
+                                     f"{i} (m={m}) != single / plain")
+    stack_ms = cuda_ms(lambda: ops.fused_walk(tau, eta, start, keys, 1.0,
+                                              2.0, n_act), reps=3, trials=3)
+    single_ms = cuda_ms(lambda: [ops.fused_walk(
+        tau[i], eta[i], start[i], keys[i], 1.0, 2.0, BATCH_NS[i])
+        for i in range(nb)], reps=3, trials=3)
+    upd_ms = cuda_ms(lambda: ops.pheromone_update(
+        tau, tours[:, :1].contiguous(), w[:, :1].contiguous(), 0.1, n_act))
+    upd_single = cuda_ms(lambda: [ops.pheromone_update(
+        tau[i], tours[i, :1].contiguous(), w[i, :1].contiguous(), 0.1,
+        BATCH_NS[i]) for i in range(nb)])
+    log(f"[batched] instance axis, bucket {BATCH_PAD}, n={list(BATCH_NS)}: "
+        f"one fused_walk launch over the stack (slot 2 inactive) bitwise "
+        f"single launches in fp32/int8/bf16 x {'/'.join(MODES)}, and the "
+        f"plain walks (fp32 iroulette); one pheromone_update_tours launch "
+        f"(m={BATCH_PAD} and 1) bitwise single launches and the plain "
+        f"updates on the CPU ({time.perf_counter() - t0:.1f} s) | time, "
+        f"every slot "
+        f"active: walk B={nb} {stack_ms:.3f} ms per launch vs "
+        f"{single_ms:.3f} ms for {nb} single launches (ratio "
+        f"{stack_ms / single_ms:.3f}); MMAS update B={nb} {upd_ms * 1e3:.1f} "
+        f"us vs {upd_single * 1e3:.1f} us for {nb} single launches")
+
+
 def phase_batched(launches: dict) -> None:
     """The batched engine (``solver.engine``) on the kernel route: one
     bucket of four MMAS colonies at the paper's sizes, each slot bitwise
@@ -1443,9 +1572,17 @@ def phase_batched(launches: dict) -> None:
                         iterations=max(budgets))
     states, b, counts, secs = _counted_batch(
         insts, cfg, iterations=budgets, seeds=BATCH_SEEDS, n_pad=BATCH_PAD)
-    total = sum(budgets)
+    total, engine_its = sum(budgets), max(budgets)
+    # the instance axis: one walk and one update launch per engine
+    # iteration, serving every active slot
     _check_counts("batched mmas", counts,
-                  {"fused_walk": total, "pheromone_update_tours": total})
+                  {"fused_walk": engine_its,
+                   "pheromone_update_tours": engine_its})
+    slot_counts = ops.slot_launch_counts()
+    if (slot_counts["fused_walk"], slot_counts["pheromone_update_tours"]) \
+            != (total, total):
+        raise AssertionError(f"batched mmas: slot-launches {slot_counts} != "
+                             f"the {total} slot-iterations")
     for k in ("fused_walk", "pheromone_update_tours"):
         launches[k] = launches.get(k, 0) + counts[k]
     if states.iteration.tolist() != budgets:
@@ -1472,9 +1609,11 @@ def phase_batched(launches: dict) -> None:
         f"{budgets}: {secs:.2f} s incl. set-up; every slot bitwise its solo "
         f"run (best_len, best_tour, iteration, key, tau), the n={BATCH_PAD} "
         f"slot bitwise aco.run unpadded; fused_walk={counts['fused_walk']}, "
-        f"pheromone_update_tours={counts['pheromone_update_tours']}, "
-        f"one-step kernels 0; best / NN tour "
-        + " ".join(f"{r:.3f}" for r in ratios))
+        f"pheromone_update_tours={counts['pheromone_update_tours']} launches "
+        f"= engine iterations, serving {slot_counts['fused_walk']} and "
+        f"{slot_counts['pheromone_update_tours']} slot-iterations; one-step "
+        f"kernels 0; best / NN tour " + " ".join(f"{r:.3f}" for r in ratios))
+    _batched_kernels(insts, cfg)
 
     # -- the batched run beside the sum of its slots' solo runs (run_batch
     # only, set-up apart), in turns: batched, solo x4, batched
@@ -1492,7 +1631,6 @@ def phase_batched(launches: dict) -> None:
             run_sum += run
         solo_setup.append(su_sum)
         solo_run.append(run_sum)
-    engine_its = max(budgets)
     log(f"[batched] time: batched run_batch {min(bt_run) * 1e3:.1f} ms "
         f"(runs {', '.join(f'{t * 1e3:.1f}' for t in bt_run)}) = "
         f"{min(bt_run) / engine_its * 1e3:.1f} ms per engine iteration "
@@ -1660,10 +1798,20 @@ def phase_service(launches: dict) -> None:
         ops.reset_launch_counts()
         svc, plain = drain(cfg, tel)
         _sync()
-        counts = ops.launch_counts()
+        counts, slot_counts = ops.launch_counts(), ops.slot_launch_counts()
+        # one walk and one update launch per engine iteration of each job:
+        # a job runs until its longest slot stops
         its = sum(r.iterations for r in plain)
+        job_its = {}
+        for r in plain:
+            job_its[r.bucket] = max(job_its.get(r.bucket, 0), r.iterations)
+        engine_its = sum(job_its.values())
         _check_counts("service", counts,
-                      {"fused_walk": its, "pheromone_update_tours": its})
+                      {"fused_walk": engine_its,
+                       "pheromone_update_tours": engine_its})
+        if slot_counts["fused_walk"] != its:
+            raise AssertionError(f"service: {slot_counts['fused_walk']} "
+                                 f"slot-launches != {its} slot-iterations")
         for k in ("fused_walk", "pheromone_update_tours"):
             launches[k] = launches.get(k, 0) + counts[k]
         tel.close()
@@ -1730,7 +1878,8 @@ def phase_service(launches: dict) -> None:
         f"s; solve_s per job "
         + ", ".join(f"bucket {k}: {v:.2f} s" for k, v in sorted(jobs.items()))
         + f"; iterations {[r.iterations for r in plain]}; "
-        f"fused_walk={counts['fused_walk']}")
+        f"fused_walk={counts['fused_walk']} launches (engine iterations), "
+        f"{slot_counts['fused_walk']} slot-launches")
     log(f"[service] plain == checkpointed with a crash (ckpt_chunk 2; "
         f"{len(saves)} saves, {statistics.median(saves) * 1e3:.1f} ms a "
         f"save, median, max {max(saves) * 1e3:.1f} ms) == metrics off: "
@@ -1738,6 +1887,166 @@ def phase_service(launches: dict) -> None:
         f"trace ({n_trace} events) and event log ({n_events} records) "
         f"validate; best / request "
         + ", ".join(f"{r.best_len:.1f}" for r in plain))
+
+
+# [streaming]: a Poisson trace of mixed sizes around pr1002 (bucket 1024),
+# two larger requests (bucket 2048) and one request whose deadline lapses
+# while it runs; the rehearsal on the CPU shrinks these.
+STREAM_TRACE = dict(num=12, rate=20.0, min_n=520, max_n=1024, seed=0,
+                    iterations=(4, 4, 4, 12), tenants=("a", "b"))
+STREAM_BIG = (1500, 2000)
+STREAM_DOOMED = dict(n=900, iterations=200, deadline=0.5)
+
+
+def phase_streaming(launches: dict) -> None:
+    """``StreamingSolverService`` on the kernel route (MMAS, metrics on,
+    ``max_batch=4``, ``chunk=2``, ``max_waiting=6``): the trace replayed
+    with mid-run admission into pools of buckets 1024 and 2048, beside one
+    request that expires while it runs.  Every completed result bitwise
+    its solo ``run_batch`` on the card (and the drain service's result);
+    the expired one a valid partial tour with fewer iterations than its
+    budget; walk and update launches equal to the pools' engine
+    iterations, slot-launches to the slot-iterations; trace and events
+    validate.  Then instances/s and latencies beside ``SolverService``
+    draining the same requests."""
+    import tempfile
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.core import aco, tsp
+    from repro_torch.kernels import ops
+    from repro_torch.obs import validate
+    from repro_torch.solver import engine, service, streaming
+    cfg = aco.ACOConfig(variant="mmas", use_pallas=True, metrics=True,
+                        iterations=4)
+    trace = streaming.make_poisson_trace(**STREAM_TRACE)
+    big = [streaming.TraceItem(at=trace[k].at, instance=tsp.random_instance(
+        n, seed=100 + k), iterations=4, seed=100 + k, tenant="b")
+        for k, n in zip((3, 7), STREAM_BIG)]
+    items = sorted(trace + big, key=lambda t: t.at)
+    doomed_inst = tsp.random_instance(STREAM_DOOMED["n"], seed=99)
+
+    # Engine iterations, counted from the slots themselves: each chunk keeps
+    # its pool's (B,) iteration counts before and after (device copies, no
+    # read in the timed run).  On the fused route a chunk takes as many
+    # engine iterations as its busiest slot advanced; a per-slot loop would
+    # take one per slot-iteration.
+    real_chunk, chunk_its = streaming.StreamingPool.step_chunk, []
+
+    def counted_chunk(pool, chunk):
+        before = pool.states.iteration.clone()
+        real_chunk(pool, chunk)
+        chunk_its.append((before, pool.states.iteration.clone()))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tel = obs.Telemetry(events_path=os.path.join(tmp, "events.jsonl"))
+        svc = streaming.StreamingSolverService(
+            cfg, max_batch=4, chunk=2, max_waiting=6, telemetry=tel,
+            device=DEV)
+        streaming.StreamingPool.step_chunk = counted_chunk
+        try:
+            _sync()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            doomed = svc.submit(doomed_inst,
+                                iterations=STREAM_DOOMED["iterations"],
+                                seed=99, priority=1, tenant="a",
+                                deadline=STREAM_DOOMED["deadline"])
+            results = streaming.replay_trace(svc, items)
+            _sync()
+            wall = time.perf_counter() - t0
+        finally:
+            streaming.StreamingPool.step_chunk = real_chunk
+        counts, slot_counts = ops.launch_counts(), ops.slot_launch_counts()
+        tel.close()
+        trace_json = tel.tracer.to_chrome()
+        n_trace = validate.validate_chrome_trace(trace_json)
+        n_events = validate.validate_event_log_file(
+            os.path.join(tmp, "events.jsonl"))
+    moved = [(after - before).tolist() for before, after in chunk_its]
+    engine_its = sum(max(d) for d in moved)
+    shared = sum(sum(d) - max(d) for d in moved)  # beyond one slot a chunk
+    stats = svc.stats
+    slot_its = sum(r.iterations for r in results)
+    _check_counts("streaming", counts, {"fused_walk": engine_its,
+                                        "pheromone_update_tours": engine_its})
+    if (slot_counts["fused_walk"], slot_counts["pheromone_update_tours"]) \
+            != (slot_its, slot_its) or sum(map(sum, moved)) != slot_its:
+        raise AssertionError(f"streaming: slot-launches {slot_counts} != "
+                             f"{slot_its} slot-iterations")
+    if shared == 0:
+        raise AssertionError("streaming: no chunk stepped two slots at once, "
+                             "so the launch check shows nothing")
+    for k in ("fused_walk", "pheromone_update_tours"):
+        launches[k] = launches.get(k, 0) + counts[k]
+    by_id = {r.request_id: r for r in results}
+    if len(by_id) != len(items) + 1 or stats["completed"] != len(items) or \
+            stats["expired_running"] != 1:
+        raise AssertionError(f"streaming: {len(by_id)} results, stats "
+                             f"completed {stats['completed']}, expired "
+                             f"running {stats['expired_running']}")
+    gone = by_id[doomed]
+    if not (gone.expired and 1 <= gone.iterations
+            < STREAM_DOOMED["iterations"] and len(gone.best_tour) == gone.n
+            and tsp.is_valid_tour(gone.best_tour)
+            and gone.best_len < float("inf")):
+        raise AssertionError(f"streaming: the expired request is not a "
+                             f"valid partial result ({gone.iterations} "
+                             f"iterations)")
+    # each completed request: bitwise its solo run on the card
+    reqs = [(i + 1, it) for i, it in enumerate(items)]
+    for rid, it in reqs:
+        r = by_id[rid]
+        solo, _ = engine.solve_instances(
+            [it.instance], cfg, iterations=[it.iterations], seeds=[it.seed],
+            n_pad=r.bucket, device=DEV)
+        if r.expired or r.iterations != it.iterations or \
+                r.best_len != float(solo.best_len[0]) or \
+                not (r.best_tour == solo.best_tour[0][:r.n].cpu()
+                     .numpy()).all():
+            raise AssertionError(f"streaming request {rid} (n={r.n}) != "
+                                 "its solo run")
+    # the drain service on the same requests, all submitted at once
+    drain = service.SolverService(cfg, max_batch=4, device=DEV)
+    for _, it in reqs:
+        drain.submit(it.instance, iterations=it.iterations, seed=it.seed,
+                     tenant=it.tenant)
+    _sync()
+    drained = drain.run()
+    _sync()
+    for (rid, _), d in zip(reqs, drained):
+        r = by_id[rid]
+        if (d.best_len, d.iterations) != (r.best_len, r.iterations) or \
+                not (d.best_tour == r.best_tour).all():
+            raise AssertionError(f"streaming request {rid} != its drain "
+                                 "result")
+    ds = drain.stats
+    # the drain service keeps no percentile: the same linear-interpolation
+    # p95 as the streaming service's, over its results
+    drain_p95 = float(np.percentile([d.latency_s for d in drained], 95))
+    log(f"[streaming] MMAS kernel route, metrics on, max_batch 4, chunk 2, "
+        f"max_waiting 6: {len(items)} requests (Poisson, rate "
+        f"{STREAM_TRACE['rate']}/s, n {STREAM_TRACE['min_n']}-"
+        f"{STREAM_TRACE['max_n']}, budgets {STREAM_TRACE['iterations']}, "
+        f"+ n={list(STREAM_BIG)} in bucket {SPARSE_BATCH_PAD}) + 1 expiring "
+        f"(n={STREAM_DOOMED['n']}, deadline {STREAM_DOOMED['deadline']} s, "
+        f"evicted after {gone.iterations} of "
+        f"{STREAM_DOOMED['iterations']} iterations): wall {wall:.2f} s; "
+        f"every completed result bitwise its solo run_batch and its drain "
+        f"result; fused_walk={counts['fused_walk']} and "
+        f"pheromone_update_tours={counts['pheromone_update_tours']} "
+        f"launches = {engine_its} engine iterations of the pools, serving "
+        f"{slot_counts['fused_walk']} slot-iterations; chunks "
+        f"{stats['chunks']}, fills {stats['fills']}; trace ({n_trace} "
+        f"events) and event log ({n_events} records) validate")
+    log(f"[streaming] streaming: {stats['instances_per_s']:.3f} instances/s, "
+        f"latency mean {stats['latency_mean_s']:.3f} s, p95 "
+        f"{stats['latency_p95_s']:.3f} s, max {stats['latency_max_s']:.3f} "
+        f"s, occupancy mean {stats['occupancy_mean']:.3f} | drain "
+        f"(SolverService, max_batch 4, the same {len(reqs)} requests at "
+        f"once): {ds['instances_per_s']:.3f} instances/s, wall "
+        f"{ds['wall_s']:.2f} s, latency mean {ds['latency_mean_s']:.3f} s, "
+        f"p95 {drain_p95:.3f} s, max {ds['latency_max_s']:.3f} s, "
+        f"{ds['batches']} jobs")
 
 
 def phase_sparse_split() -> None:
@@ -1911,8 +2220,37 @@ def phase_split() -> None:
         f"{med(rq_ms):.2f} ms")
 
 
+_SOLO = """
+import importlib.util, os, sys
+root = os.path.abspath(sys.argv[1])
+sys.path.insert(0, os.path.join(root, "src"))
+spec = importlib.util.spec_from_file_location(
+    "smoke", os.path.join(root, "chip_smoke.py"))
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+smoke.phase_device()
+smoke.phase_build()
+smoke.phase_main({})
+smoke.phase_profile()
+smoke.phase_split()
+smoke.phase_sparse_split()
+"""
+
+
+def solo(roots) -> int:
+    """The solo paths' timing phases of each checkout in ``roots``, each
+    in its own process (its own ``repro_torch`` and kernel build)."""
+    for root in roots:
+        log(f"[solo] {os.path.abspath(root)}")
+        subprocess.run([sys.executable, "-c", _SOLO, os.path.abspath(root)],
+                       check=True, cwd=root, timeout=600)
+    return 0
+
+
 def main() -> int:
     import torch   # noqa: F401  (fails here when torch is absent)
+    if sys.argv[1:2] == ["--solo"]:
+        return solo(sys.argv[2:])
     root = os.path.dirname(os.path.abspath(__file__))
     smi = phase_device()
     sys.path.insert(0, os.path.join(root, "src"))
@@ -1929,6 +2267,7 @@ def main() -> int:
     phase_sparse(launches)
     phase_batched(launches)
     phase_service(launches)
+    phase_streaming(launches)
     phase_profile()
     phase_split()
     phase_sparse_split()

@@ -31,12 +31,13 @@ will port them.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .. import device as _device
+from .. import tree
 from . import floatops, localsearch, pheromone, quant, sampling, strategies
 from . import tsp
 
@@ -257,8 +258,8 @@ def _apply_local_search(problem: Problem, res: strategies.TourResult,
 
 
 def mmas_bounds(best_len: torch.Tensor, cfg: ACOConfig, n: int,
-                n_actual: Optional[int], q: Optional[Scalar] = None,
-                rho: Optional[Scalar] = None
+                n_actual: Union[int, torch.Tensor, None],
+                q: Optional[Scalar] = None, rho: Optional[Scalar] = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """MMAS trail limits: tau_max = q / (rho * best_len), tau_min =
     tau_max / (2 n), in the numbers of the reference's jitted step: XLA
@@ -266,15 +267,222 @@ def mmas_bounds(best_len: torch.Tensor, cfg: ACOConfig, n: int,
     multiplication by its float32 reciprocal.  A padded instance's
     n_actual is a traced value there, and XLA rewrites
     (q / (rho * len)) / (2 n) as q / (rho * (len * 2 n)).  ``q``/``rho``
-    override the config's (a Hyper's operands)."""
+    override the config's (a Hyper's operands).  A batched step's (B,)
+    ``best_len`` takes a (B,) ``n_actual`` tensor (2 n is exact in
+    float32), each bound bitwise its instance's own."""
     q = operand(cfg.q if q is None else q, best_len)
     rho = operand(cfg.rho if rho is None else rho, best_len)
     tau_max = q / (rho * best_len)
     if n_actual is None:
         recip = np.float32(1.0) / np.float32(2.0 * n)
         return tau_max * floatops.const(recip, best_len), tau_max
-    two_n = floatops.const(2.0 * n_actual, best_len)
+    if isinstance(n_actual, torch.Tensor):
+        two_n = (2 * n_actual).to(torch.float32)
+    else:
+        two_n = floatops.const(2.0 * n_actual, best_len)
     return q / (rho * (best_len * two_n)), tau_max
+
+
+def batched_route(cfg: ACOConfig, problem: Problem) -> bool:
+    """Whether ``colony_step_batch`` steps a stack of this problem in one
+    pass: the dense fused kernel route (``use_pallas``,
+    ``construction="data_parallel"``) without local search or Hyper.  Any
+    other route takes one instance at a time."""
+    return (cfg.use_pallas and cfg.construction == "data_parallel"
+            and cfg.local_search == "none" and problem.hyper is None
+            and cfg.variant in ("as", "mmas", "acs"))
+
+
+def slot_n_actual(problem: Problem, device) -> Optional[torch.Tensor]:
+    """A stacked problem's host ``n_actual`` tuple as a (B,) int32 tensor
+    on ``device`` (None for an unpadded problem): a fill when every slot
+    shares one value, else one copy."""
+    na = problem.n_actual
+    if na is None:
+        return None
+    if len(set(na)) == 1:
+        return torch.full((len(na),), na[0], dtype=torch.int32,
+                          device=device)
+    return torch.tensor(na, dtype=torch.int32, device=device)
+
+
+def _slot(problem: Problem, b: int) -> Problem:
+    """Instance ``b`` of a stacked problem (views, host ``n_actual``)."""
+    return Problem(problem.dist[b], problem.eta[b], problem.nn[b],
+                   None if problem.n_actual is None else problem.n_actual[b],
+                   None if problem.hyper is None else
+                   Hyper(*(x[b] for x in problem.hyper)))
+
+
+def colony_step_batch(problem: Problem, states: ColonyState,
+                      cfg: ACOConfig,
+                      active: Optional[Sequence[bool]] = None,
+                      n_actual: Optional[torch.Tensor] = None) -> tuple:
+    """One full ACO iteration of B colonies stacked on a leading axis:
+    construct m tours each, update pheromone, track best.
+
+    ``problem`` is stacked: (B, ...) tensors, ``n_actual`` a host tuple of
+    B ints (or None, unpadded), ``hyper`` (B,) operands (or None);
+    ``states`` is a stacked ColonyState.  Returns (new_states,
+    iteration_best_lengths (B,)); with ``cfg.metrics`` also the (B,)-stacked
+    ``obs.StepMetrics``.  Row b of every result is bitwise what the step of
+    instance b alone gives: this is the one implementation of the step, and
+    ``colony_step`` is its B = 1 case.
+
+    On ``batched_route`` the stack takes one ``fused_walk`` launch and one
+    ``pheromone_update`` launch and plain tensor work over (B, ...); every
+    other route takes B = 1 only.  ``active``: B host flags (None: all);
+    the kernels skip an inactive instance, and its rows of the result are
+    unspecified: the caller keeps its old state (the reference's
+    where-freeze).  ``n_actual``: the problem's per-slot counts as a (B,)
+    int32 tensor on the states' device (``slot_n_actual``), built here when
+    not given.
+    """
+    _check_supported(problem, cfg)
+    n_slots = states.key.shape[0]
+    n = problem.dist.shape[-1]
+    m = cfg.num_ants(n)
+    dev = states.key.device
+    fused = cfg.use_pallas and cfg.construction == "data_parallel"
+    if n_slots != 1 and not batched_route(cfg, problem):
+        raise ValueError("colony_step_batch steps a stack only on the fused "
+                         "kernel route without local search or Hyper; "
+                         "step other routes one instance at a time")
+    # the launchers cannot read a device n_actual: its host values are
+    # checked here, once for the whole stack
+    if problem.n_actual is not None and not all(
+            1 <= v <= n for v in problem.n_actual):
+        raise ValueError(f"colony_step_batch: n_actual {problem.n_actual} "
+                         f"not all in [1, {n}]")
+    n_act = n_actual if n_actual is not None or problem.n_actual is None \
+        else slot_n_actual(problem, dev)
+    # the one instance of a route without a batched form
+    p0 = _slot(problem, 0) if n_slots == 1 else None
+    h = problem.hyper
+    alpha = cfg.alpha if h is None else h.alpha
+    beta = cfg.beta if h is None else h.beta
+    rho = cfg.rho if h is None else h.rho
+    q = cfg.q if h is None else h.q
+    quantised = quant.is_quantised(cfg.tau_dtype)
+    # The extra key feeds quantise-on-store; the fp32 split is unchanged,
+    # so its key trajectory is too.
+    ks = sampling.split(states.key, 3 if quantised else 2)   # (B, k, 2)
+    key, k_tour = ks[:, 0], ks[:, 1]
+    # Transient fp32 view for this step's compute.
+    tau_full = quant.dequantise(states.tau)
+
+    if fused:
+        # The fused_walk kernel does the whole construction: no (n, n)
+        # choice precompute on this route at all; a quantised store
+        # reaches it as its payload, dequantised inside the kernel.
+        tau_c, tau_scale = tau_full, None
+        if quantised:
+            tau_c = states.tau.q
+            tau_scale = states.tau.scale if cfg.tau_dtype == "int8" \
+                else None
+        res = strategies.construct_tours(
+            k_tour, problem.dist, None, m, method="fused",
+            selection=cfg.selection, tau=tau_c, eta=problem.eta,
+            alpha=alpha, beta=beta, n_actual=n_act,
+            draw_mode=cfg.draw_mode, tau_scale=tau_scale, active=active)
+    else:
+        h0 = p0.hyper
+        a0 = cfg.alpha if h0 is None else h0.alpha
+        b0 = cfg.beta if h0 is None else h0.beta
+        choice_info = _choice(tau_full[0], p0.eta, cfg, a0, b0, p0.n_actual)
+        r = strategies.construct_tours(
+            k_tour[0], p0.dist, choice_info, m, method=cfg.construction,
+            selection=cfg.selection, eta=p0.eta, alpha=a0, beta=b0,
+            n_actual=p0.n_actual, draw_mode=cfg.draw_mode)
+        res = strategies.TourResult(r.tours[None], r.lengths[None])
+
+    pre_ls_lengths = None
+    if cfg.local_search != "none":
+        # improved tours drive best-tracking and the deposit (B = 1)
+        pre_ls_lengths = res.lengths
+        r = _apply_local_search(
+            p0, strategies.TourResult(res.tours[0], res.lengths[0]),
+            int(states.iteration[0]), cfg)
+        res = strategies.TourResult(r.tours[None], r.lengths[None])
+
+    it_best_idx = torch.argmin(res.lengths, dim=-1)               # (B,)
+    it_best_len = res.lengths.gather(-1, it_best_idx[:, None])[:, 0]
+    it_best_tour = res.tours.gather(
+        1, it_best_idx[:, None, None].expand(-1, 1, n))[:, 0]     # (B, n)
+
+    improved = it_best_len < states.best_len
+    best_len = torch.where(improved, it_best_len, states.best_len)
+    best_tour = torch.where(improved[:, None], it_best_tour,
+                            states.best_tour)
+
+    if cfg.variant == "as":
+        dep_tours = res.tours
+        dep_w = tsp.per_slot(operand(q, res.lengths), 2) / res.lengths
+    elif cfg.variant == "mmas":
+        if cfg.mmas_best == "global":
+            dep_tours, dep_len = best_tour[:, None, :], best_len
+        else:
+            dep_tours, dep_len = it_best_tour[:, None, :], it_best_len
+        dep_w = (operand(q, dep_len) / dep_len)[:, None]
+    elif cfg.variant == "acs":
+        dep_tours = best_tour[:, None, :]
+        rho_q = rho * q if h is not None else floatops.const(rho * q,
+                                                              best_len)
+        dep_w = (rho_q / best_len)[:, None]
+    else:
+        raise ValueError(f"unknown variant {cfg.variant}")
+
+    if cfg.use_pallas:
+        from ..kernels import ops as kops
+        tau = kops.pheromone_update(tau_full, dep_tours, dep_w, rho,
+                                    n_actual=n_act, active=active)
+    else:
+        rho0 = rho if h is None else p0.hyper.rho
+        tau = pheromone.update(tau_full[0], dep_tours[0], dep_w[0], rho0,
+                               strategy=cfg.deposit, tile=cfg.deposit_tile,
+                               n_actual=p0.n_actual)[None]
+
+    # MMAS/ACS normalisations use the real city count of padded instances.
+    clamp = None
+    if cfg.variant == "mmas":
+        tau_min, tau_max = mmas_bounds(best_len, cfg, n, n_act, q, rho)
+        tau = torch.clamp(tau, min=tsp.per_slot(tau_min, 3),
+                          max=tsp.per_slot(tau_max, 3))
+        clamp = (tau_min, tau_max)
+    elif cfg.variant == "acs":
+        # Parallel-ACS local rule: decay edges crossed this iteration.
+        n_eff = floatops.const(n, best_len) if n_act is None \
+            else n_act.to(torch.float32)
+        f, t = pheromone.tour_edges(res.tours, n_act)
+        tau0 = operand(q, best_len) / (
+            n_eff * torch.maximum(best_len, floatops.const(1e-9, best_len)))
+        ew = None
+        if n_act is not None:
+            # phantom-tail crossings must not decay (multiplicity 0)
+            idx = torch.arange(n, device=tau.device)
+            ew = (idx < n_act[:, None, None]).to(tau.dtype)
+            ew = ew.expand(res.tours.shape).reshape(n_slots, -1)
+        tau = pheromone.local_update_acs(
+            tau, f.reshape(n_slots, -1), t.reshape(n_slots, -1), cfg.xi,
+            tau0, w=ew)
+
+    # quantise-on-store: the next resident payload; metrics below read the
+    # exact fp32 tau of this step, before the store rounds it
+    tau_store = tau
+    if quantised:
+        tau_store = quant.requantise(tau, states.tau, cfg.tau_dtype,
+                                     quant.round_key(cfg.tau_round,
+                                                     ks[:, 2]))
+
+    new_states = ColonyState(tau_store, best_tour, best_len,
+                             states.iteration + 1, key)
+    if not cfg.metrics:
+        return new_states, it_best_len
+    from ..obs import metrics as obs_metrics
+    mets = obs_metrics.step_metrics(
+        res.lengths, it_best_len, best_len, improved, tau, clamp,
+        pre_ls_lengths)
+    return new_states, it_best_len, mets
 
 
 def colony_step(problem: Problem, state: ColonyState,
@@ -283,123 +491,17 @@ def colony_step(problem: Problem, state: ColonyState,
     best.  Returns (new_state, iteration_best_length); with
     ``cfg.metrics``, (new_state, iteration_best_length, obs.StepMetrics).
     The metrics are read-only reductions over this step's intermediates:
-    no extra draw, no reordering, so the state is bitwise the same."""
-    _check_supported(problem, cfg)
-    n = problem.dist.shape[0]
-    m = cfg.num_ants(n)
-    n_act = problem.n_actual
-    h = problem.hyper
-    alpha = cfg.alpha if h is None else h.alpha
-    beta = cfg.beta if h is None else h.beta
-    rho = cfg.rho if h is None else h.rho
-    q = cfg.q if h is None else h.q
-    quantised = quant.is_quantised(cfg.tau_dtype)
-    if quantised:
-        # The extra key feeds quantise-on-store; the fp32 split is
-        # unchanged, so its key trajectory is too.
-        key, k_tour, k_q = sampling.split(state.key, 3)
-    else:
-        key, k_tour = sampling.split(state.key)
-    # Transient fp32 view for this step's compute.
-    tau_full = quant.dequantise(state.tau)
+    no extra draw, no reordering, so the state is bitwise the same.
 
-    method = cfg.construction
-    if cfg.use_pallas and method == "data_parallel":
-        # The fused_walk kernel does the whole construction: no (n, n)
-        # choice precompute on this route at all.
-        method = "fused"
-    choice_info = None
-    tau_c, tau_scale = tau_full, None
-    if method != "fused":
-        choice_info = _choice(tau_full, problem.eta, cfg, alpha, beta, n_act)
-    elif quantised:
-        # The fused kernel dequantises the resident payload itself.
-        tau_c = state.tau.q
-        tau_scale = state.tau.scale if cfg.tau_dtype == "int8" else None
-
-    res = strategies.construct_tours(
-        k_tour, problem.dist, choice_info, m, method=method,
-        selection=cfg.selection, tau=tau_c, eta=problem.eta,
-        alpha=alpha, beta=beta, n_actual=n_act,
-        draw_mode=cfg.draw_mode, tau_scale=tau_scale)
-
-    pre_ls_lengths = None
-    if cfg.local_search != "none":
-        # improved tours drive best-tracking and the deposit
-        pre_ls_lengths = res.lengths
-        res = _apply_local_search(problem, res, int(state.iteration), cfg)
-
-    it_best_idx = torch.argmin(res.lengths)
-    it_best_len = res.lengths[it_best_idx]
-    it_best_tour = res.tours[it_best_idx]
-
-    improved = it_best_len < state.best_len
-    best_len = torch.where(improved, it_best_len, state.best_len)
-    best_tour = torch.where(improved, it_best_tour, state.best_tour)
-
-    if cfg.variant == "as":
-        dep_tours, dep_w = res.tours, operand(q, res.lengths) / res.lengths
-    elif cfg.variant == "mmas":
-        if cfg.mmas_best == "global":
-            dep_tours, dep_len = best_tour[None, :], best_len
-        else:
-            dep_tours, dep_len = it_best_tour[None, :], it_best_len
-        dep_w = (operand(q, dep_len) / dep_len)[None]
-    elif cfg.variant == "acs":
-        dep_tours = best_tour[None, :]
-        rho_q = rho * q if h is not None else floatops.const(rho * q,
-                                                              best_len)
-        dep_w = (rho_q / best_len)[None]
-    else:
-        raise ValueError(f"unknown variant {cfg.variant}")
-
-    if cfg.use_pallas:
-        from ..kernels import ops as kops
-        tau = kops.pheromone_update(tau_full, dep_tours, dep_w, rho,
-                                    n_actual=n_act)
-    else:
-        tau = pheromone.update(tau_full, dep_tours, dep_w, rho,
-                               strategy=cfg.deposit, tile=cfg.deposit_tile,
-                               n_actual=n_act)
-
-    # MMAS/ACS normalisations use the real city count of padded instances.
-    clamp = None
-    if cfg.variant == "mmas":
-        tau_min, tau_max = mmas_bounds(best_len, cfg, n, n_act, q, rho)
-        tau = torch.clamp(tau, min=tau_min, max=tau_max)
-        clamp = (tau_min, tau_max)
-    elif cfg.variant == "acs":
-        # Parallel-ACS local rule: decay edges crossed this iteration.
-        n_eff = n if n_act is None else n_act
-        f, t = pheromone.tour_edges(res.tours, n_act)
-        tau0 = operand(q, best_len) / (
-            floatops.const(n_eff, best_len)
-            * torch.maximum(best_len, floatops.const(1e-9, best_len)))
-        ew = None
-        if n_act is not None:
-            # phantom-tail crossings must not decay (multiplicity 0)
-            idx = torch.arange(n, device=tau.device)
-            ew = (idx < n_act).to(tau.dtype).expand(res.tours.shape)
-            ew = ew.reshape(-1)
-        tau = pheromone.local_update_acs(tau, f.reshape(-1), t.reshape(-1),
-                                         cfg.xi, tau0, w=ew)
-
-    # quantise-on-store: the next resident payload; metrics below read the
-    # exact fp32 tau of this step, before the store rounds it
-    tau_store = tau
-    if quantised:
-        tau_store = quant.requantise(tau, state.tau, cfg.tau_dtype,
-                                     quant.round_key(cfg.tau_round, k_q))
-
-    new_state = ColonyState(tau_store, best_tour, best_len,
-                            state.iteration + 1, key)
-    if not cfg.metrics:
-        return new_state, it_best_len
-    from ..obs import metrics as obs_metrics
-    mets = obs_metrics.step_metrics(
-        res.lengths, it_best_len, best_len, improved, tau, clamp,
-        pre_ls_lengths)
-    return new_state, it_best_len, mets
+    The B = 1 case of ``colony_step_batch``: one instance is a stack of
+    one, so a batched step and a solo step run the same arithmetic."""
+    stacked = Problem(
+        problem.dist[None], problem.eta[None], problem.nn[None],
+        None if problem.n_actual is None else (int(problem.n_actual),),
+        None if problem.hyper is None else
+        Hyper(*(x[None] for x in problem.hyper)))
+    out = colony_step_batch(stacked, tree.map(lambda x: x[None], state), cfg)
+    return tuple(tree.index(o, 0) for o in out)
 
 
 def run(instance: tsp.TSPInstance, cfg: ACOConfig,

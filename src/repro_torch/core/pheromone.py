@@ -23,7 +23,7 @@ from typing import Optional, Union
 
 import torch
 
-from . import floatops
+from . import floatops, tsp
 
 NActual = Union[int, None]
 
@@ -36,14 +36,16 @@ def evaporate(tau: torch.Tensor, rho: float) -> torch.Tensor:
     return floatops.const(1.0 - rho, tau) * tau
 
 
-def tour_edges(tours: torch.Tensor, n_actual: NActual = None
+def tour_edges(tours: torch.Tensor, n_actual=None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Directed edge endpoints (m, n) for closed tours; with ``n_actual``
-    the closing edge wraps at position n_actual-1 back to position 0."""
+    the closing edge wraps at position n_actual-1 back to position 0.
+    (B, m, n) tours of a stack take a (B,) ``n_actual`` tensor."""
     t = torch.roll(tours, -1, dims=-1)
     if n_actual is not None:
         idx = torch.arange(tours.shape[-1], device=tours.device)
-        t = torch.where(idx == n_actual - 1, tours[..., :1], t)
+        n_act = tsp.per_slot(n_actual, tours.dim())
+        t = torch.where(idx == n_act - 1, tours[..., :1], t)
     return tours, t
 
 
@@ -120,11 +122,22 @@ def local_update_acs(tau: torch.Tensor, frm: torch.Tensor, to: torch.Tensor,
 
     The reference's compiler fuses the first product into the sum:
     fma(factor, tau, (1 - factor) * tau0), computed here as one addcmul.
+    A (B, n, n) tau of a stack takes (B, E) edges and weights and a (B,)
+    tau0; each instance is bitwise its own call (the counts are exact).
+    An (n, n) tau is the stack of one.
     """
-    n = tau.shape[0]
+    if tau.dim() == 2:
+        return local_update_acs(tau[None], frm[None], to[None], xi, tau0,
+                                None if w is None else w[None])[0]
+    nb, n = tau.shape[0], tau.shape[-1]
     ones = torch.ones_like(frm, dtype=tau.dtype) if w is None \
         else w.to(tau.dtype)
-    counts = _scatter_add(n, frm, to, ones)
-    counts = counts + counts.T
+    # one scatter over the stack: instance b's cells at b n^2 + i n + j
+    base = torch.arange(nb, device=frm.device)[:, None] * n
+    flat = ((base + frm.long()) * n + to.long()).reshape(-1)
+    counts = torch.zeros(nb * n * n, dtype=torch.float32, device=tau.device)
+    counts = counts.index_add_(0, flat, ones.reshape(-1)).view(nb, n, n)
+    counts = counts + counts.transpose(-1, -2)
+    tau0 = tsp.per_slot(tau0, 3)
     factor = torch.pow(floatops.const(1.0 - xi, tau), counts)
     return torch.addcmul((1.0 - factor) * tau0, factor, tau)

@@ -76,7 +76,8 @@ def _round_bf16(x: torch.Tensor, key: Optional[torch.Tensor]
     if key is None:
         return x.to(torch.bfloat16)
     bits = x.contiguous().view(torch.int32).to(torch.int64) & _MASK
-    r = sampling.random_bits(key, tuple(x.shape)) & 0xFFFF
+    # a (B, 2) stack of keys draws each instance's bits over its own plane
+    r = sampling.random_bits(key, tuple(x.shape[key.dim() - 1:])) & 0xFFFF
     bits = (bits + r) & 0xFFFF0000
     # uint32 -> int32 bit pattern, wrapped explicitly
     bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits)
@@ -128,7 +129,9 @@ def quantise(x: torch.Tensor, tau_dtype: str, *, compensation: bool = False,
 def requantise(x: torch.Tensor, prev: QuantTau, tau_dtype: str,
                key: Optional[torch.Tensor] = None) -> QuantTau:
     """Quantise-on-store after a float32 update step, carrying the previous
-    residual (its width, 0 or full, says whether compensation is on)."""
+    residual (its width, 0 or full, says whether compensation is on).  A
+    (B, n, n) stack takes a (B, 2) stack of round keys; each instance is
+    bitwise its own call (row scales, its own draws)."""
     comp = prev.err.shape[-1] > 0
     return _quantise(x, tau_dtype, comp, key, prev.err, compiled=True)
 

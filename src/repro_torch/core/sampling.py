@@ -101,13 +101,15 @@ def fold_in(key: torch.Tensor, data: IntLike) -> torch.Tensor:
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """``jax.random.bits(key, shape)`` (uint32 values in int64)."""
+    """``jax.random.bits(key, shape)`` (uint32 values in int64).  A (B, 2)
+    stack of keys gives (B, *shape), row b bitwise ``random_bits(key[b],
+    shape)``."""
     shape = tuple(int(s) for s in shape)
     size = int(np.prod(shape)) if shape else 1
     flat = torch.arange(size, dtype=torch.int64, device=key.device)
     hi = flat >> 32
-    y0, y1 = threefry2x32(key[0], key[1], hi, flat & _MASK)
-    return (y0 ^ y1).reshape(shape)
+    y0, y1 = threefry2x32(key[..., 0:1], key[..., 1:2], hi, flat & _MASK)
+    return (y0 ^ y1).reshape(tuple(key.shape[:-1]) + shape)
 
 
 def counter_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
@@ -173,18 +175,27 @@ def counter_gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 
 
 def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
-            maxval: int) -> torch.Tensor:
+            maxval: IntLike) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval, int32)``.
 
     The reference's algorithm: two 32-bit draws from ``split(key)``,
     combined as ``(hi % span) * (2^32 % span) + lo % span`` mod ``span``
-    in wrapping uint32 arithmetic.  ``minval``/``maxval`` are host ints.
+    in wrapping uint32 arithmetic.  ``minval`` is a host int, ``maxval`` a
+    host int or, with a (B, 2) stack of keys, a (B,) integer tensor of
+    per-row bounds: row b is bitwise ``randint(key[b], shape, minval,
+    maxval[b])``.
     """
-    k1, k2 = split(key)
+    ks = split(key)
+    k1, k2 = ks[..., 0, :], ks[..., 1, :]
     higher = random_bits(k1, shape)
     lower = random_bits(k2, shape)
-    span = int(maxval) - int(minval)
-    span = 1 if span <= 0 else span
+    if isinstance(maxval, torch.Tensor):
+        # per row, in int64 tensors: every intermediate stays below 2^62
+        span = maxval.to(device=key.device, dtype=torch.int64) - int(minval)
+        span = torch.clamp_min(span, 1).reshape(
+            (-1,) + (1,) * len(tuple(shape)))
+    else:
+        span = max(int(maxval) - int(minval), 1)
     mult = (1 << 16) % span
     mult = ((mult * mult) & _MASK) % span
     off = (((higher % span) * mult) & _MASK) + (lower % span)

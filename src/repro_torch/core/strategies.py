@@ -14,6 +14,10 @@ Three construction methods of the reference's ladder are ported:
                      selection and tabu update -- in one launch, with no
                      (n, n) choice matrix and no (m, n) draw tensor.
 
+``fused`` also takes a stack of B instances ((B, 2) keys, (B, n, n)
+operands, a (B,) ``n_actual`` tensor, host ``active`` flags): one walk
+launch for the batch, each instance bitwise its own construction.
+
 For the other methods the reference's ``lax.scan`` over the n-1 steps is a
 Python loop here.  Step ``t`` draws from ``fold_in(key, t)``.  Padded
 instances (``n_actual``) emit the phantom tail in fixed index order, as the
@@ -22,14 +26,14 @@ reference does.  The other methods (``task_baseline``, ``task_choice``,
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Union
+from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import torch
 
 from ..kernels.choice_info import ipow
 from . import sampling, tsp
 
-NActual = Union[int, None]
+NActual = Union[int, torch.Tensor, None]
 
 
 class TourState(NamedTuple):
@@ -47,7 +51,9 @@ METHODS = ("data_parallel", "pallas", "fused")
 
 def place_ants(key: torch.Tensor, m: int, n: int,
                n_actual: NActual = None) -> torch.Tensor:
-    """Random initial city per ant, bounded to the real cities."""
+    """Random initial city per ant, bounded to the real cities.  A (B, 2)
+    stack of keys places (B, m) ants, each instance bounded by its own
+    ``n_actual`` (a (B,) tensor)."""
     hi = n if n_actual is None else n_actual
     return sampling.randint(key, (m,), 0, hi)
 
@@ -61,8 +67,10 @@ def _init_state(start: torch.Tensor, n: int) -> TourState:
 
 def _finish(start: torch.Tensor, steps: torch.Tensor, dist: torch.Tensor,
             n_actual: NActual = None) -> TourResult:
-    """steps: (n-1, m) int32 emitted cities -> tours (m, n) + lengths."""
-    tours = torch.cat([start[None], steps]).T.contiguous()
+    """steps: (n-1, m) int32 emitted cities -> tours (m, n) + lengths; with
+    a leading instance axis, (B, n-1, m) -> (B, m, n) + (B, m)."""
+    tours = torch.cat([start.unsqueeze(-2), steps], dim=-2)
+    tours = tours.transpose(-1, -2).contiguous()
     return TourResult(tours, tsp.tour_length(dist, tours, n_actual))
 
 
@@ -116,6 +124,7 @@ def construct_tours(
     n_actual: NActual = None,
     draw_mode: str = "packed",
     tau_scale: Optional[torch.Tensor] = None,
+    active: Optional[Sequence[bool]] = None,
 ) -> TourResult:
     """Build m complete tours under the given method.
 
@@ -124,6 +133,11 @@ def construct_tours(
     ``fused`` also takes a quantised ``tau`` payload (int8 or bfloat16,
     ``core/quant.py``); ``tau_scale`` is the int8 per-row scale.
     ``n_actual``: real-city count of a padded instance (host int), or None.
+
+    ``fused`` over a stack: ``key`` (B, 2), ``dist``/``tau``/``eta``
+    (B, n, n), ``n_actual`` a (B,) int32 tensor or None, ``active`` B host
+    flags (None: all); tours (B, m, n) and lengths (B, m), an inactive
+    instance's tours all zero.
     """
     if method not in METHODS:
         if method in ("task_choice", "task_baseline", "nn_list",
@@ -135,8 +149,12 @@ def construct_tours(
     if draw_mode not in sampling.DRAW_MODES:
         raise ValueError(f"unknown draw_mode {draw_mode!r}; "
                          f"supported: {', '.join(sampling.DRAW_MODES)}")
-    n = dist.shape[0]
-    kp, kc = sampling.split(key)
+    if key.dim() == 2 and method != "fused":
+        raise ValueError(f"construction {method!r} takes one instance; only "
+                         "'fused' takes a stack")
+    n = dist.shape[-1]
+    ks = sampling.split(key)
+    kp, kc = ks[..., 0, :], ks[..., 1, :].contiguous()
     start = place_ants(kp, m, n, n_actual)
     if method == "fused":
         assert tau is not None and eta is not None
@@ -145,7 +163,7 @@ def construct_tours(
         scale = tau_scale if tau.dtype == torch.int8 else None
         steps = kops.fused_walk(tau, eta, start, kc, float(alpha),
                                 float(beta), n_actual, selection, draw_mode,
-                                tau_scale=scale)
+                                tau_scale=scale, active=active)
         return _finish(start, steps, dist, n_actual)
     if method == "pallas":
         step_impl = _make_pallas_step(selection, draw_mode)

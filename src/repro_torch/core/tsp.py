@@ -312,23 +312,46 @@ def edge_sum(d: torch.Tensor) -> torch.Tensor:
     return d[..., 0]
 
 
+def per_slot(x, ndim: int):
+    """A batch's per-instance value for broadcasting against (B, ...)
+    tensors of ``ndim`` dims: a (B,) tensor as (B, 1, ..., 1); a host
+    scalar or None as it is."""
+    if isinstance(x, torch.Tensor) and x.dim() == 1:
+        return x.reshape((-1,) + (1,) * (ndim - 1))
+    return x
+
+
 def tour_length(dist: torch.Tensor, tour: torch.Tensor,
-                n_actual: NActual = None) -> torch.Tensor:
+                n_actual=None) -> torch.Tensor:
     """Closed-tour length; tour (..., n) int city permutation.
 
     With ``n_actual`` the real cities occupy positions ``0..n_actual-1``:
     the closing edge runs from position n_actual-1 back to position 0 and
     phantom-tail edges contribute 0 (masked, never multiplied: phantom
     distances are inf).
+
+    A (B, n, n) ``dist`` is a stack of instances: ``tour`` (B, ..., n),
+    ``n_actual`` None, a host int or a (B,) tensor; each instance's
+    lengths are bitwise its own call's.
     """
     tour = tour.long()
     nxt = torch.roll(tour, -1, dims=-1)
+    if dist.dim() == 3:
+        bidx = torch.arange(dist.shape[0], device=tour.device).reshape(
+            (-1,) + (1,) * (tour.dim() - 1))
+
+        def gather(i, j):
+            return dist[bidx, i, j]
+    else:
+        def gather(i, j):
+            return dist[i, j]
     if n_actual is None:
-        return edge_sum(dist[tour, nxt])
+        return edge_sum(gather(tour, nxt))
+    n_act = per_slot(n_actual, tour.dim())
     idx = torch.arange(tour.shape[-1], device=tour.device)
-    nxt = torch.where(idx == n_actual - 1, tour[..., :1], nxt)
-    d = dist[tour, nxt]
-    return edge_sum(torch.where(idx < n_actual, d, torch.zeros_like(d)))
+    nxt = torch.where(idx == n_act - 1, tour[..., :1], nxt)
+    d = gather(tour, nxt)
+    return edge_sum(torch.where(idx < n_act, d, torch.zeros_like(d)))
 
 
 def heuristic_matrix(dist: torch.Tensor) -> torch.Tensor:

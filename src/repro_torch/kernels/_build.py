@@ -39,13 +39,14 @@ SIGNATURES = {
                          _P],
     "aco_fused_select_quant": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                                _F, _F, _I, _I, _P],
-    "aco_fused_walk": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
-                       _I, _F, _F, _I, _P],
+    "aco_fused_walk": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                       _I, _I, _F, _F, _I, _P, _P, _P],
     "aco_fused_walk_quant": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
-                             _F, _F, _I, _I, _F, _F, _I, _P],
+                             _I, _F, _F, _I, _I, _F, _F, _I, _P, _P, _P],
     "aco_pheromone_update": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong,
                              _F, _P],
-    "aco_pheromone_update_tours": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "aco_pheromone_update_tours": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                                   _P, _F, _P],
     "aco_two_opt_best": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P],
     "aco_sparse_select": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                           _I, _P],
@@ -162,6 +163,24 @@ def require(name: str, t, dtype, shape=None, device=None) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor is not contiguous")
+
+
+@functools.lru_cache(maxsize=256)
+def _flags(values: tuple, device: str):
+    import torch
+    return torch.tensor(values, dtype=torch.uint8, device=device)
+
+
+def active_flags(active, batch: int, device) -> tuple:
+    """``active``, a host sequence of ``batch`` flags, as a (batch,) uint8
+    tensor on ``device`` (copied once per pattern, then cached) and the
+    number of flags set; ``(None, batch)`` for None (every instance)."""
+    if active is None:
+        return None, batch
+    values = tuple(1 if a else 0 for a in active)
+    if len(values) != batch:
+        raise ValueError(f"{len(values)} active flags for {batch} instances")
+    return _flags(values, str(device)), sum(values)
 
 
 def launch(name: str, device, *args) -> None:

@@ -39,6 +39,13 @@
 //           warps' partials itself (double-buffered by step parity);
 //   emit    thread 0 writes out[t - t0, a]; every thread marks the pick in
 //           the tabu row.  Steps t >= n_actual emit city t.
+// The instance axis (the reference's pallas_call under vmap, in the
+// batched engine): blockIdx.y is the instance b of a (B, n_rows, n) stack.
+// Its payload, scale, eta, start, visited, key and out start b instance
+// strides further on, and its n_actual is read from a (B,) device array; a
+// block whose instance is inactive returns at once and writes nothing (the
+// reference's where-freeze, at no walk cost).  One instance (B = 1, a host
+// n_actual) is the single-instance walk: there is one kernel body.
 // Bound: operations.  Its bytes (payload, eta, start, the tours) are about
 // 9 MB at n = m = 1002 with int8 tau, 2.7 us at 3.35 TB/s; its integer
 // work is one threefry hash (about 80 operations) at each (step, ant,
@@ -186,13 +193,15 @@ __device__ __forceinline__ float score_without_draw(float w, bool keep) {
 }
 
 struct FusedWalkArgs {
-  const void* tau;
-  const float* scale;  // int8 per-row scale, else null
+  const void* tau;     // (B, n_rows, n) payload
+  const float* scale;  // int8 per-row scale (B, n_rows), else null
   const float* eta;
   const int* start;
-  const unsigned char* visited;  // (m, n) starting tabu rows, or null
-  const long long* key;          // kc, (2,)
-  int* out;                      // (n - t0, m)
+  const unsigned char* visited;  // (B, m, n) starting tabu rows, or null
+  const long long* key;          // kc, (B, 2)
+  int* out;                      // (B, n - t0, m)
+  const int* n_actual;           // (B,) per instance, or null: n_act
+  const unsigned char* active;   // (B,) flags, or null: every instance
   int m, n, n_rows, t0, n_act, draw;
   float alpha, beta, lo, span;
 };
@@ -205,24 +214,33 @@ __global__ void __launch_bounds__(kWalkBlock, 8)
   __shared__ float s_val[2][kWalkWarps];
   __shared__ int s_idx[2][kWalkWarps];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int a = blockIdx.x, n = g.n;
+  const int a = blockIdx.x, b = blockIdx.y, n = g.n;
+  if (g.active != nullptr && g.active[b] == 0) return;  // the whole block
+  const long long plane = (long long)g.n_rows * n;       // instance stride
+  const int n_act = g.n_actual != nullptr ? g.n_actual[b] : g.n_act;
+  const float* scale_b =
+      g.scale != nullptr ? g.scale + (long long)b * g.n_rows : nullptr;
+  const float* eta = g.eta + b * plane;
+  int* out = g.out + (long long)b * (n - g.t0) * g.m;
   int* q_city = reinterpret_cast<int*>(smem) + warp * kQueue;
   float* q_w =
       reinterpret_cast<float*>(smem) + kWalkWarps * kQueue + warp * kQueue;
   unsigned char* vis = smem + (size_t)kWalkWarps * kQueue * 8;
-  const T* tau = static_cast<const T*>(g.tau);
-  const int start = g.start[a];
+  const T* tau = static_cast<const T*>(g.tau) + b * plane;
+  const int start = g.start[(long long)b * g.m + a];
   const unsigned char* grow =
-      g.visited != nullptr ? g.visited + (long long)a * n : nullptr;
+      g.visited != nullptr ? g.visited + ((long long)b * g.m + a) * n
+                           : nullptr;
   for (int j = tid; j < n; j += kWalkBlock)
     vis[j] = (unsigned char)((grow != nullptr && grow[j] != 0) || j == start);
-  const uint32_t kc0 = (uint32_t)g.key[0], kc1 = (uint32_t)g.key[1];
+  const uint32_t kc0 = (uint32_t)g.key[2 * b];
+  const uint32_t kc1 = (uint32_t)g.key[2 * b + 1];
   __syncthreads();
   int cur = start;
   for (int t = g.t0; t < n; ++t) {
     const int s = t - g.t0;
     int pick;
-    if (t >= g.n_act) {
+    if (t >= n_act) {
       pick = t;
     } else {
       if (MODE != aco::kGreedy && s % kWalkBlock == 0) {
@@ -239,7 +257,7 @@ __global__ void __launch_bounds__(kWalkBlock, 8)
       const long long base = (long long)(row_ok ? cur : 0) * n;
       const long long q0 = base >> 2;
       const int nq = (int)(((base + n - 1) >> 2) - q0 + 1);
-      const float srow = g.scale != nullptr ? g.scale[row_ok ? cur : 0] : 1.0f;
+      const float srow = scale_b != nullptr ? scale_b[row_ok ? cur : 0] : 1.0f;
       aco::ArgMax best = aco::ArgMax::empty();
       for (int c0 = 0; c0 < nq; c0 += kWalkBlock * kBatch) {
         int queued = 0;
@@ -248,7 +266,7 @@ __global__ void __launch_bounds__(kWalkBlock, 8)
           float tv[4], ev[4];
           if (qi < nq) {
             load4(tau, q0 + qi, srow, tv);
-            load4(g.eta, q0 + qi, 1.0f, ev);
+            load4(eta, q0 + qi, 1.0f, ev);
           }
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -258,7 +276,7 @@ __global__ void __launch_bounds__(kWalkBlock, 8)
             float w = 0.0f;
             if (in_row) {
               w = row_ok ? aco::choice(tv[i], ev[i], g.alpha, g.beta) : 0.0f;
-              const bool keep = vis[j] == 0 && j < g.n_act;
+              const bool keep = vis[j] == 0 && j < n_act;
               need = needs_draw<MODE>(w, keep);
               if (!need) best.take(score_without_draw<MODE>(w, keep), (int)j);
             }
@@ -297,7 +315,7 @@ __global__ void __launch_bounds__(kWalkBlock, 8)
         all.take(s_val[par][w], s_idx[par][w]);
       pick = all.idx == INT_MAX ? 0 : all.idx;
     }
-    if (tid == 0) g.out[(long long)s * g.m + a] = pick;
+    if (tid == 0) out[(long long)s * g.m + a] = pick;
     // every thread marks the pick itself, so its own next reads see it
     vis[pick] = 1;
     cur = pick;
@@ -305,27 +323,28 @@ __global__ void __launch_bounds__(kWalkBlock, 8)
 }
 
 template <typename T, int MODE>
-int launch_walk_kernel(const FusedWalkArgs& g, size_t smem, cudaStream_t s) {
+int launch_walk_kernel(const FusedWalkArgs& g, int batch, size_t smem,
+                       cudaStream_t s) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fused_walk_kernel<T, MODE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fused_walk_kernel<T, MODE><<<g.m, kWalkBlock, smem, s>>>(g);
+  fused_walk_kernel<T, MODE><<<dim3(g.m, batch), kWalkBlock, smem, s>>>(g);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_walk(const FusedWalkArgs& g, int mode, size_t smem,
+int launch_walk(const FusedWalkArgs& g, int batch, int mode, size_t smem,
                 cudaStream_t s) {
   switch (mode) {
     case aco::kIRoulette:
-      return launch_walk_kernel<T, aco::kIRoulette>(g, smem, s);
+      return launch_walk_kernel<T, aco::kIRoulette>(g, batch, smem, s);
     case aco::kGumbel:
-      return launch_walk_kernel<T, aco::kGumbel>(g, smem, s);
+      return launch_walk_kernel<T, aco::kGumbel>(g, batch, smem, s);
     case aco::kGreedy:
-      return launch_walk_kernel<T, aco::kGreedy>(g, smem, s);
+      return launch_walk_kernel<T, aco::kGreedy>(g, batch, smem, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -333,23 +352,37 @@ int launch_walk(const FusedWalkArgs& g, int mode, size_t smem,
 
 int walk(const void* tau, int payload, const float* scale, const float* eta,
          int n_rows, const int* start, const unsigned char* visited,
-         const long long* key, int* out, int m, int n, int t0, float alpha,
-         float beta, int mode, int draw, float lo, float span, int n_actual,
+         const long long* key, int* out, int batch, int m, int n, int t0,
+         float alpha, float beta, int mode, int draw, float lo, float span,
+         int n_actual, const int* n_actual_arr, const unsigned char* active,
          cudaStream_t s) {
-  if (m == 0 || t0 >= n) return 0;
-  if (n <= 0 || t0 < 1 || (draw != aco::kPacked && draw != aco::kCounter) ||
+  if (m == 0 || batch == 0 || t0 >= n) return 0;
+  // every instance's payload and eta start on a 16-byte boundary
+  const int item = payload == 0 ? 4 : payload == 1 ? 1 : 2;
+  const long long plane = (long long)n_rows * n;
+  if (n <= 0 || t0 < 1 || batch < 0 || batch > 65535 ||
+      (draw != aco::kPacked && draw != aco::kCounter) ||
       (draw == aco::kCounter && n > 65536) || (payload == 1 && !scale) ||
       (reinterpret_cast<uintptr_t>(tau) | reinterpret_cast<uintptr_t>(eta)) %
-          16 != 0)
+          16 != 0 ||
+      (batch > 1 && ((plane * item) % 16 != 0 || (plane * 4) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)kWalkWarps * kQueue * 8 + ((n + 15) & ~15);
   if (smem > kWalkSmemCap) return (int)cudaErrorInvalidValue;
-  FusedWalkArgs g{tau, payload == 1 ? scale : nullptr, eta, start, visited,
-                  key, out, m, n, n_rows, t0, n_actual, draw, alpha, beta,
-                  lo, span};
-  if (payload == 0) return launch_walk<float>(g, mode, smem, s);
-  if (payload == 1) return launch_walk<int8_t>(g, mode, smem, s);
-  if (payload == 2) return launch_walk<__nv_bfloat16>(g, mode, smem, s);
+  FusedWalkArgs g{tau,   payload == 1 ? scale : nullptr,
+                  eta,   start,
+                  visited, key,
+                  out,   n_actual_arr,
+                  active, m,
+                  n,     n_rows,
+                  t0,    n_actual,
+                  draw,  alpha,
+                  beta,  lo,
+                  span};
+  if (payload == 0) return launch_walk<float>(g, batch, mode, smem, s);
+  if (payload == 1) return launch_walk<int8_t>(g, batch, mode, smem, s);
+  if (payload == 2)
+    return launch_walk<__nv_bfloat16>(g, batch, mode, smem, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -393,35 +426,42 @@ extern "C" int aco_fused_select_quant(const void* tau, int payload,
   return (int)cudaErrorInvalidValue;
 }
 
-// The dense walk: every step t = t0 .. n-1 of m ants in one launch.
-// tau, eta (n_rows, n) float32, both 16-byte aligned; start (m,); visited
-// (m, n) bytes, the starting tabu rows, or null (all clear); key the
-// construction key kc (2,) int64; out (n - t0, m).  Steps t >= n_actual
-// emit city t; draw 0 = packed, 1 = counter.
+// The dense walk: every step t = t0 .. n-1 of m ants of `batch` instances
+// in one launch.  tau, eta (batch, n_rows, n) float32, every instance's
+// plane 16-byte aligned; start (batch, m); visited (batch, m, n) bytes, the
+// starting tabu rows, or null (all clear); key the construction keys kc
+// (batch, 2) int64; out (batch, n - t0, m).  Steps t >= n_actual emit city
+// t, n_actual from n_actual_arr[b] when that is given; active (batch,)
+// bytes, or null: an inactive instance is skipped and its out left as it
+// was.  draw 0 = packed, 1 = counter.
 extern "C" int aco_fused_walk(const float* tau, const float* eta,
                               int n_rows, const int* start,
                               const unsigned char* visited,
-                              const long long* key, int* out, int m, int n,
-                              int t0, float alpha, float beta, int mode,
-                              int draw, float lo, float span, int n_actual,
-                              void* stream) {
-  return walk(tau, 0, nullptr, eta, n_rows, start, visited, key, out, m, n,
-              t0, alpha, beta, mode, draw, lo, span, n_actual,
-              static_cast<cudaStream_t>(stream));
+                              const long long* key, int* out, int batch,
+                              int m, int n, int t0, float alpha, float beta,
+                              int mode, int draw, float lo, float span,
+                              int n_actual, const int* n_actual_arr,
+                              const unsigned char* active, void* stream) {
+  return walk(tau, 0, nullptr, eta, n_rows, start, visited, key, out, batch,
+              m, n, t0, alpha, beta, mode, draw, lo, span, n_actual,
+              n_actual_arr, active, static_cast<cudaStream_t>(stream));
 }
 
 // The walk over a quantised payload: payload 1 = int8 tau with its
-// (n_rows, 1) float32 scale, 2 = bfloat16 tau (scale unused).
+// (batch, n_rows, 1) float32 scale, 2 = bfloat16 tau (scale unused).
 extern "C" int aco_fused_walk_quant(const void* tau, int payload,
                                     const float* scale, const float* eta,
                                     int n_rows, const int* start,
                                     const unsigned char* visited,
-                                    const long long* key, int* out, int m,
-                                    int n, int t0, float alpha, float beta,
-                                    int mode, int draw, float lo, float span,
-                                    int n_actual, void* stream) {
+                                    const long long* key, int* out,
+                                    int batch, int m, int n, int t0,
+                                    float alpha, float beta, int mode,
+                                    int draw, float lo, float span,
+                                    int n_actual, const int* n_actual_arr,
+                                    const unsigned char* active,
+                                    void* stream) {
   if (payload != 1 && payload != 2) return (int)cudaErrorInvalidValue;
-  return walk(tau, payload, scale, eta, n_rows, start, visited, key, out, m,
-              n, t0, alpha, beta, mode, draw, lo, span, n_actual,
-              static_cast<cudaStream_t>(stream));
+  return walk(tau, payload, scale, eta, n_rows, start, visited, key, out,
+              batch, m, n, t0, alpha, beta, mode, draw, lo, span, n_actual,
+              n_actual_arr, active, static_cast<cudaStream_t>(stream));
 }

@@ -48,6 +48,13 @@
 //           pass.
 // Precondition: every row of tours is a permutation of 0..n-1 (what tour
 // construction emits); out-of-range ids are skipped, never written.
+// The instance axis (the reference's pallas_call under vmap): blockIdx.y of
+// both passes is the instance b of a (B, n, n) stack; its tau, tours,
+// weights, table and out start b instance strides further on, its n_eff is
+// read from a (B,) device array, and a block of an inactive instance
+// returns at once and writes nothing (as does one whose n_eff lies outside
+// [1, n]).  B = 1 with a host n_eff is the single-instance update: one
+// kernel body.
 // Bound: bytes -- 8 per cell (tau in, out), 4 per (ant, position), 4 per
 // ant; 12.0 MB at n = m = 1002, 3.6 us at 3.35 TB/s.  The two neighbour
 // tables (8 m n bytes) are an intermediate and stay mostly in L2.
@@ -93,8 +100,17 @@ constexpr int kSmemCap = 232448;   // bytes of shared memory a block may use
 // the ants of one city side by side (64 contiguous bytes per city).
 __global__ void tour_neighbours_kernel(const int* __restrict__ tours,
                                        int2* __restrict__ nbr, int m, int n,
-                                       int n_eff, int ants) {
+                                       int n_eff,
+                                       const int* __restrict__ n_eff_arr,
+                                       const unsigned char* __restrict__ act,
+                                       int ants) {
   extern __shared__ int2 s_nb[];  // [ants][n]
+  const int b = blockIdx.y;
+  if (act != nullptr && act[b] == 0) return;
+  if (n_eff_arr != nullptr) n_eff = n_eff_arr[b];
+  if (n_eff < 1 || n_eff > n) return;  // no such instance: nothing written
+  tours += (long long)b * m * n;
+  nbr += (long long)b * n * m;
   const int a0 = blockIdx.x * ants;
   const int na = min(ants, m - a0);
   const int total = na * n;
@@ -177,8 +193,18 @@ __global__ void row_update_kernel(const float* __restrict__ tau,
                                   const int2* __restrict__ nbr,
                                   const float* __restrict__ w,
                                   float* __restrict__ out, int n, int m,
-                                  float decay) {
+                                  float decay, int n_eff,
+                                  const int* __restrict__ n_eff_arr,
+                                  const unsigned char* __restrict__ active) {
   extern __shared__ float smem[];
+  const int b = blockIdx.y;
+  if (active != nullptr && active[b] == 0) return;
+  if (n_eff_arr != nullptr) n_eff = n_eff_arr[b];
+  if (n_eff < 1 || n_eff > n) return;
+  tau += (long long)b * n * n;
+  out += (long long)b * n * n;
+  nbr += (long long)b * n * m;
+  w += (long long)b * m;
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* ws = smem;
@@ -240,16 +266,23 @@ extern "C" int aco_pheromone_update(const float* tau, const int* frm,
   return (int)cudaGetLastError();
 }
 
-// tau, out: (n, n); tours: (m, n); w: (m,); nbr: scratch of 2 m n ints.
-// n_eff = n_actual (the closing edge leaves position n_eff - 1; positions
-// >= n_eff deposit nothing), n for an unpadded instance.
+// tau, out: (batch, n, n); tours: (batch, m, n); w: (batch, m); nbr:
+// scratch of 2 batch m n ints.  n_eff = n_actual (the closing edge leaves
+// position n_eff - 1; positions >= n_eff deposit nothing), n for an
+// unpadded instance; n_eff_arr (batch,), when given, holds each instance's.
+// active (batch,) bytes, or null: an inactive instance's out is left as it
+// was.
 extern "C" int aco_pheromone_update_tours(const float* tau, const int* tours,
                                           const float* w, int* nbr,
-                                          float* out, int n, int m, int n_eff,
+                                          float* out, int batch, int n, int m,
+                                          int n_eff, const int* n_eff_arr,
+                                          const unsigned char* active,
                                           float decay, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0) return 0;
-  if (n_eff < 1 || n_eff > n) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || batch == 0) return 0;
+  if (batch < 0 || batch > 65535) return (int)cudaErrorInvalidValue;
+  if (n_eff_arr == nullptr && (n_eff < 1 || n_eff > n))
+    return (int)cudaErrorInvalidValue;
   int warps = kRowWarps;
   auto bytes = [&](int wp) { return 4LL * (m + (long long)wp * (2 * n + m)); };
   while (warps > 1 && bytes(warps) > kSmemCap) --warps;
@@ -266,8 +299,9 @@ extern "C" int aco_pheromone_update_tours(const float* tau, const int* tours,
           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
       if (e != cudaSuccess) return (int)e;
     }
-    tour_neighbours_kernel<<<(m + ants - 1) / ants, kBlock1, (size_t)smem1,
-                             s>>>(tours, nb, m, n, n_eff, ants);
+    tour_neighbours_kernel<<<dim3((m + ants - 1) / ants, batch), kBlock1,
+                             (size_t)smem1, s>>>(tours, nb, m, n, n_eff,
+                                                 n_eff_arr, active, ants);
   }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -276,7 +310,7 @@ extern "C" int aco_pheromone_update_tours(const float* tau, const int* tours,
     if (e != cudaSuccess) return (int)e;
   }
   const int grid = (n + warps - 1) / warps;
-  row_update_kernel<<<grid, warps * 32, (size_t)smem, s>>>(
-      tau, nb, w, out, n, m, decay);
+  row_update_kernel<<<dim3(grid, batch), warps * 32, (size_t)smem, s>>>(
+      tau, nb, w, out, n, m, decay, n_eff, n_eff_arr, active);
   return (int)cudaGetLastError();
 }

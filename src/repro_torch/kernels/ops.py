@@ -11,11 +11,17 @@ single typed rejection point, with the reference's messages.
 
 Each kernel wrapper counts its launches in a plain integer attribute
 (``fused_select.launches`` ...); ``launch_counts``/``reset_launch_counts``
-read and zero them all.
+read and zero them all.  The launchers that take a leading instance axis
+(the two dense walks and the tours-driven update) also count the instances
+their launches served (``slot_launches``, read by ``slot_launch_counts``).
+
+The dense walk and the tours-driven update take that instance axis: a
+(B, n, n) stack of instances in one launch, ``n_actual`` a (B,) int32
+tensor and ``active`` B host flags (an inactive instance costs no work).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -47,9 +53,17 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def slot_launch_counts() -> dict:
+    """Instances served by the launchers with an instance axis."""
+    return {name: fn.slot_launches for name, fn in KERNELS.items()
+            if hasattr(fn, "slot_launches")}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "slot_launches"):
+            fn.slot_launches = 0
 
 
 def _plain(t: torch.Tensor) -> bool:
@@ -66,6 +80,7 @@ def check_kernel_route(masked: bool = False, hyper: bool = False,
                        selection: Optional[str] = None,
                        local_search: Optional[str] = None,
                        construction: Optional[str] = None,
+                       streaming: bool = False,
                        tau_dtype: str = "fp32") -> None:
     """Validate that the kernel/sparse route supports this problem shape.
 
@@ -79,7 +94,8 @@ def check_kernel_route(masked: bool = False, hyper: bool = False,
     - per-instance ``Hyper`` operands: unsupported (kernel and sparse
       exponents are static);
     - sparse x roulette (needs a full row's cumsum), sparse x local search
-      (dense distance matrix), sparse x another construction;
+      (dense distance matrix), sparse x another construction, sparse x
+      streaming (slot surgery assumes dense (n, n) state buffers);
     - ``tau_dtype``: 'fp32' | 'bf16' | 'int8', and not quantised together
       with ``Hyper``.
     """
@@ -133,6 +149,12 @@ def check_kernel_route(masked: bool = False, hyper: bool = False,
             "mutation windows index positions of the real best tour. Run "
             "the instance unpadded (solo run_sparse) or use "
             "construction='data_parallel'.")
+    if streaming:
+        raise UnsupportedKernelRoute(
+            "sparse instances are not wired into the streaming pool yet: "
+            "slot surgery assumes dense (n, n) ColonyState buffers. Use "
+            "the batched sparse engine route (solver.engine."
+            "solve_instances with sparse=True) or stream dense.")
 
 
 def choice_info(tau: torch.Tensor, eta: torch.Tensor, alpha: float = 1.0,
@@ -181,36 +203,41 @@ def fused_walk(tau: torch.Tensor, eta: torch.Tensor, start: torch.Tensor,
                draw_mode: str = "packed",
                tau_scale: Optional[torch.Tensor] = None,
                visited: Optional[torch.Tensor] = None,
-               first_step: int = 1) -> torch.Tensor:
+               first_step: int = 1,
+               active: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """The dense fused construction walk: steps first_step .. n-1 of every
     ant (row gather, tau^a * eta^b, the draw of ``fold_in(key, t)``, mask,
     select, tabu update), as (n - first_step, m) int32 cities.  An int8 or
     bfloat16 ``tau`` is a quantised payload; ``tau_scale`` is the int8
-    per-row scale."""
+    per-row scale.  A (B, n, n) ``tau`` walks a stack of instances
+    (``fused_select.fused_walk``)."""
     quantised = tau.dtype in (torch.int8, torch.bfloat16)
     if _plain(tau):
         return _fs.fused_walk_plain(tau, eta, start, key, alpha, beta,
                                     n_actual, mode, draw_mode, tau_scale,
-                                    visited, first_step)
+                                    visited, first_step, active=active)
     if quantised:
         return _fs.fused_walk_quant(tau, tau_scale, eta, start, key, alpha,
                                     beta, n_actual, mode, draw_mode, visited,
-                                    first_step)
+                                    first_step, active)
     return _fs.fused_walk(tau, eta, start, key, alpha, beta, n_actual, mode,
-                          draw_mode, visited, first_step)
+                          draw_mode, visited, first_step, active)
 
 
 def pheromone_update(tau: torch.Tensor, tours: torch.Tensor, w: torch.Tensor,
-                     rho: float, n_actual: Optional[int] = None
+                     rho: float, n_actual=None,
+                     active: Optional[Sequence[bool]] = None
                      ) -> torch.Tensor:
     """Symmetric fused update from (m, n) tours + (m,) weights: the edge
     stream of ``core.pheromone.tour_edges`` / ``edge_weights`` (closing
     edge at n_actual-1, phantom-tail edges at weight 0), each undirected
     edge in both directions.  On the card the tours-driven kernel applies
-    it without building the stream."""
+    it without building the stream.  A (B, n, n) ``tau`` updates a stack
+    of instances (``pheromone_update.pheromone_update_tours``)."""
     if _plain(tau):
-        return _pu.pheromone_update_tours_plain(tau, tours, w, rho, n_actual)
-    return _pu.pheromone_update_tours(tau, tours, w, rho, n_actual)
+        return _pu.pheromone_update_tours_plain(tau, tours, w, rho, n_actual,
+                                                active)
+    return _pu.pheromone_update_tours(tau, tours, w, rho, n_actual, active)
 
 
 def pheromone_update_edges(tau: torch.Tensor, frm: torch.Tensor,

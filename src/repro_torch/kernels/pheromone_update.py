@@ -33,10 +33,13 @@ every cell, however many deposits it gets, is bitwise the CPU
 ``index_add_`` and the same from run to run.  Bound: 8 bytes per cell, 4
 per (ant, position) and 4 per ant, 12.0 MB at n = m = 1002 (3.6 us at
 3.35 TB/s).  ``pheromone_update_tours_plain`` is its plain version.
+With a leading instance axis one launch updates a (B, n, n) stack, each
+instance's ``n_actual`` from a (B,) device array, an inactive instance
+skipped; the single update is its B = 1 case, one kernel body.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -86,13 +89,26 @@ pheromone_update.launches = 0
 
 def pheromone_update_tours_plain(tau: torch.Tensor, tours: torch.Tensor,
                                  w: torch.Tensor, rho: float,
-                                 n_actual: Optional[int] = None
+                                 n_actual=None,
+                                 active: Optional[Sequence[bool]] = None
                                  ) -> torch.Tensor:
     """tau (n, n); tours (m, n) closed tours; w (m,) per-ant weights ->
     new tau.  The edge stream of ``core.pheromone.tour_edges`` /
     ``edge_weights`` (closing edge at n_actual - 1, phantom-tail edges at
     weight 0), each undirected edge in both directions, forward edges
-    first, through ``pheromone_update_plain``."""
+    first, through ``pheromone_update_plain``.  A (B, n, n) tau is a stack
+    of instances: a loop of single updates over the active ones, an
+    inactive one's plane left at zero."""
+    if tau.dim() == 3:
+        from .fused_select import _slot_ints
+        nb = tau.shape[0]
+        out = torch.zeros_like(tau)
+        acts = [True] * nb if active is None else list(active)
+        for b, n_act in enumerate(_slot_ints(n_actual, nb)):
+            if acts[b]:
+                out[b] = pheromone_update_tours_plain(tau[b], tours[b], w[b],
+                                                      rho, n_act)
+        return out
     from ..core import pheromone as _ph
     f, t = _ph.tour_edges(tours, n_actual)
     frm = f.reshape(-1).to(torch.int32)
@@ -105,28 +121,57 @@ def pheromone_update_tours_plain(tau: torch.Tensor, tours: torch.Tensor,
 
 def pheromone_update_tours(tau: torch.Tensor, tours: torch.Tensor,
                            w: torch.Tensor, rho: float,
-                           n_actual: Optional[int] = None) -> torch.Tensor:
+                           n_actual=None,
+                           active: Optional[Sequence[bool]] = None
+                           ) -> torch.Tensor:
     """Launch the tours-driven kernel on CUDA tensors; raises on anything
     else.  Every row of ``tours`` must be a permutation of 0..n-1, as tour
-    construction emits them."""
-    n = tau.shape[0]
+    construction emits them.
+
+    The instance axis: a (B, n, n) tau updates B instances in one launch,
+    tours (B, m, n) and w (B, m) with it, ``n_actual`` a host int or a (B,)
+    int32 tensor on the card whose values the caller has checked to lie in
+    [1, n], ``active`` B host flags (None: all).  Each instance is bitwise
+    its own single launch; an inactive one is not touched and its plane of
+    the result is left unwritten.  ``launches`` counts launches,
+    ``slot_launches`` the instances they updated."""
+    lead = tuple(tau.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError("pheromone_update_tours: tau must be (n, n) or "
+                         "(B, n, n)")
+    nb = lead[0] if lead else 1
+    n = tau.shape[-1]
     dev = tau.device
-    _build.require("pheromone_update_tours tau", tau, torch.float32, (n, n))
-    m = tours.shape[0]
+    _build.require("pheromone_update_tours tau", tau, torch.float32,
+                   lead + (n, n))
+    m = tours.shape[-2]
     _build.require("pheromone_update_tours tours", tours, torch.int32,
-                   (m, n), dev)
-    _build.require("pheromone_update_tours w", w, torch.float32, (m,), dev)
-    n_eff = n if n_actual is None else int(n_actual)
-    if not 1 <= n_eff <= n:
-        raise ValueError(f"pheromone_update_tours: n_actual {n_actual} not "
-                         f"in [1, {n}]")
-    nbr = torch.empty((n, m, 2), dtype=torch.int32, device=dev)
+                   lead + (m, n), dev)
+    _build.require("pheromone_update_tours w", w, torch.float32, lead + (m,),
+                   dev)
+    n_eff, n_eff_ptr = n, None
+    if isinstance(n_actual, torch.Tensor):
+        # read on the card only: the caller has checked its values
+        # (colony_step_batch does); the kernel skips one out of [1, n]
+        _build.require("pheromone_update_tours n_actual", n_actual,
+                       torch.int32, (nb,), dev)
+        n_eff_ptr = n_actual.data_ptr()
+    elif n_actual is not None:
+        n_eff = int(n_actual)
+        if not 1 <= n_eff <= n:
+            raise ValueError(f"pheromone_update_tours: n_actual {n_actual} "
+                             f"not in [1, {n}]")
+    flags, updated = _build.active_flags(active, nb, dev)
+    nbr = torch.empty(lead + (n, m, 2), dtype=torch.int32, device=dev)
     out = torch.empty_like(tau)
     _build.launch("pheromone_update_tours", dev, tau.data_ptr(),
                   tours.data_ptr(), w.data_ptr(), nbr.data_ptr(),
-                  out.data_ptr(), n, m, n_eff, _decay(rho))
+                  out.data_ptr(), nb, n, m, n_eff, n_eff_ptr,
+                  None if flags is None else flags.data_ptr(), _decay(rho))
     pheromone_update_tours.launches += 1
+    pheromone_update_tours.slot_launches += updated
     return out
 
 
 pheromone_update_tours.launches = 0
+pheromone_update_tours.slot_launches = 0

@@ -24,6 +24,12 @@ multiplying with the float32 reciprocal; the sum order of a jitted
 reduction is XLA's, so these four fields are ulp-close to the
 reference's, not bitwise (``tests/test_torch_obs.py`` states the
 tolerance).
+
+The batched step (``core.aco.colony_step_batch``) gives (B,)-stacked rows
+from (B, ...) intermediates.  A sum's order may depend on its operand's
+shape and alignment on the card, so each instance's mean is taken over its
+own plane, 16-byte aligned as a solo step's tensor is: each row is bitwise
+its solo step's.
 """
 from __future__ import annotations
 
@@ -100,21 +106,40 @@ def _mean(x: torch.Tensor) -> torch.Tensor:
         (), float(recip), dtype=torch.float32, device=x.device)
 
 
+def _slot_means(x: torch.Tensor) -> torch.Tensor:
+    """(B,) means of each instance's plane of a (B, ...) tensor, each as
+    ``_mean`` of that plane alone (copied where it would not start on a
+    16-byte boundary, as a fresh solo tensor does)."""
+    def plane(v):
+        return v if v.data_ptr() % 16 == 0 else v.clone()
+    return torch.stack([_mean(plane(x[b])) for b in range(x.shape[0])])
+
+
 def tau_stats(tau: torch.Tensor,
               clamp: Optional[tuple[torch.Tensor, torch.Tensor]] = None
               ) -> dict:
     """min/max/mean of a pheromone tensor plus the MMAS clamp-saturation
     fractions (entries exactly at a bound: after ``clamp`` a saturated
     entry equals the bound bitwise).  Dense (n, n) and sparse (n, k)
-    alike; a padded instance's statistics cover the padded buffer."""
-    out = {"tau_min": tau.min(), "tau_max": tau.max(),
-           "tau_mean": _mean(tau)}
-    if clamp is not None:
-        lo, hi = clamp
-        out["clamp_lo"] = _mean((tau == lo).to(torch.float32))
-        out["clamp_hi"] = _mean((tau == hi).to(torch.float32))
+    alike; a padded instance's statistics cover the padded buffer.  A
+    (B, n, n) stack with (B,) bounds gives (B,) statistics."""
+    batched = tau.dim() == 3
+    if batched:
+        mean, dims = _slot_means, (-2, -1)
+        lo, hi = (None, None) if clamp is None else \
+            (c.reshape(-1, 1, 1) for c in clamp)
+        out = {"tau_min": tau.amin(dim=dims), "tau_max": tau.amax(dim=dims)}
     else:
-        zero = torch.zeros((), dtype=torch.float32, device=tau.device)
+        mean = _mean
+        lo, hi = (None, None) if clamp is None else clamp
+        out = {"tau_min": tau.min(), "tau_max": tau.max()}
+    out["tau_mean"] = mean(tau)
+    if clamp is not None:
+        out["clamp_lo"] = mean((tau == lo).to(torch.float32))
+        out["clamp_hi"] = mean((tau == hi).to(torch.float32))
+    else:
+        zero = torch.zeros(tau.shape[:1] if batched else (),
+                           dtype=torch.float32, device=tau.device)
         out["clamp_lo"] = out["clamp_hi"] = zero
     return out
 
@@ -128,15 +153,20 @@ def step_metrics(lengths: torch.Tensor, it_best_len: torch.Tensor,
                  ovf_evicted: Optional[torch.Tensor] = None) -> StepMetrics:
     """One step's metrics from intermediates the step already holds.
     ``pre_ls_lengths``: constructed-tour lengths before local search (None
-    without local search: ls_accept reports 0)."""
+    without local search: ls_accept reports 0).  (B, m) ``lengths`` are a
+    batched step's: every field comes out (B,), row b bitwise instance b's
+    solo step."""
     dev = lengths.device
-    zero_f = torch.zeros((), dtype=torch.float32, device=dev)
-    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-    ls_accept = zero_f if pre_ls_lengths is None else _mean(
+    batched = lengths.dim() == 2
+    lead = lengths.shape[:1] if batched else ()
+    mean = _slot_means if batched else _mean
+    zero_f = torch.zeros(lead, dtype=torch.float32, device=dev)
+    zero_i = torch.zeros(lead, dtype=torch.int32, device=dev)
+    ls_accept = zero_f if pre_ls_lengths is None else mean(
         (lengths < pre_ls_lengths).to(torch.float32))
     return StepMetrics(
         it_best_len=it_best_len.to(torch.float32),
-        mean_len=_mean(lengths),
+        mean_len=mean(lengths),
         best_len=best_len.to(torch.float32),
         improved=improved.to(torch.int32),
         stagnation=zero_i,

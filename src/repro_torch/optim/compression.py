@@ -47,7 +47,9 @@ def quantize_int8(x: torch.Tensor, key: Optional[torch.Tensor] = None,
         scale = amax / floatops.const(127.0, x)
     y = x / scale
     if key is not None:                       # stochastic rounding
-        y = torch.floor(y + sampling.uniform(key, tuple(y.shape)))
+        # a (B, 2) stack of keys draws each instance's own plane
+        y = torch.floor(y + sampling.uniform(key,
+                                             tuple(y.shape[key.dim() - 1:])))
     else:
         y = torch.round(y)
     q = torch.clamp(y, -127, 127).to(torch.int8)

@@ -8,14 +8,26 @@ improving) is frozen, so its trajectory -- the PRNG key included -- does
 not depend on how long the rest of the batch runs.  The loop ends as soon
 as every colony is done.
 
-Design: a host loop over the active slots.  Each calls the single-instance
-``core.aco.colony_step`` (or ``sparse.aco.sparse_colony_step``) on that
-slot's view of the stacked tensors, so the kernel route launches the same
-kernels with the same arguments as a solo run, and skipping a finished
-slot is the reference's ``where``-freeze.  Batched == solo is therefore
-bitwise by construction.  The done mask is read from the card once per
-engine iteration, and only under ``patience``: budgets compare against a
-host mirror of each slot's iteration count.
+Design, two routes:
+
+- the fused kernel route (``aco.batched_route``: ``use_pallas=True``,
+  ``construction="data_parallel"``, no local search, no Hyper; AS, MMAS
+  or ACS over any ``tau_dtype``, metrics on or off) steps the whole stack
+  at once: ``core.aco.colony_step_batch``, one ``split`` of the (B, 2)
+  keys, one ``fused_walk`` launch and one ``pheromone_update`` launch per
+  engine iteration, whatever the number of active slots.  The kernels skip
+  a finished slot, and only the active slots' rows are written back (the
+  reference's ``where``-freeze).  ``colony_step`` is that function's
+  B = 1 case, so batched == solo is bitwise by construction;
+- every other route (the pure route, ``construction="pallas"``, local
+  search, Hyper, ``kind="sparse"``) is a host loop over the active slots,
+  each calling ``core.aco.colony_step`` (or
+  ``sparse.aco.sparse_colony_step``) on that slot's view of the stacked
+  tensors.
+
+The done mask is read from the card once per engine iteration, and only
+under ``patience``: budgets compare against a host mirror of each slot's
+iteration count.
 
 Multi-device placement (``mesh=``) and the program cache (``programs=``)
 are not ported yet (ROADMAP queue 1 items 14 and 15).
@@ -143,22 +155,26 @@ def run_batch(problem, states, budgets, cfg: aco.ACOConfig, max_iters: int,
     if not metrics_on:
         mets = None
 
+    if kind == "dense" and cfg.use_pallas:
+        for b in range(n_slots):
+            _check_aligned(problem, states, b)
+    it_h = _host_ints(states.iteration)            # one read per call
+    if kind == "dense" and aco.batched_route(cfg, problem):
+        return _run_stack(problem, states, budgets_h, it_h, cfg, max_iters,
+                          patience, since, donate, mets)
+
     if kind == "sparse":
         def step(p, s):
             return sparse_aco.sparse_colony_step(p, s, cfg, ewt)
     else:
         def step(p, s):
             return aco.colony_step(p, s, cfg)
-        if cfg.use_pallas:
-            for b in range(n_slots):
-                _check_aligned(problem, states, b)
 
     probs = [batch_mod.slot_problem(problem, b) for b in range(n_slots)]
     slots = [tree.index(states, b) for b in range(n_slots)]
     since_s = [since[b] for b in range(n_slots)]
     mets_s = [tree.index(mets, b) for b in range(n_slots)] \
         if metrics_on else None
-    it_h = _host_ints(states.iteration)            # one read per call
     stepped = set()
     for _ in range(max_iters):
         stalled = [False] * n_slots
@@ -197,6 +213,57 @@ def run_batch(problem, states, budgets, cfg: aco.ACOConfig, max_iters: int,
     if metrics_on:
         return out_states, out_since, out_mets
     return out_states, out_since
+
+
+def _run_stack(problem, states, budgets_h, it_h, cfg, max_iters, patience,
+               since, donate, mets):
+    """``run_batch`` on ``aco.batched_route``: every engine iteration steps
+    the whole stack with ``colony_step_batch`` and writes back the rows of
+    the slots that were active (all of them with one ``copy_`` per leaf
+    when every slot was)."""
+    n_slots = len(budgets_h)
+    dev = states.key.device
+    metrics_on = mets is not None
+    if not donate:
+        states = tree.map(torch.clone, states)
+        since = since.clone()
+        mets = tree.map(torch.clone, mets) if metrics_on else None
+    n_act = aco.slot_n_actual(problem, dev)
+    index_of = {}                       # active pattern -> device indices
+    for _ in range(max_iters):
+        stalled = [False] * n_slots
+        if patience > 0:                           # one read an iteration
+            stalled = [s >= patience for s in since.tolist()]
+        act = tuple(it_h[b] < budgets_h[b] and not stalled[b]
+                    for b in range(n_slots))
+        if not any(act):
+            break
+        flags = None if all(act) else act
+        out = aco.colony_step_batch(problem, states, cfg, active=flags,
+                                    n_actual=n_act)
+        new = out[0]
+        improved = new.best_len < states.best_len
+        new_since = torch.where(improved, torch.zeros_like(since), since + 1)
+        fresh = [new, new_since]
+        held = [states, since]
+        if metrics_on:
+            fresh.append(out[2]._replace(stagnation=new_since))
+            held.append(mets)
+        if flags is None:
+            tree.map(lambda dst, src: dst.copy_(src), held, fresh)
+        else:
+            if act not in index_of:
+                index_of[act] = torch.tensor(
+                    [b for b in range(n_slots) if act[b]], dtype=torch.long,
+                    device=dev)
+            idx = index_of[act]
+            tree.map(lambda dst, src: dst.index_copy_(
+                0, idx, src.index_select(0, idx)), held, fresh)
+        for b in range(n_slots):
+            it_h[b] += act[b]
+    if metrics_on:
+        return states, since, mets
+    return states, since
 
 
 def solve_instances(instances: Sequence[tsp.TSPInstance], cfg: aco.ACOConfig,

@@ -15,7 +15,9 @@ where atomics sum several deposits in another order; the tours-driven
 update (the colony step's) bitwise for any number of ants, and the same
 from launch to launch; the dense and the sparse walk kernels bitwise
 against their plain walks on the card (and, for iroulette and greedy, on
-the CPU).
+the CPU); one launch over a stack of instances (the dense walk and the
+update) bitwise single launches and the plain versions, and the batched
+engine one walk and one update launch per engine iteration.
 """
 import numpy as np
 import pytest
@@ -407,3 +409,110 @@ def test_checkpoint_restores_onto_the_card(tmp_path):
     for a, b in zip(tree.flatten(st), tree.flatten(rest)):
         assert b.device == a.device and b.dtype == a.dtype
         assert torch.equal(a, b)
+
+
+def _stack_walk_operands(tau_dtype, dev, n=304, m=40, b=3):
+    """A (B, n, n) stack whose instances start on 16-byte boundaries."""
+    rng = np.random.default_rng(n + b)
+    tau = torch.tensor((rng.random((b, n, n)) * 1e-2 + 1e-3).astype(
+        np.float32), device=dev)
+    eta = torch.tensor((1.0 / (rng.random((b, n, n)) * 100 + 1)).astype(
+        np.float32), device=dev)
+    scale = None
+    if tau_dtype != "fp32":
+        qt = quant.quantise(tau, tau_dtype)
+        tau, scale = qt.q, (qt.scale if tau_dtype == "int8" else None)
+    n_act = (n, n - 14, n - 54)
+    start = torch.tensor(np.stack([rng.integers(0, na, m) for na in n_act])
+                         .astype(np.int32), device=dev)
+    keys = torch.tensor([[3, 11 + i] for i in range(b)], device=dev)
+    return tau, scale, eta, start, keys, n_act
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau_dtype", ["fp32", "int8", "bf16"])
+def test_batched_walk_kernel_bitwise_single_launches(tau_dtype):
+    """One launch over a stack of three instances (mixed n_actual, the
+    middle one inactive) is bitwise three single launches and the plain
+    walks on the card, in all three modes; the inactive instance costs no
+    walk and its rows stay zero."""
+    dev = cuda_device()
+    tau, scale, eta, start, keys, n_act = _stack_walk_operands(tau_dtype,
+                                                               dev)
+    na_dev = torch.tensor(n_act, dtype=torch.int32, device=dev)
+    name = "fused_walk" if tau_dtype == "fp32" else "fused_walk_quant"
+    for mode in MODES:
+        ops.reset_launch_counts()
+        got = ops.fused_walk(tau, eta, start, keys, 1.0, 2.0, na_dev, mode,
+                             tau_scale=scale, active=(True, False, True))
+        assert ops.launch_counts()[name] == 1
+        assert ops.slot_launch_counts()[name] == 2
+        assert not got[1].any()
+        want = fs.fused_walk_plain(tau, eta, start, keys, 1.0, 2.0, na_dev,
+                                   mode, tau_scale=scale,
+                                   active=(True, False, True))
+        assert torch.equal(got, want), mode
+        for b in (0, 2):
+            one = ops.fused_walk(tau[b], eta[b], start[b], keys[b], 1.0, 2.0,
+                                 n_act[b], mode,
+                                 tau_scale=None if scale is None
+                                 else scale[b])
+            assert torch.equal(got[b], one), (mode, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [40, 1])
+def test_batched_update_kernel_bitwise_single_launches(m):
+    """One tours-driven update over a stack (mixed n_actual, one inactive
+    instance) is bitwise single launches and the plain updates on the CPU
+    (the card's ``index_add_`` sums a cell's deposits in atomic order)."""
+    dev = cuda_device()
+    n, b = 304, 3
+    rng = np.random.default_rng(m)
+    n_act = (n, n - 14, n - 54)
+    tau = torch.tensor(rng.random((b, n, n)).astype(np.float32), device=dev)
+    tours = torch.tensor(np.stack([np.stack([np.concatenate(
+        [rng.permutation(na), np.arange(na, n)]) for _ in range(m)])
+        for na in n_act]).astype(np.int32), device=dev)
+    w = torch.tensor(rng.random((b, m)).astype(np.float32), device=dev)
+    na_dev = torch.tensor(n_act, dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    got = ops.pheromone_update(tau, tours, w, 0.1, na_dev,
+                               active=(True, False, True))
+    assert ops.launch_counts()["pheromone_update_tours"] == 1
+    assert ops.slot_launch_counts()["pheromone_update_tours"] == 2
+    want = pu.pheromone_update_tours_plain(tau.cpu(), tours.cpu(), w.cpu(),
+                                           0.1, na_dev.cpu(),
+                                           active=(True, False, True))
+    for i in (0, 2):
+        assert torch.equal(got[i].cpu(), want[i]), i
+        assert torch.equal(got[i], ops.pheromone_update(
+            tau[i], tours[i], w[i], 0.1, n_act[i])), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(variant="mmas"),
+                                dict(variant="acs", tau_dtype="bf16",
+                                     metrics=True)])
+def test_batched_engine_launches_once_per_engine_iteration(kw):
+    """run_batch on the fused route: one walk and one update launch per
+    engine iteration; slot-launches equal the slot-iterations; the stack
+    bitwise the CPU's."""
+    from repro_torch import tree
+    from repro_torch.solver import engine
+    dev = cuda_device()
+    insts = [tsp.random_instance(n, seed=n) for n in (40, 57, 64, 33)]
+    cfg = aco.ACOConfig(use_pallas=True, iterations=5, **kw)
+    its = [5, 3, 4, 1]
+    ops.reset_launch_counts()
+    got, _ = engine.solve_instances(insts, cfg, iterations=its, n_pad=64,
+                                    device=dev)
+    walk = "fused_walk" if cfg.tau_dtype == "fp32" else "fused_walk_quant"
+    assert ops.launch_counts()[walk] == 5
+    assert ops.launch_counts()["pheromone_update_tours"] == 5
+    assert ops.slot_launch_counts()[walk] == sum(its)
+    assert ops.slot_launch_counts()["pheromone_update_tours"] == sum(its)
+    want, _ = engine.solve_instances(insts, cfg, iterations=its, n_pad=64,
+                                     device="cpu")
+    for a, b in zip(tree.flatten(got), tree.flatten(want)):
+        assert torch.equal(a.cpu(), b)

@@ -528,6 +528,7 @@ REJECTIONS = [
     dict(sparse=True, construction="nn_list"),
     dict(sparse=True, construction="partial", masked=True),
     dict(sparse=True, hyper=True),
+    dict(sparse=True, streaming=True),
 ]
 
 

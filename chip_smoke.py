@@ -34,13 +34,13 @@ non-zero:
    and ids < 0; times each at (64, 20), n = 2392.  The walk kernel at the
    route's shapes (n = 2392, k = 16 + 4, m = 64) bitwise against the plain
    walk on the card over fp32/int8/bf16 pages, the three modes, packed and
-   counter draws (whole walks, and a walk's last 400 steps), a padded
+   counter draws (whole walks, and a walk's last 200 steps), a padded
    instance and Partial-ACO windows; timed per
    launch beside the plain walk and the per-step loop it replaced.
    The dense walk kernel (``fused_walk``: every step of the dense fused
    construction in one launch, fp32, int8 and bf16 tau) bitwise against
    the plain walk on the card: whole walks at n = m = 1002 in all three
-   modes and both draws, the same grid over the last 400 steps of a walk
+   modes and both draws, the same grid over the last 200 steps of a walk
    at n = m = 2392 and one whole walk there, n = 997 and n_actual = 901;
    timed per launch at 1002 and 2392 beside the per-step route it replaced
    (the one-step kernel over the plain draw, once a step) and the plain
@@ -89,12 +89,22 @@ non-zero:
    2-opt over an int8 store (two slots, two iterations; ``two_opt_best``
    once per local-search round reported); sparse MMAS (k = 16 + 4,
    m = 64) on n = 1500 and 2000 in bucket 2048, 10 iterations, batched ==
-   solo, 20 ``sparse_walk`` launches; small buckets (n <= 64) card == CPU
+   solo, 10 ``sparse_walk`` launches serving 20 slot-iterations; the
+   sparse walk's instance axis at bucket 2048, B = 4 (n = 2048, 1500,
+   2000, 1800, the second slot inactive): one launch over the stack
+   bitwise four single launches in fp32/int8/bf16 x three modes x packed
+   and counter draws (whole walks), and the plain walks (each walk's last
+   50 steps over the same grid, and one padded slot's whole walk), timed
+   beside four single launches; sparse AS in the same bucket (one
+   iteration: a solo run repeated, and batched against solo, tau at rtol
+   1e-5 / atol 1e-7 where the card's atomic deposit sums differ); small
+   buckets (n <= 64) card == CPU
    for AS, MMAS + 2-opt, int8, sparse, ``construction="pallas"`` and
    ``patience=2``, and a run chunked in 2s == one long call.  Prints the
    batched ``run_batch`` time per engine iteration beside the sum of its
-   slots' solo runs, and a ``torch.profiler`` profile of one engine
-   iteration at B = 4, bucket 1024;
+   slots' solo runs, and ``torch.profiler`` profiles of one engine
+   iteration at B = 4, bucket 1024, and of one sparse engine iteration at
+   B = 4, bucket 2048 (beside four solo iterations);
    service   -- ``SolverService`` (MMAS, kernel route, ``metrics=True``,
    ``max_batch=4``, ``patience=3``, 6 iterations): six requests (n = 613,
    801, 1002, 1002, 1500, 2000) from two tenants, one job in bucket 1024
@@ -116,6 +126,18 @@ non-zero:
    slot-launches to the slot-iterations, trace and events valid.  Prints
    instances/s, latency mean / p95 / max and mean occupancy beside
    ``SolverService`` draining the same requests;
+   cli       -- the serving CLI, ``python -m repro_torch.launch.solve_serve``
+   in subprocesses on the card: a dense MMAS drain (``--use-pallas
+   --metrics``, six requests of 500-1002 cities, buckets 512 / 1024, m =
+   the bucket, six iterations, ``--max-batch 4``), the same requests
+   streamed (``--stream --arrival-rate 20 --chunk 2``), and sparse MMAS
+   drains (``--sparse --ants 64 --sparse-k 16 --sparse-overflow 4``, six
+   requests of 1500-2392 cities, buckets 2048 / 4096, ten iterations) over
+   fp32 and int8 pages: each exits 0 with every request completed, its
+   results equal to an in-process ``SolverService`` over the same
+   requests (whose launches are counted); ``--shard`` and ``--sparse
+   --stream`` exit 2 with one line on stderr.  Prints instances/s and
+   mean / max latency from each report;
 6. profile -- device busy time and idle share of one AS iteration at
    n = 1002, and the kernels that take most of it; the split of one MMAS
    + 2-opt iteration over an int8 store into construction, local search
@@ -219,6 +241,9 @@ MMAS_CHUNK, MMAS_CAP = 5, 40
 # The sparse route at its users' size (benchmarks/sparse_scale.py): the
 # size of pr2392, 64 ants, 16 candidates + 4 overflow slots per city.
 SPARSE_N, SPARSE_M, SPARSE_K = 2392, 64, 16
+# The walk kernels' grids check each case's last this many steps against
+# the plain walk (a whole plain walk at n = 2392 takes 9-17 s).
+WALK_WINDOW = 200
 
 
 def log(*parts) -> None:
@@ -688,7 +713,7 @@ def phase_dense_walk(results: dict) -> None:
     """The dense walk kernel (fp32, int8, bf16 payloads) against the plain
     walk on the card (every step through the full draw and
     ``fused_select_plain``), bitwise: whole walks at n = m = 1002 over the
-    three payloads, three modes and both draws; the last 400 steps of a
+    three payloads, three modes and both draws; the last 200 steps of a
     walk at n = m = 2392 over the same grid, and one whole walk there; an
     odd n (997) and a padded instance (901 real cities of 1002).  Then each
     payload's time per launch at n = m = 1002 and 2392 beside the per-step
@@ -702,7 +727,8 @@ def phase_dense_walk(results: dict) -> None:
     # (n, n_actual, payload, mode, draw, window)
     grid = [(1002, None, d, mode, draw, None) for d in ("fp32",) + QUANT
             for mode, draw in full]
-    grid += [(2392, None, d, mode, draw, 400) for d in ("fp32",) + QUANT
+    grid += [(2392, None, d, mode, draw, WALK_WINDOW)
+             for d in ("fp32",) + QUANT
              for mode, draw in full]
     grid += [(2392, None, "fp32", "iroulette", "packed", None),
              (997, None, "fp32", "iroulette", "packed", None),
@@ -724,7 +750,8 @@ def phase_dense_walk(results: dict) -> None:
     log(f"[kernels] fused_walk (fp32, int8, bf16): bitwise against the plain "
         f"walk on the card in {len(grid)} cases (whole walks at n=m=1002 x "
         f"3 payloads x iroulette, gumbel (packed, counter) and greedy; the "
-        f"last 400 steps at n=m=2392 over the same grid and one whole walk; "
+        f"last {WALK_WINDOW} steps at n=m=2392 over the same grid and one "
+        f"whole walk; "
         f"n=997; n_actual=901 of 1002) in {time.perf_counter() - t0:.0f} s")
 
     line = []
@@ -742,10 +769,10 @@ def phase_dense_walk(results: dict) -> None:
                        if "fused_walk_kernel" in k) for _ in range(3)]
             ms = statistics.median(own) / 1e3 if min(own) > 0 else wall
             # the route it replaced: the one-step kernel over the plain
-            # per-step draw, once a step; at 2392 over the last 400 steps
+            # per-step draw, once a step; at 2392 over the last 200 steps
             # of a walk (a whole one takes about 17 s)
             replaced = _dense_walk_operands(
-                n, None, dtype, 8, None if n == 1002 else 400)
+                n, None, dtype, 8, None if n == 1002 else WALK_WINDOW)
             loop_wall = cuda_ms(lambda: _dense_walk(
                 fs.fused_walk_plain, replaced, "iroulette", "packed", None,
                 select=ops.fused_select), reps=1, trials=1, warmup=1)
@@ -918,7 +945,7 @@ def phase_walk_kernel(results: dict) -> None:
     m = 64) against the plain walk on the card (every step through the
     plain versions): cities, edge lengths, fallback counts and visited
     rows bitwise over float32, int8 and bf16 pages, the three modes and
-    both draws (whole walks and each walk's last 400 steps), a padded
+    both draws (whole walks and each walk's last 200 steps), a padded
     instance and Partial-ACO windows; then its time
     per launch beside the plain walk and the per-step loop it replaced (K7
     launched once a step), with its byte bound and its latency floor."""
@@ -929,13 +956,14 @@ def phase_walk_kernel(results: dict) -> None:
     ewt = "EUC_2D"
     # (payload, mode, draw, n_pad, window): whole walks of n - 1 steps, and
     # the grid over payloads, modes and draws from a mid-walk state (every
-    # city visited but 400: the walk's last 400 steps, where the fallback
+    # city visited but 200: the walk's last 200 steps, where the fallback
     # is taken most) to keep the plain walks' time in bounds; greedy draws
     # nothing, so it runs under one draw mode; Partial-ACO's own window 64
     grid = [("fp32", "iroulette", "packed", None, None),
             ("fp32", "gumbel", "counter", None, None),
             ("fp32", "iroulette", "packed", n + 7, None)]
-    grid += [(dtype, mode, draw, None, 400) for dtype in ("fp32",) + QUANT
+    grid += [(dtype, mode, draw, None, WALK_WINDOW)
+             for dtype in ("fp32",) + QUANT
              for mode in MODES for draw in ("packed", "counter")
              if mode != "greedy" or draw == "packed"]
     grid += [(dtype, "iroulette", "packed", None, 64)
@@ -960,8 +988,9 @@ def phase_walk_kernel(results: dict) -> None:
         raise AssertionError("sparse_walk: the grid never took the fallback")
     log(f"[kernels] sparse_walk n={n} k={k}+{o} m={m}: bitwise against the "
         f"plain walk on the card in {len(grid)} cases (whole walks: fp32 "
-        f"iroulette packed, gumbel counter, padded n={n + 7}; the last 400 "
-        f"steps: fp32, int8, bf16 x iroulette, gumbel x packed, counter and "
+        f"iroulette packed, gumbel counter, padded n={n + 7}; the last "
+        f"{WALK_WINDOW} steps: fp32, int8, bf16 x iroulette, gumbel x packed, "
+        f"counter and "
         f"greedy; Partial-ACO window 64 x 3 payloads; {fallbacks} fallback "
         f"steps) in {time.perf_counter() - t0:.0f} s")
 
@@ -1446,31 +1475,28 @@ def _check_padded_tours(label, states, insts, slack):
     return ratios
 
 
-def _batched_kernels(insts, cfg) -> None:
-    """The instance axis at bucket 1024: one walk launch over the four
-    slots' stack (the bucket's own eta, mixed n_actual, the third slot
-    inactive) bitwise four single launches in fp32, int8 and bf16 and all
-    three modes, and the fp32 iroulette stack bitwise the plain walks on
-    the card; one tours-driven update (AS, m = 1024, and MMAS, m = 1) over
-    the stack bitwise single launches and the plain updates on the CPU.
-    Then the stack's walk with every slot active timed beside four single
-    launches."""
+def _dense_stack_walks(ns, pad, nn_k, plain_cases):
+    """One dense walk launch over a stack of ``len(ns)`` slots in bucket
+    ``pad`` (m = pad, the bucket's own eta, the third slot inactive)
+    bitwise the single launches over fp32/int8/bf16 x three modes x packed
+    and counter draws, and bitwise the plain walks on the card in
+    ``plain_cases`` ((payload, mode, draw) triples).  Returns the stack's
+    operands (tau, eta, n_actual tensor, start, keys, active) and its fp32
+    iroulette packed walk."""
     import torch
-    from repro_torch.core import aco, quant, sampling
-    from repro_torch.kernels import fused_select as fs
-    from repro_torch.kernels import ops, pheromone_update as pu
+    from repro_torch.core import aco, quant, sampling, tsp
+    from repro_torch.kernels import fused_select as fs, ops
     from repro_torch.solver import batch
-    t0 = time.perf_counter()
     dev = torch.device(DEV)
-    nb = len(insts)
-    bt = batch.make_batch(insts, BATCH_PAD, cfg.nn_k, device=DEV)
+    nb = len(ns)
+    bt = batch.make_batch([tsp.random_instance(n, seed=n) for n in ns], pad,
+                          nn_k, device=DEV)
     eta, n_act = bt.problem.eta, aco.slot_n_actual(bt.problem, dev)
     gen = torch.Generator(device=dev).manual_seed(11)
-    tau = torch.rand((nb, BATCH_PAD, BATCH_PAD), generator=gen,
-                     device=dev) * 1e-3 + 1e-4
-    start = torch.stack([torch.randint(0, n, (BATCH_PAD,), generator=gen,
+    tau = torch.rand((nb, pad, pad), generator=gen, device=dev) * 1e-3 + 1e-4
+    start = torch.stack([torch.randint(0, n, (pad,), generator=gen,
                                        device=dev, dtype=torch.int32)
-                         for n in BATCH_NS])
+                         for n in ns])
     keys = torch.stack([sampling.prng_key(40 + i, dev) for i in range(nb)])
     active = tuple(i != 2 for i in range(nb))
     steps = None
@@ -1480,29 +1506,66 @@ def _batched_kernels(insts, cfg) -> None:
             qt = quant.quantise(tau, dtype, key=sampling.prng_key(3, dev))
             q, scale = qt.q, (qt.scale if dtype == "int8" else None)
         for mode in MODES:
-            got = ops.fused_walk(q, eta, start, keys, 1.0, 2.0, n_act, mode,
-                                 tau_scale=scale, active=active)
-            if got[2].any():
-                raise AssertionError("batched fused_walk wrote an inactive "
-                                     "slot")
-            for i in range(nb):
-                if not active[i]:
+            for draw in ("packed", "counter"):
+                if mode == "greedy" and draw == "counter":
                     continue
-                one = ops.fused_walk(q[i], eta[i], start[i], keys[i], 1.0,
-                                     2.0, BATCH_NS[i], mode,
-                                     tau_scale=None if scale is None
-                                     else scale[i])
-                if not torch.equal(got[i], one):
-                    raise AssertionError(f"batched fused_walk slot {i} != "
-                                         f"its single launch ({dtype}, "
-                                         f"{mode})")
-            if dtype == "fp32" and mode == "iroulette":
-                steps = got
-                want = fs.fused_walk_plain(q, eta, start, keys, 1.0, 2.0,
-                                           n_act, mode, active=active)
-                if not torch.equal(got, want):
-                    raise AssertionError("batched fused_walk != the plain "
-                                         "walks")
+                got = ops.fused_walk(q, eta, start, keys, 1.0, 2.0, n_act,
+                                     mode, draw, tau_scale=scale,
+                                     active=active)
+                if got[2].any():
+                    raise AssertionError("batched fused_walk wrote an "
+                                         "inactive slot")
+                for i in range(nb):
+                    if not active[i]:
+                        continue
+                    one = ops.fused_walk(q[i], eta[i], start[i], keys[i],
+                                         1.0, 2.0, ns[i], mode, draw,
+                                         tau_scale=None if scale is None
+                                         else scale[i])
+                    if not torch.equal(got[i], one):
+                        raise AssertionError(
+                            f"batched fused_walk slot {i} != its single "
+                            f"launch ({dtype}, {mode}, {draw}, bucket "
+                            f"{pad})")
+                if (dtype, mode, draw) in plain_cases:
+                    want = fs.fused_walk_plain(q, eta, start, keys, 1.0, 2.0,
+                                               n_act, mode, draw, scale,
+                                               active=active)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"batched fused_walk != the plain walks "
+                            f"({dtype}, {mode}, {draw}, bucket {pad})")
+                if (dtype, mode, draw) == ("fp32", "iroulette", "packed"):
+                    steps = got
+    return (tau, eta, n_act, start, keys, active), steps
+
+
+# The dense drain's smaller bucket (m = 512): the serving CLI's buckets
+# are 512 and 1024.
+DENSE_STACK_512 = (500, 511, 450, 512)
+PLAIN_512 = (("fp32", "iroulette", "packed"), ("int8", "gumbel", "counter"),
+             ("bf16", "greedy", "packed"))
+
+
+def _batched_kernels(insts, cfg) -> None:
+    """The instance axis at bucket 1024: one walk launch over the four
+    slots' stack (the bucket's own eta, mixed n_actual, the third slot
+    inactive) bitwise four single launches in fp32, int8 and bf16, all
+    three modes and both draws, and the fp32 iroulette stack bitwise the
+    plain walks on the card; the same at bucket 512 (m = 512) with three
+    plain cases over the three payloads; one tours-driven update (AS,
+    m = 1024, and MMAS, m = 1) over the stack bitwise single launches and
+    the plain updates on the CPU.  Then the stack's walk with every slot
+    active timed beside four single launches."""
+    import torch
+    from repro_torch.kernels import ops, pheromone_update as pu
+    t0 = time.perf_counter()
+    dev = torch.device(DEV)
+    nb = len(insts)
+    _dense_stack_walks(DENSE_STACK_512, 512, cfg.nn_k, PLAIN_512)
+    (tau, eta, n_act, start, keys, active), steps = _dense_stack_walks(
+        BATCH_NS, BATCH_PAD, cfg.nn_k, (("fp32", "iroulette", "packed"),))
+    gen = torch.Generator(device=dev).manual_seed(12)
     tours = torch.cat([start[:, None], steps], dim=1).transpose(1, 2)
     tours = tours.contiguous()
     for i in range(nb):
@@ -1541,8 +1604,11 @@ def _batched_kernels(insts, cfg) -> None:
         BATCH_NS[i]) for i in range(nb)])
     log(f"[batched] instance axis, bucket {BATCH_PAD}, n={list(BATCH_NS)}: "
         f"one fused_walk launch over the stack (slot 2 inactive) bitwise "
-        f"single launches in fp32/int8/bf16 x {'/'.join(MODES)}, and the "
-        f"plain walks (fp32 iroulette); one pheromone_update_tours launch "
+        f"single launches in fp32/int8/bf16 x {'/'.join(MODES)} x packed/"
+        f"counter, and the plain walks (fp32 iroulette); the same at bucket "
+        f"512 (m=512, n={list(DENSE_STACK_512)}) and the plain walks in "
+        f"{', '.join('/'.join(c) for c in PLAIN_512)}; one "
+        f"pheromone_update_tours launch "
         f"(m={BATCH_PAD} and 1) bitwise single launches and the plain "
         f"updates on the CPU ({time.perf_counter() - t0:.1f} s) | time, "
         f"every slot "
@@ -1550,6 +1616,221 @@ def _batched_kernels(insts, cfg) -> None:
         f"{single_ms:.3f} ms for {nb} single launches (ratio "
         f"{stack_ms / single_ms:.3f}); MMAS update B={nb} {upd_ms * 1e3:.1f} "
         f"us vs {upd_single * 1e3:.1f} us for {nb} single launches")
+
+
+# The sparse walk's stacks: bucket 2048 (the [batched] engine's) and 4096
+# (the serving CLI's sparse drain, n up to 2392), the second slot inactive.
+SPARSE_STACK_NS = (2048, 1500, 2000, 1800)
+SPARSE_STACK_4096 = (2392, 2100, 2300, 2049)
+SPARSE_STACK_ACTIVE = (True, False, True, True)
+SPARSE_STACK_WINDOW = 50
+
+
+def _batched_sparse_kernels(ns, pad) -> None:
+    """The sparse walk's instance axis in bucket ``pad``, B = 4, m = 64,
+    k = 16 + 4 (the second slot inactive, the others padded but for an
+    exact fit): one launch over the stack bitwise four single launches
+    (cities, lengths, fallback counts, tabu rows) over fp32/int8/bf16
+    pages x three modes x packed and counter draws, whole walks; the plain
+    walks on the card over the same grid on each walk's last 50 steps, and
+    the last slot's whole walk (its phantom tail).  Then the stack with
+    every slot active timed beside four single launches."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sparse_select as ss
+    t0 = time.perf_counter()
+    dev = torch.device(DEV)
+    act = SPARSE_STACK_ACTIVE
+    grid = [(dtype, mode, draw) for dtype in ("fp32",) + QUANT
+            for mode in MODES for draw in ("packed", "counter")
+            if mode != "greedy" or draw == "packed"]
+    ewt = "EUC_2D"
+    checked = 0
+    for window in (None, SPARSE_STACK_WINDOW):
+        for dtype in ("fp32",) + QUANT:
+            operands = ss.stack_walk_operands(ns, pad, SPARSE_M, SPARSE_K, 4,
+                                              dtype, dev, seed=21,
+                                              window=window, ewt=ewt)
+            problem, tau, ovf_city, ovf_tau, start, visited, keys = operands
+            n_act = torch.tensor(problem.n_actual, dtype=torch.int32,
+                                 device=dev)
+            for dt, mode, draw in grid:
+                if dt != dtype:
+                    continue
+                vis = visited.clone()
+                got = ops.sparse_walk(problem, tau, ovf_city, ovf_tau, start,
+                                      vis, keys, mode, 1.0, 2.0, ewt, draw,
+                                      n_act, act)
+                if got[0][1].any() or not torch.equal(vis[1], visited[1]):
+                    raise AssertionError("batched sparse_walk wrote the "
+                                         "inactive slot")
+                if window is None:
+                    wants = []
+                    for b in range(len(ns)):
+                        if not act[b]:
+                            continue
+                        v1 = visited[b].clone()
+                        one = ops.sparse_walk(
+                            problem.slot(b, ns[b]), tree.index(tau, b),
+                            ovf_city[b], tree.index(ovf_tau, b), start[b],
+                            v1, keys[b], mode, 1.0, 2.0, ewt, draw, ns[b])
+                        wants.append((b, one + (v1,)))
+                    if (dtype, mode, draw) == ("fp32", "iroulette",
+                                               "packed"):
+                        # one padded slot's whole plain walk: the tail
+                        b = 3
+                        v1 = visited[b].clone()
+                        plain = ss.sparse_walk_plain(
+                            problem.slot(b, ns[b]), tree.index(tau, b),
+                            ovf_city[b], tree.index(ovf_tau, b), start[b],
+                            v1, keys[b], mode, 1.0, 2.0, ewt, draw, ns[b])
+                        wants.append((b, plain + (v1,)))
+                else:
+                    vp = visited.clone()
+                    plain = ss.sparse_walk_plain(problem, tau, ovf_city,
+                                                 ovf_tau, start, vp, keys,
+                                                 mode, 1.0, 2.0, ewt, draw,
+                                                 n_act, act)
+                    wants = [(b, tuple(x[b] for x in plain) + (vp[b],))
+                             for b in range(len(ns)) if act[b]]
+                for b, want in wants:
+                    mine = tuple(x[b] for x in got) + (vis[b],)
+                    for g, w, what in zip(mine, want, ("cities", "lengths",
+                                                       "fallbacks",
+                                                       "visited")):
+                        if not torch.equal(g, w):
+                            raise AssertionError(
+                                f"batched sparse_walk slot {b} {what} != "
+                                f"{'single launch' if window is None else 'plain walk'} "
+                                f"({dtype}, {mode}, {draw}, window "
+                                f"{window})")
+                checked += 1
+    # every slot active: the stack's launch beside four single launches
+    operands = ss.stack_walk_operands(ns, pad, SPARSE_M, SPARSE_K, 4, "fp32",
+                                      dev, seed=22, ewt=ewt)
+    problem, tau, ovf_city, ovf_tau, start, visited, keys = operands
+    n_act = torch.tensor(problem.n_actual, dtype=torch.int32, device=dev)
+    stack_ms = cuda_ms(lambda: ops.sparse_walk(
+        problem, tau, ovf_city, ovf_tau, start, visited.clone(), keys,
+        "iroulette", 1.0, 2.0, ewt, "packed", n_act), reps=3, trials=3)
+    slots = [(problem.slot(b, ns[b]), tau[b], ovf_city[b], ovf_tau[b],
+              start[b], visited[b], keys[b], ns[b]) for b in range(len(ns))]
+    single_ms = cuda_ms(lambda: [ops.sparse_walk(
+        p, t, oc, ot, st, v.clone(), k, "iroulette", 1.0, 2.0, ewt, "packed",
+        na) for p, t, oc, ot, st, v, k, na in slots], reps=3, trials=3)
+    log(f"[batched] sparse walk instance axis, bucket {pad}, n={list(ns)}, "
+        f"m={SPARSE_M}, k={SPARSE_K}+4: one launch over the stack (slot 1 "
+        f"inactive) bitwise single launches (whole walks) and the plain "
+        f"walks (last {SPARSE_STACK_WINDOW} steps; slot 3's whole walk) in "
+        f"{checked} cases (fp32/int8/bf16 x {'/'.join(MODES)} x packed/"
+        f"counter) ({time.perf_counter() - t0:.1f} s) | time, every slot "
+        f"active: B={len(ns)} {stack_ms:.3f} ms per launch vs "
+        f"{single_ms:.3f} ms for {len(ns)} single launches (ratio "
+        f"{stack_ms / single_ms:.3f})")
+
+
+def _batched_sparse_as() -> None:
+    """Sparse AS (m = 64 ants deposit: the card's ``index_add_`` sums a
+    cell's deposits in atomic order) at bucket 2048, one iteration: a solo
+    run repeated, and each slot of the batched run against its solo run.
+    Tours, lengths and keys bitwise; tau bitwise where the solo run is
+    repeatable, else at rtol 1e-5 / atol 1e-7 (ROADMAP queue 3)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import aco, tsp
+    from repro_torch.solver import engine
+    insts = [tsp.random_instance(n, seed=n) for n in SPARSE_BATCH_NS]
+    cfg = aco.ACOConfig(variant="as", sparse=True, sparse_k=SPARSE_K,
+                        m=SPARSE_M, use_pallas=True, iterations=1)
+    batched, _ = engine.solve_instances(insts, cfg, seeds=[0, 1],
+                                        n_pad=SPARSE_BATCH_PAD, device=DEV)
+    repeatable, worst = True, 0.0
+    for i, inst in enumerate(insts):
+        runs = [engine.solve_instances([inst], cfg, seeds=[i],
+                                       n_pad=SPARSE_BATCH_PAD, device=DEV)[0]
+                for _ in range(2)]
+        repeatable &= _leaves_equal(runs[0], runs[1])
+        got, want = tree.index(batched, i), tree.index(runs[0], 0)
+        for f in ("best_tour", "best_len", "iteration", "key", "ovf_city"):
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"batched sparse AS slot {i} {f} != "
+                                     "solo")
+        for f in ("tau", "tau_def", "ovf_tau"):
+            torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                       rtol=1e-5, atol=1e-7)
+            diff = (getattr(got, f) - getattr(want, f)).abs()
+            worst = max(worst, float((diff / getattr(want, f).abs().clamp_min(
+                1e-30)).max()))
+    log(f"[batched] sparse AS k={SPARSE_K}+4 m={SPARSE_M}, "
+        f"n={list(SPARSE_BATCH_NS)} in bucket {SPARSE_BATCH_PAD}, x1: a solo "
+        f"run repeated is {'bitwise' if repeatable else 'NOT bitwise'} "
+        f"itself; batched == solo in tours, lengths, keys, ovf_city; tau "
+        f"largest relative difference {worst:.3g} (limit rtol 1e-5)")
+
+
+def _batched_sparse_profile() -> None:
+    """One sparse MMAS engine iteration at B = 4 (n = 2048, 1500, 2000,
+    1800 in bucket 2048, k = 16 + 4, m = 64), every slot active: wall time
+    beside four solo engine iterations (in turns, best of two), then a
+    ``torch.profiler`` pass: device busy time, idle share and the busiest
+    kernels with their launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import aco, tsp
+    from repro_torch.solver import batch, engine
+    ns = SPARSE_STACK_NS
+    insts = [tsp.random_instance(n, seed=n) for n in ns]
+    cfg = aco.ACOConfig(variant="mmas", sparse=True, sparse_k=SPARSE_K,
+                        m=SPARSE_M, use_pallas=True)
+    pad = SPARSE_BATCH_PAD
+
+    def prepared(group, seeds):
+        sb = batch.make_sparse_batch(group, SPARSE_K, pad, device=DEV)
+        s = engine.init_sparse_states(group, cfg, seeds, pad, DEV)
+        s = engine.run_batch(sb.problem, s, [1] * len(group), cfg, 1,
+                             kind="sparse", ewt=sb.ewt)[0]        # warm
+        return sb, s
+
+    def one_iteration(sb, s):
+        _sync()
+        t0 = time.perf_counter()
+        engine.run_batch(sb.problem, s, [2] * s.key.shape[0], cfg, 1,
+                         kind="sparse", ewt=sb.ewt)
+        _sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    stack = prepared(insts, [0, 1, 2, 3])
+    solos = [prepared([inst], [i]) for i, inst in enumerate(insts)]
+    walls, solo_sums = [], []
+    for _ in range(2):
+        walls.append(one_iteration(*stack))
+        solo_sums.append(sum(one_iteration(*p) for p in solos))
+    wall_ms, solo_ms = min(walls), min(solo_sums)
+    acts = [ProfilerActivity.CUDA] if DEV == "cuda" else \
+        [ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        engine.run_batch(stack[0].problem, stack[1], [2] * 4, cfg, 1,
+                         kind="sparse", ewt=stack[0].ewt)
+        _sync()
+    per_name = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0) or 0)
+        if us > 0 and DEV == "cuda":
+            per_name[e.key] = (per_name.get(e.key, (0.0, 0))[0] + us,
+                               e.count)
+    busy_ms = sum(us for us, _ in per_name.values()) / 1e3
+    log(f"[batched] profile: one sparse engine iteration, B=4 MMAS slots "
+        f"n={list(ns)}, bucket {pad}, k={SPARSE_K}+4, m={SPARSE_M}: wall "
+        f"{wall_ms:.1f} ms (no profiler; runs "
+        f"{', '.join(f'{w:.1f}' for w in walls)}) vs {solo_ms:.1f} ms for "
+        f"four solo engine iterations (ratio {wall_ms / solo_ms:.3f}); "
+        f"device busy {busy_ms:.1f} ms, device idle share "
+        f"{1 - busy_ms / wall_ms:.3f}")
+    for name, (us, count) in sorted(per_name.items(),
+                                    key=lambda kv: -kv[1][0])[:6]:
+        log(f"[batched]   {us / 1e3:8.2f} ms  {count:6d} launches  "
+            f"{name[:90]}")
 
 
 def phase_batched(launches: dict) -> None:
@@ -1703,14 +1984,19 @@ def phase_batched(launches: dict) -> None:
         f"two_opt_best={counts['two_opt_best']} = local-search rounds "
         f"{rounds}; best / NN tour " + " ".join(f"{r:.3f}" for r in ratios))
 
-    # -- sparse MMAS (k = 16 + 4, m = 64), bucket 2048, 10 iterations
+    # -- sparse MMAS (k = 16 + 4, m = 64), bucket 2048, 10 iterations: the
+    # instance axis, one walk launch per engine iteration for both slots
     sinsts = [tsp.random_instance(n, seed=n) for n in SPARSE_BATCH_NS]
     cfg_s = aco.ACOConfig(variant="mmas", sparse=True, sparse_k=SPARSE_K,
                           m=SPARSE_M, use_pallas=True, iterations=10)
     states, sb, counts, secs = _counted_batch(sinsts, cfg_s, seeds=[0, 1],
                                               n_pad=SPARSE_BATCH_PAD)
-    _check_counts("batched sparse", counts,
-                  {"sparse_walk": 10 * len(sinsts)})
+    _check_counts("batched sparse", counts, {"sparse_walk": 10})
+    slot_counts = ops.slot_launch_counts()
+    if slot_counts["sparse_walk"] != 10 * len(sinsts):
+        raise AssertionError(f"batched sparse: slot-launches "
+                             f"{slot_counts['sparse_walk']} != the "
+                             f"{10 * len(sinsts)} slot-iterations")
     launches["sparse_walk"] = launches.get("sparse_walk", 0) + \
         counts["sparse_walk"]
     for i, inst in enumerate(sinsts):
@@ -1725,8 +2011,13 @@ def phase_batched(launches: dict) -> None:
     log(f"[batched] sparse MMAS k={SPARSE_K}+4 m={SPARSE_M}, "
         f"n={list(SPARSE_BATCH_NS)} in bucket {SPARSE_BATCH_PAD}, x10: "
         f"{secs:.2f} s incl. set-up; slots bitwise their solo runs; "
-        f"sparse_walk={counts['sparse_walk']}; best "
+        f"sparse_walk={counts['sparse_walk']} launches = engine iterations, "
+        f"serving {slot_counts['sparse_walk']} slot-iterations; best "
         + ", ".join(f"{r['best_len']:.1f}" for r in rows))
+    _batched_sparse_kernels(SPARSE_STACK_NS, SPARSE_BATCH_PAD)
+    _batched_sparse_kernels(SPARSE_STACK_4096, 4096)
+    _batched_sparse_as()
+    _batched_sparse_profile()
 
     # -- small buckets: the card's batched kernel route == the CPU's
     small = [tsp.random_instance(n, seed=n) for n in SMALL_NS]
@@ -2049,6 +2340,177 @@ def phase_streaming(launches: dict) -> None:
         f"{ds['batches']} jobs")
 
 
+# The serving CLI's runs: the drain of buckets 512 / 1024 (m = the bucket)
+# and the sparse drains of buckets 2048 / 4096 at the route's k and m.
+CLI_DENSE = ["--use-pallas", "--variant", "mmas", "--metrics",
+             "--num-instances", "6", "--min-n", "500", "--max-n", "1002",
+             "--iterations", "6", "--max-batch", "4"]
+CLI_STREAM = ["--stream", "--arrival-rate", "20", "--chunk", "2"]
+CLI_SPARSE = ["--sparse", "--use-pallas", "--ants", "64", "--sparse-k", "16",
+              "--sparse-overflow", "4", "--variant", "mmas",
+              "--num-instances", "6", "--min-n", "1500", "--max-n", "2392",
+              "--iterations", "10", "--max-batch", "4"]
+
+
+def _cli_cmd(argv):
+    return [sys.executable, "-m", "repro_torch.launch.solve_serve", *argv]
+
+
+def _check_report(label, rep):
+    """A CLI report with every request completed."""
+    st = rep["stats"]
+    done = st["completed"] if "completed" in st else len(rep["results"])
+    want = st["submitted"] if "submitted" in st else st["requests"]
+    if rep["schema"] != "repro.solve_serve/v1" or done != want or \
+            len(rep["results"]) != want:
+        raise AssertionError(f"cli {label}: {done} of {want} requests "
+                             "completed")
+    return rep
+
+
+def _cli_main(label, argv):
+    """``repro_torch.launch.solve_serve.main()`` in this process with
+    ``argv`` and its stdout captured, the launch counts zeroed just before
+    the call and read just after -> (report, counts)."""
+    import contextlib
+    import io
+    from repro_torch.kernels import ops
+    from repro_torch.launch import solve_serve
+    out, argv0 = io.StringIO(), sys.argv
+    sys.argv = ["solve_serve"] + argv
+    try:
+        _sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            solve_serve.main()
+        _sync()
+        secs, counts = time.perf_counter() - t0, ops.launch_counts()
+    finally:
+        sys.argv = argv0
+    rep = _check_report(label, json.loads(out.getvalue()))
+    st = rep["stats"]
+    log(f"[cli] {label}: main() in {secs:.1f} s; {len(rep['results'])} "
+        f"requests, buckets {sorted({r['bucket'] for r in rep['results']})}"
+        f": {st['instances_per_s']:.3f} instances/s, latency mean "
+        f"{st['latency_mean_s']:.3f} s, max {st['latency_max_s']:.3f} s")
+    return rep, counts
+
+
+def _flag(argv, name, cast=int):
+    return cast(argv[argv.index(name) + 1])
+
+
+def _rows(rep):
+    return [(r["id"], r["n"], r["bucket"], r["best_len"], r["iterations"])
+            for r in rep["results"]]
+
+
+def _same_results(label, rep, results):
+    """The CLI's rows against an in-process service's results, request by
+    request: best length and iterations equal."""
+    want = [(r.request_id, r.n, r.bucket, round(r.best_len, 4), r.iterations)
+            for r in results]
+    if _rows(rep) != want:
+        raise AssertionError(f"cli {label}: results differ from the "
+                             f"in-process service:\n{_rows(rep)}\n{want}")
+
+
+def phase_cli(launches: dict) -> None:
+    """The serving CLI on the card: its ``main()`` in this process for a
+    dense MMAS drain, the same flags streamed, and sparse MMAS drains over
+    fp32 and int8 pages, each with every request completed and the kernel
+    launches of that run counted (one walk launch per engine iteration);
+    the stream's results equal an in-process ``SolverService`` drain of
+    its requests; ``python -m repro_torch.launch.solve_serve`` of the fp32
+    sparse drain in a subprocess exits 0 with only the JSON report on
+    stdout, equal request by request to the in-process run; two refused
+    flag sets exit 2 with one line."""
+    from repro_torch.core import aco
+    from repro_torch.solver import SolverService, make_poisson_trace
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    refused = {label: subprocess.Popen(
+        _cli_cmd(argv), cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for label, argv in (
+            ("--shard", CLI_DENSE + ["--shard"]),
+            ("--sparse --stream", CLI_SPARSE + CLI_STREAM))}
+    per = _flag(CLI_DENSE, "--max-batch")
+
+    def engine_its(rep, iters):
+        """Engine iterations of a drain: one job per bucket and max_batch
+        requests, each running every request's whole budget."""
+        jobs = {}
+        for r in rep["results"]:
+            jobs[r["bucket"]] = jobs.get(r["bucket"], 0) + 1
+        return sum(-(-c // per) for c in jobs.values()) * iters
+
+    def count(label, counts, kernel, want, entry=None):
+        if counts[kernel] != want:
+            raise AssertionError(f"cli {label}: {kernel} launched "
+                                 f"{counts[kernel]} times, expected {want} "
+                                 "(one per engine iteration)")
+        entry = entry or kernel
+        launches[entry] = launches.get(entry, 0) + counts[kernel]
+
+    # -- dense drain, and the same flags streamed against a drain of the
+    # stream's requests
+    its = _flag(CLI_DENSE, "--iterations")
+    rep, counts = _cli_main("dense drain", CLI_DENSE)
+    for kernel in ("fused_walk", "pheromone_update_tours"):
+        count("dense drain", counts, kernel, engine_its(rep, its))
+    rep, counts = _cli_main("dense stream", CLI_DENSE + CLI_STREAM)
+    for kernel in ("fused_walk", "pheromone_update_tours"):
+        if counts[kernel] == 0:
+            raise AssertionError(f"cli dense stream: no {kernel} launch")
+        launches[kernel] += counts[kernel]
+    trace = make_poisson_trace(_flag(CLI_DENSE, "--num-instances"),
+                               _flag(CLI_STREAM, "--arrival-rate", float),
+                               _flag(CLI_DENSE, "--min-n"),
+                               _flag(CLI_DENSE, "--max-n"), seed=0,
+                               iterations=its)
+    svc = SolverService(aco.ACOConfig(variant="mmas", use_pallas=True,
+                                      metrics=True, iterations=its),
+                        max_batch=per, device=DEV)
+    for it in trace:
+        svc.submit(it.instance, iterations=it.iterations, seed=it.seed)
+    _same_results("dense stream (against the drain of its requests)", rep,
+                  svc.run())
+    # -- sparse drains, fp32 and int8 pages
+    sits = _flag(CLI_SPARSE, "--iterations")
+    sparse = {}
+    for label, extra, entry in (("sparse drain", [], "sparse_walk"),
+                                ("sparse drain int8",
+                                 ["--tau-dtype", "int8"],
+                                 "sparse_walk_quant_int8")):
+        sparse[label], counts = _cli_main(label, CLI_SPARSE + extra)
+        count(label, counts, "sparse_walk", engine_its(sparse[label], sits),
+              entry)
+    # -- the command itself: exit 0, stdout only the JSON report
+    t0 = time.perf_counter()
+    p = subprocess.run(_cli_cmd(CLI_SPARSE), cwd=root, env=env,
+                       capture_output=True, text=True, timeout=600)
+    if p.returncode != 0:
+        raise AssertionError(f"cli sparse drain: exit {p.returncode}\n"
+                             f"{p.stderr[-4000:]}")
+    rep = _check_report("sparse drain (python -m)", json.loads(p.stdout))
+    if _rows(rep) != _rows(sparse["sparse drain"]):
+        raise AssertionError("cli sparse drain: python -m's results differ "
+                             "from main() in process")
+    log(f"[cli] python -m repro_torch.launch.solve_serve (sparse drain): "
+        f"exit 0 in {time.perf_counter() - t0:.1f} s (process included), "
+        f"stdout only the JSON report; every request equal to main() in "
+        f"process")
+    for label, proc in refused.items():
+        out, err = proc.communicate(timeout=300)
+        lines = err.strip().splitlines()
+        if proc.returncode != 2 or out or len(lines) != 1 or \
+                not lines[0].startswith("solve_serve: "):
+            raise AssertionError(f"cli {label}: exit {proc.returncode}, "
+                                 f"stderr {err[-2000:]!r}")
+        log(f"[cli] {label}: exit 2, one line: {lines[0][:120]}")
+
+
 def phase_sparse_split() -> None:
     """Where one sparse MMAS iteration over an int8 store goes at
     n = 2392, k = 16, m = 64 (host clock between synchronisations, median
@@ -2220,29 +2682,77 @@ def phase_split() -> None:
         f"{med(rq_ms):.2f} ms")
 
 
+def phase_solo_launches() -> None:
+    """The device operations of one solo sparse MMAS iteration (n = 2392,
+    k = 16 + 4, m = 64, fp32 and int8 pages) from ``torch.profiler``:
+    every kernel and copy launched, the busiest elementwise kind's
+    launches, and the three kinds launched most.  The counts depend on the
+    code path only, not on the machine's load."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import aco, tsp
+    from repro_torch.sparse import aco as sa, store
+    inst = tsp.random_instance(SPARSE_N, seed=SPARSE_N)
+    prob = store.make_sparse_problem(inst, SPARSE_K, device="cuda")
+    for dtype in ("fp32", "int8"):
+        cfg = aco.ACOConfig(variant="mmas", tau_dtype=dtype, sparse=True,
+                            sparse_k=SPARSE_K, m=SPARSE_M, use_pallas=True,
+                            seed=1)
+        state = sa.init_sparse_colony(inst, cfg, device="cuda")
+        state, _ = sa.sparse_colony_step(prob, state, cfg, "RAW")  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sa.sparse_colony_step(prob, state, cfg, "RAW")
+            torch.cuda.synchronize()
+        kinds = {}
+        for e in prof.key_averages():
+            us = (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0) or 0)
+            if us > 0:
+                kinds[e.key] = kinds.get(e.key, 0) + e.count
+        elementwise = {k: v for k, v in kinds.items() if "elementwise" in k}
+        busiest = max(elementwise.values()) if elementwise else 0
+        top = sorted(kinds.items(), key=lambda kv: -kv[1])[:3]
+        log(f"[solo-launches] sparse MMAS {dtype} n={SPARSE_N} "
+            f"k={SPARSE_K}+4 m={SPARSE_M}, one iteration: "
+            f"{sum(kinds.values())} device operations of {len(kinds)} "
+            f"kinds; busiest elementwise kind {busiest} launches; most: "
+            + "; ".join(f"{v} x {k[:60]}" for k, v in top))
+
+
 _SOLO = """
 import importlib.util, os, sys
 root = os.path.abspath(sys.argv[1])
 sys.path.insert(0, os.path.join(root, "src"))
-spec = importlib.util.spec_from_file_location(
-    "smoke", os.path.join(root, "chip_smoke.py"))
-smoke = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(smoke)
+
+
+def load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+smoke = load("smoke", os.path.join(root, "chip_smoke.py"))
 smoke.phase_device()
 smoke.phase_build()
 smoke.phase_main({})
 smoke.phase_profile()
 smoke.phase_split()
 smoke.phase_sparse_split()
+load("counter", sys.argv[2]).phase_solo_launches()
 """
 
 
 def solo(roots) -> int:
     """The solo paths' timing phases of each checkout in ``roots``, each
-    in its own process (its own ``repro_torch`` and kernel build)."""
+    in its own process (its own ``repro_torch`` and kernel build), then
+    this script's count of one solo sparse iteration's device operations
+    on that checkout's package."""
     for root in roots:
         log(f"[solo] {os.path.abspath(root)}")
-        subprocess.run([sys.executable, "-c", _SOLO, os.path.abspath(root)],
+        subprocess.run([sys.executable, "-c", _SOLO, os.path.abspath(root),
+                        os.path.abspath(__file__)],
                        check=True, cwd=root, timeout=600)
     return 0
 
@@ -2268,6 +2778,7 @@ def main() -> int:
     phase_batched(launches)
     phase_service(launches)
     phase_streaming(launches)
+    phase_cli(launches)
     phase_profile()
     phase_split()
     phase_sparse_split()

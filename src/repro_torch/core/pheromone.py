@@ -51,14 +51,16 @@ def tour_edges(tours: torch.Tensor, n_actual=None
 
 def edge_weights(tours: torch.Tensor, w: torch.Tensor,
                  n_actual: NActual = None) -> torch.Tensor:
-    """(m*n,) per-edge deposit weights; phantom-tail edges masked to 0."""
+    """(m*n,) per-edge deposit weights; phantom-tail edges masked to 0.
+    (B, m, n) tours of a stack take (B, m) weights and a (B,) ``n_actual``
+    tensor and give (B, m*n)."""
     ns = tours.shape[-1]
-    wrep = w[:, None].expand(w.shape[0], ns)
+    wrep = w[..., None].expand(tuple(w.shape) + (ns,))
     if n_actual is not None:
         idx = torch.arange(ns, device=tours.device)
-        wrep = torch.where(idx[None, :] < n_actual, wrep,
+        wrep = torch.where(idx < tsp.per_slot(n_actual, tours.dim()), wrep,
                            torch.zeros_like(wrep))
-    return wrep.reshape(-1)
+    return wrep.reshape(tuple(tours.shape[:-2]) + (-1,))
 
 
 def _scatter_add(n: int, rows: torch.Tensor, cols: torch.Tensor,

@@ -53,8 +53,8 @@ SIGNATURES = {
     "aco_sparse_select_quant": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _F, _F, _I, _P],
     "aco_sparse_walk": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _F, _F, _F, _P],
+                        _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+                        _I, _F, _F, _F, _F, _P],
 }
 
 
@@ -169,6 +169,29 @@ def require(name: str, t, dtype, shape=None, device=None) -> None:
 def _flags(values: tuple, device: str):
     import torch
     return torch.tensor(values, dtype=torch.uint8, device=device)
+
+
+@functools.lru_cache(maxsize=256)
+def _counts(values: tuple, device: str):
+    import torch
+    return torch.tensor(values, dtype=torch.int32, device=device)
+
+
+def count_array(n_actual: int, batch: int, device):
+    """A host ``n_actual`` as the (batch,) int32 tensor on ``device`` that
+    the launchers read per instance (copied once per value, then
+    cached)."""
+    return _counts((int(n_actual),) * batch, str(device))
+
+
+def slot_ints(n_actual, batch: int) -> list:
+    """A batch's n_actual (None, a host int, a sequence or a (B,) tensor)
+    as B host values (None = unmasked)."""
+    if n_actual is None or isinstance(n_actual, int):
+        return [n_actual] * batch
+    if hasattr(n_actual, "tolist"):
+        return [int(v) for v in n_actual.tolist()]
+    return [None if v is None else int(v) for v in n_actual]
 
 
 def active_flags(active, batch: int, device) -> tuple:

@@ -48,10 +48,20 @@
 //             n_actual by lazy distance (first minimum, as torch.argmin);
 //   emit      the next city and the edge length, visited[a, next] = 1; on a
 //             padded instance steps t >= n_actual emit city t at length 0.
+// The instance axis (the reference's pallas_call under vmap, in the batched
+// engine): blockIdx.y is the instance b of a stack of B.  Its coordinates,
+// pages, payload and scales, overflow pages, start cities, tabu rows, keys
+// and outputs start b instance strides further on, and its n_actual (which
+// bounds the fallback scan and starts the phantom tail) is read from a (B,)
+// device array (none given: n); a block whose instance is inactive returns
+// at once and writes nothing.  One instance (B = 1) is the single-instance
+// walk: there is one kernel body.
 // Bound: latency.  Its bytes (pages, tabu rows and outputs once each) are
 // about 2 MB at n = 2392, m = 64, k = 16 + 4, under 1 us at 3.35 TB/s; but
 // each of the S steps waits for at least two dependent L2 round trips
-// (cur -> page -> overflow coordinates) and a warp reduction.
+// (cur -> page -> overflow coordinates) and a warp reduction.  At m = 64
+// one instance fills 16 blocks of the 132 SMs; a stack of B puts B x 16
+// blocks into the same launch.
 #include <cuda_bf16.h>
 #include <cstdint>
 #include <cmath>
@@ -192,68 +202,88 @@ __device__ __forceinline__ bool min_beats(float v, int i, float bv, int bi) {
   return i < bi;
 }
 
+// Every array holds B instances, each one stride after the other.
 struct WalkArgs {
-  const float2* coords;
-  const int* cand;
-  const float* cand_dist;
-  const float* cand_eta;
-  const void* tau;
-  const float* tau_scale;
-  const int* ovf_city;
-  const void* ovf_tau;
-  const float* ovf_scale;
-  const int* start;
-  unsigned char* visited;
-  const long long* keys;
-  int* out_city;
-  float* out_dist;
-  int* fallbacks;
-  int m, n, k, o, steps, n_act, tail, draw, ewt, vis_smem, xy_smem;
+  const float2* coords;          // (B, n)
+  const int* cand;               // (B, n, k)
+  const float* cand_dist;        // (B, n, k)
+  const float* cand_eta;         // (B, n, k)
+  const void* tau;               // (B, n, k) payload
+  const float* tau_scale;        // (B, n) int8 row scales, or null
+  const int* ovf_city;           // (B, n, o)
+  const void* ovf_tau;           // (B, n, o) payload
+  const float* ovf_scale;        // (B, n) int8 row scales, or null
+  const int* start;              // (B, m)
+  unsigned char* visited;        // (B, m, n)
+  const long long* keys;         // (B, steps, 2)
+  int* out_city;                 // (B, steps, m)
+  float* out_dist;               // (B, steps, m)
+  int* fallbacks;                // (B, m)
+  const int* n_actual;           // (B,) per instance, or null: n
+  const unsigned char* active;   // (B,) flags, or null: every instance
+  int m, n, k, o, steps, draw, ewt, vis_smem, xy_smem;
   float lo, span, alpha, beta;
 };
 
 template <typename T, int MODE>
 __global__ void sparse_walk_kernel(WalkArgs g) {
   extern __shared__ __align__(16) unsigned char wsmem[];
+  const int b = blockIdx.y;
+  if (g.active != nullptr && g.active[b] == 0) return;  // the whole block
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  const int n = g.n, k = g.k, K = g.k + g.o;
+  const int n = g.n, k = g.k, o = g.o, K = g.k + g.o;
   const int vstride = (n + 15) & ~15;
-  const float2* xy = g.coords;
+  // instance b's planes
+  const long long nk = (long long)n * k, no = (long long)n * o;
+  const float2* coords = g.coords + (long long)b * n;
+  const int* cand = g.cand + b * nk;
+  const float* cand_dist = g.cand_dist + b * nk;
+  const float* cand_eta = g.cand_eta + b * nk;
+  const T* tau = static_cast<const T*>(g.tau) + b * nk;
+  const float* tau_scale =
+      g.tau_scale != nullptr ? g.tau_scale + (long long)b * n : nullptr;
+  const int* ovf_city = g.ovf_city + b * no;
+  const T* ovf_tau = static_cast<const T*>(g.ovf_tau) + b * no;
+  const float* ovf_scale =
+      g.ovf_scale != nullptr ? g.ovf_scale + (long long)b * n : nullptr;
+  const long long* keys = g.keys + (long long)b * g.steps * 2;
+  const long long out0 = (long long)b * g.steps * g.m;
+  const int n_act = g.n_actual != nullptr ? g.n_actual[b] : n;
+  const float2* xy = coords;
   unsigned char* vbase = wsmem;
   if (g.xy_smem) {
     float2* s_xy = reinterpret_cast<float2*>(wsmem);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) s_xy[i] = g.coords[i];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) s_xy[i] = coords[i];
     xy = s_xy;
     vbase = wsmem + (size_t)n * sizeof(float2);
   }
   __syncthreads();
   const int a = blockIdx.x * warps + warp;
   if (a >= g.m) return;  // a whole warp leaves together
-  unsigned char* grow = g.visited + (long long)a * n;
+  const long long ant = (long long)b * g.m + a;
+  unsigned char* grow = g.visited + ant * n;
   unsigned char* vis = grow;
   if (g.vis_smem) {
     vis = vbase + (size_t)warp * vstride;
     for (int i = lane; i < n; i += 32) vis[i] = grow[i];
   }
   __syncwarp();
-  const T* tau = static_cast<const T*>(g.tau);
-  const T* ovf_tau = static_cast<const T*>(g.ovf_tau);
-  int cur = g.start[a];
+  int cur = g.start[ant];
   int fb = 0;
   for (int s = 0; s < g.steps; ++s) {
     const int t = s + 1;
     int nxt;
     float d;
-    if (t >= g.tail) {
+    if (t >= n_act) {
       nxt = t;
       d = 0.0f;
     } else {
       const float2 pc = xy[cur];
       uint32_t k0 = 0u, k1 = 0u;
       if (MODE != aco::kGreedy) {
-        k0 = (uint32_t)g.keys[2 * s];
-        k1 = (uint32_t)g.keys[2 * s + 1];
+        k0 = (uint32_t)keys[2 * s];
+        k1 = (uint32_t)keys[2 * s + 1];
       }
       aco::ArgMax best = aco::ArgMax::empty();
       int bcity = 0;
@@ -263,17 +293,17 @@ __global__ void sparse_walk_kernel(WalkArgs g) {
         float tv, e, dd;
         if (j < k) {
           const long long i = (long long)cur * k + j;
-          c = g.cand[i];
-          tv = page_tau(tau, i, g.tau_scale, cur);
-          e = g.cand_eta[i];
-          dd = g.cand_dist[i];
+          c = cand[i];
+          tv = page_tau(tau, i, tau_scale, cur);
+          e = cand_eta[i];
+          dd = cand_dist[i];
         } else {
-          const long long i = (long long)cur * g.o + (j - k);
-          const int oc = g.ovf_city[i];
+          const long long i = (long long)cur * o + (j - k);
+          const int oc = ovf_city[i];
           c = oc >= 0 ? oc : cur;
           dd = lazy_dist(pc, xy[c < n ? c : cur], g.ewt);
           e = __fdiv_rn(1.0f, fmaxf(dd, 1e-10f));
-          tv = page_tau(ovf_tau, i, g.ovf_scale, cur);
+          tv = page_tau(ovf_tau, i, ovf_scale, cur);
         }
         const bool real = c >= 0 && c < n;
         const bool keep = !real || vis[c] == 0;
@@ -314,7 +344,7 @@ __global__ void sparse_walk_kernel(WalkArgs g) {
         float bv = INFINITY;
         int bi = INT_MAX;
         for (int j = lane; j < n; j += 32) {
-          const float v = (vis[j] != 0 || j >= g.n_act)
+          const float v = (vis[j] != 0 || j >= n_act)
                               ? INFINITY
                               : lazy_dist(pc, xy[j], g.ewt);
           if (min_beats(v, j, bv, bi)) { bv = v; bi = j; }
@@ -330,8 +360,8 @@ __global__ void sparse_walk_kernel(WalkArgs g) {
       }
     }
     if (lane == 0) {
-      g.out_city[(long long)s * g.m + a] = nxt;
-      g.out_dist[(long long)s * g.m + a] = d;
+      g.out_city[out0 + (long long)s * g.m + a] = nxt;
+      g.out_dist[out0 + (long long)s * g.m + a] = d;
       if (nxt >= 0 && nxt < n) vis[nxt] = 1;
     }
     __syncwarp();
@@ -340,11 +370,11 @@ __global__ void sparse_walk_kernel(WalkArgs g) {
   if (g.vis_smem) {
     for (int i = lane; i < n; i += 32) grow[i] = vis[i];
   }
-  if (lane == 0) g.fallbacks[a] = fb;
+  if (lane == 0) g.fallbacks[ant] = fb;
 }
 
 template <typename T, int MODE>
-int launch_walk_kernel(const WalkArgs& g, int warps, size_t smem,
+int launch_walk_kernel(const WalkArgs& g, int batch, int warps, size_t smem,
                        cudaStream_t s) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -352,21 +382,22 @@ int launch_walk_kernel(const WalkArgs& g, int warps, size_t smem,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int grid = (g.m + warps - 1) / warps;
+  const dim3 grid((g.m + warps - 1) / warps, batch);
   sparse_walk_kernel<T, MODE><<<grid, warps * 32, smem, s>>>(g);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_walk(const WalkArgs& g, int mode, int warps, size_t smem,
-                cudaStream_t s) {
+int launch_walk(const WalkArgs& g, int batch, int mode, int warps,
+                size_t smem, cudaStream_t s) {
   switch (mode) {
     case aco::kIRoulette:
-      return launch_walk_kernel<T, aco::kIRoulette>(g, warps, smem, s);
+      return launch_walk_kernel<T, aco::kIRoulette>(g, batch, warps, smem,
+                                                    s);
     case aco::kGumbel:
-      return launch_walk_kernel<T, aco::kGumbel>(g, warps, smem, s);
+      return launch_walk_kernel<T, aco::kGumbel>(g, batch, warps, smem, s);
     case aco::kGreedy:
-      return launch_walk_kernel<T, aco::kGreedy>(g, warps, smem, s);
+      return launch_walk_kernel<T, aco::kGreedy>(g, batch, warps, smem, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -413,31 +444,39 @@ extern "C" int aco_sparse_select_quant(const void* tau, int payload,
   return (int)cudaErrorInvalidValue;
 }
 
-// The sparse walk: S steps for m ants.  coords (n, 2); cand, cand_dist,
-// cand_eta, tau (n, k); ovf_city, ovf_tau (n, o); tau_scale / ovf_scale the
-// per-row int8 scales (n,) (payload 1 = int8, 2 = bf16, 0 = float32);
-// start (m,); visited (m, n) bytes, updated; keys (S, 2) int64; outputs
-// out_city / out_dist (S, m) and fallbacks (m,).  n_act bounds the
-// fallback scan; steps t = s + 1 >= tail emit city t at length 0.
+// The sparse walk: S steps for m ants of `batch` instances in one launch.
+// Per instance: coords (n, 2); cand, cand_dist, cand_eta, tau (n, k);
+// ovf_city, ovf_tau (n, o); tau_scale / ovf_scale the per-row int8 scales
+// (n,) (payload 1 = int8, 2 = bf16, 0 = float32); start (m,); visited
+// (m, n) bytes, updated; keys (S, 2) int64; outputs out_city / out_dist
+// (S, m) and fallbacks (m,); the instances follow each other in every
+// array; steps <= n - 1.  Instance b's n_actual_arr[b] (n when the array
+// is null) bounds the fallback scan, and its steps t = s + 1 >=
+// n_actual_arr[b] emit city t at length 0.  active (batch,) bytes, or
+// null: an inactive instance is skipped, its outputs and tabu rows left as
+// they were.
 extern "C" int aco_sparse_walk(
     const float* coords, const int* cand, const float* cand_dist,
     const float* cand_eta, const void* tau, int payload,
     const float* tau_scale, const int* ovf_city, const void* ovf_tau,
     const float* ovf_scale, const int* start, unsigned char* visited,
     const long long* keys, int* out_city, float* out_dist, int* fallbacks,
-    int m, int n, int k, int o, int steps, int n_act, int tail, int mode,
+    int batch, int m, int n, int k, int o, int steps,
+    const int* n_actual_arr, const unsigned char* active, int mode,
     int draw, int ewt, float lo, float span, float alpha, float beta,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m == 0) return 0;
-  if (n <= 0 || k < 0 || o < 0 ||
+  if (m == 0 || batch == 0) return 0;
+  if (n <= 0 || k < 0 || o < 0 || batch < 0 || batch > 65535 ||
+      steps < 0 || steps > n - 1 ||
       (draw != aco::kPacked && draw != aco::kCounter) || ewt < kEuc2d ||
       ewt > kRaw || (payload == 1 && (!tau_scale || (o > 0 && !ovf_scale))))
     return (int)cudaErrorInvalidValue;
   WalkArgs g{reinterpret_cast<const float2*>(coords), cand, cand_dist,
              cand_eta, tau, tau_scale, ovf_city, ovf_tau, ovf_scale, start,
-             visited, keys, out_city, out_dist, fallbacks, m, n, k, o, steps,
-             n_act, tail, draw, ewt, 0, 0, lo, span, alpha, beta};
+             visited, keys, out_city, out_dist, fallbacks, n_actual_arr,
+             active, m, n, k, o, steps, draw, ewt, 0, 0, lo, span, alpha,
+             beta};
   // Shared memory: coordinates (8 n) and one tabu row (n, rounded to 16)
   // per warp when both fit; else the tabu rows only; else neither.
   const long long vrow = (n + 15) & ~15;
@@ -459,10 +498,11 @@ extern "C" int aco_sparse_walk(
     }
   }
   if (payload == 0)
-    return launch_walk<float>(g, mode, warps, (size_t)smem, s);
+    return launch_walk<float>(g, batch, mode, warps, (size_t)smem, s);
   if (payload == 1)
-    return launch_walk<int8_t>(g, mode, warps, (size_t)smem, s);
+    return launch_walk<int8_t>(g, batch, mode, warps, (size_t)smem, s);
   if (payload == 2)
-    return launch_walk<__nv_bfloat16>(g, mode, warps, (size_t)smem, s);
+    return launch_walk<__nv_bfloat16>(g, batch, mode, warps, (size_t)smem,
+                                      s);
   return (int)cudaErrorInvalidValue;
 }

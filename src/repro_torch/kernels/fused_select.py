@@ -148,16 +148,6 @@ fused_select_quant.launches = 0
 
 # ------------------------------------------------------------ the walk
 
-def _slot_ints(n_actual, batch: int) -> list:
-    """A batch's n_actual (None, a host int, a sequence or a (B,) tensor)
-    as B host values (None = unmasked)."""
-    if n_actual is None or isinstance(n_actual, int):
-        return [n_actual] * batch
-    if isinstance(n_actual, torch.Tensor):
-        return [int(v) for v in n_actual.tolist()]
-    return [None if v is None else int(v) for v in n_actual]
-
-
 def fused_walk_plain(tau: torch.Tensor, eta: torch.Tensor,
                      start: torch.Tensor, key: torch.Tensor,
                      alpha: float = 1.0, beta: float = 2.0,
@@ -183,7 +173,7 @@ def fused_walk_plain(tau: torch.Tensor, eta: torch.Tensor,
                            start.shape[-1]), dtype=torch.int32,
                           device=start.device)
         acts = [True] * nb if active is None else list(active)
-        for b, n_act in enumerate(_slot_ints(n_actual, nb)):
+        for b, n_act in enumerate(_build.slot_ints(n_actual, nb)):
             if acts[b]:
                 out[b] = fused_walk_plain(
                     tau[b], eta[b], start[b], key[b], alpha, beta, n_act,

@@ -12,12 +12,14 @@ single typed rejection point, with the reference's messages.
 Each kernel wrapper counts its launches in a plain integer attribute
 (``fused_select.launches`` ...); ``launch_counts``/``reset_launch_counts``
 read and zero them all.  The launchers that take a leading instance axis
-(the two dense walks and the tours-driven update) also count the instances
-their launches served (``slot_launches``, read by ``slot_launch_counts``).
+(the two dense walks, the tours-driven update and the sparse walk) also
+count the instances their launches served (``slot_launches``, read by
+``slot_launch_counts``).
 
-The dense walk and the tours-driven update take that instance axis: a
-(B, n, n) stack of instances in one launch, ``n_actual`` a (B,) int32
-tensor and ``active`` B host flags (an inactive instance costs no work).
+The dense walk and the tours-driven update take that instance axis as a
+(B, n, n) stack of instances in one launch, the sparse walk as (B, n, k)
+pages; ``n_actual`` a (B,) int32 tensor and ``active`` B host flags (an
+inactive instance costs no work).
 """
 from __future__ import annotations
 
@@ -289,16 +291,19 @@ def sparse_walk(problem, tau, ovf_city: torch.Tensor, ovf_tau,
                 start: torch.Tensor, visited: torch.Tensor,
                 keys: torch.Tensor, selection: str = "iroulette",
                 alpha: float = 1.0, beta: float = 2.0, ewt: str = "RAW",
-                draw_mode: str = "packed", n_actual: Optional[int] = None
+                draw_mode: str = "packed", n_actual=None,
+                active: Optional[Sequence[bool]] = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The sparse kernel route's construction walk, one step per key:
     page gather, draw at the candidates, selection, page-fault fallback
     and tabu update for every ant (``visited`` updated in place).  Returns
-    (cities (S, m), edge lengths (S, m), fallback steps per ant (m,))."""
+    (cities (S, m), edge lengths (S, m), fallback steps per ant (m,)).  A
+    (B, n, k) ``problem`` walks a stack of instances
+    (``sparse_select.sparse_walk``)."""
     if _plain(start):
         return _ss.sparse_walk_plain(problem, tau, ovf_city, ovf_tau, start,
                                      visited, keys, selection, alpha, beta,
-                                     ewt, draw_mode, n_actual)
+                                     ewt, draw_mode, n_actual, active)
     return _ss.sparse_walk(problem, tau, ovf_city, ovf_tau, start, visited,
                            keys, selection, alpha, beta, ewt, draw_mode,
-                           n_actual)
+                           n_actual, active)

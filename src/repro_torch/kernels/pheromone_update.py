@@ -100,11 +100,10 @@ def pheromone_update_tours_plain(tau: torch.Tensor, tours: torch.Tensor,
     of instances: a loop of single updates over the active ones, an
     inactive one's plane left at zero."""
     if tau.dim() == 3:
-        from .fused_select import _slot_ints
         nb = tau.shape[0]
         out = torch.zeros_like(tau)
         acts = [True] * nb if active is None else list(active)
-        for b, n_act in enumerate(_slot_ints(n_actual, nb)):
+        for b, n_act in enumerate(_build.slot_ints(n_actual, nb)):
             if acts[b]:
                 out[b] = pheromone_update_tours_plain(tau[b], tours[b], w[b],
                                                       rho, n_act)

@@ -29,13 +29,18 @@ is its plain twin), the selection above, the page-fault fallback for an
 ant whose page is exhausted, and the tabu update -- over a float32, int8
 or bfloat16 page payload.  Bound: latency, S dependent steps of at least
 two L2 round trips each; its bytes (pages, tabu rows, outputs) are about
-2 MB at n = 2392, m = 64, K = 20.  ``sparse_walk_plain`` is the step loop
-on the host, every step through the plain versions.
+2 MB at n = 2392, m = 64, K = 20.  With a leading instance axis (the
+reference's ``pallas_call`` under ``vmap``, in the batched engine) one
+launch walks a stack of B instances: B times the blocks, each instance's
+``n_actual`` from a (B,) device array, an inactive instance skipped; the
+single walk is its B = 1 case, one kernel body.  ``sparse_walk_plain`` is
+the step loop on the host, every step through the plain versions, over a
+stack a loop over its instances.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -203,21 +208,23 @@ def sparse_walk_plain(problem, tau, ovf_city: torch.Tensor, ovf_tau,
                       keys: torch.Tensor, selection: str = "iroulette",
                       alpha: float = 1.0, beta: float = 2.0,
                       ewt: str = "RAW", draw_mode: str = "packed",
-                      n_actual: Optional[int] = None):
+                      n_actual=None, active: Optional[Sequence[bool]] = None):
     """The kernel route's walk as a host loop of plain PyTorch steps (the
     full-width draw, ``sparse_select_plain``, the fallback's (m, n) lazy
-    rows) on any device.  Same arguments and results as ``sparse_walk``."""
+    rows) on any device.  Same arguments and results as ``sparse_walk``; a
+    stack is a loop of single walks over its active instances."""
     from ..sparse import construct
-    return construct.host_walk(problem, tau, ovf_city, ovf_tau, start,
-                               visited, keys, start.shape[0], selection,
-                               alpha, beta, ewt, True, draw_mode, n_actual)
+    return construct.host_walks(problem, tau, ovf_city, ovf_tau, start,
+                                visited, keys, selection, alpha, beta, ewt,
+                                True, draw_mode, n_actual, active)
 
 
 def sparse_walk(problem, tau, ovf_city: torch.Tensor, ovf_tau,
                 start: torch.Tensor, visited: torch.Tensor,
                 keys: torch.Tensor, selection: str = "iroulette",
                 alpha: float = 1.0, beta: float = 2.0, ewt: str = "RAW",
-                draw_mode: str = "packed", n_actual: Optional[int] = None
+                draw_mode: str = "packed", n_actual=None,
+                active: Optional[Sequence[bool]] = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the walk kernel on CUDA tensors; raises on anything else.
 
@@ -225,65 +232,102 @@ def sparse_walk(problem, tau, ovf_city: torch.Tensor, ovf_tau,
     cand_eta); ``tau`` (n, k) and ``ovf_tau`` (n, O) are float32 pages or
     ``QuantTau`` stores of one payload type; ``start`` (m,) int32 the
     cities the ants stand on; ``visited`` (m, n) bool, updated in place;
-    ``keys`` (S, 2) int64, one threefry key per step.  With ``n_actual``,
-    steps t = s + 1 >= n_actual emit city t at length 0 and the fallback
-    scans real cities only.  Returns (cities (S, m) int32, edge lengths
-    (S, m) float32, fallback steps per ant (m,) int32)."""
+    ``keys`` (S, 2) int64, one threefry key per step (S <= n - 1).  With
+    ``n_actual``, steps t = s + 1 >= n_actual emit city t at length 0 and
+    the fallback scans real cities only.  Returns (cities (S, m) int32, edge lengths
+    (S, m) float32, fallback steps per ant (m,) int32).
+
+    The instance axis: every operand with a leading B (coords (B, n, 2),
+    pages (B, n, k), overflow (B, n, O), int8 row scales (B, n, 1), start
+    (B, m), visited (B, m, n), keys (B, S, 2)) walks B instances in one
+    launch; ``n_actual`` a host int (the kernel reads it from a cached
+    (B,) copy on the card) or a (B,) int32 tensor on the card whose
+    values the caller has checked to lie in [1, n], ``active`` B
+    host flags (None: all).  Each instance is bitwise its own single
+    launch; an inactive one costs no walk, its results are zero and its
+    tabu rows untouched.  ``launches`` counts launches, ``slot_launches``
+    the instances they walked."""
     code = mode_code(selection)
     if draw_mode not in DRAW_CODES:
         raise ValueError(f"sparse_walk: unknown draw_mode {draw_mode!r}")
     if ewt not in EWT_CODES:
         raise ValueError(f"sparse_walk: unsupported edge_weight_type {ewt}")
     coords, cand, cand_dist, cand_eta = problem[:4]
-    n, k = cand.shape
+    lead = tuple(cand.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError("sparse_walk: cand must be (n, k) or (B, n, k)")
+    nb = lead[0] if lead else 1
+    n, k = cand.shape[-2:]
     dev = cand.device
     _build.require("sparse_walk cand", cand, torch.int32)
-    _build.require("sparse_walk coords", coords, torch.float32, (n, 2), dev)
+    _build.require("sparse_walk coords", coords, torch.float32,
+                   lead + (n, 2), dev)
     if coords.data_ptr() % 8:
         raise ValueError("sparse_walk: coords is not 8-byte aligned")
     for name, t in (("cand_dist", cand_dist), ("cand_eta", cand_eta)):
-        _build.require(f"sparse_walk {name}", t, torch.float32, (n, k), dev)
-    o = ovf_city.shape[1]
-    _build.require("sparse_walk ovf_city", ovf_city, torch.int32, (n, o), dev)
+        _build.require(f"sparse_walk {name}", t, torch.float32,
+                       lead + (n, k), dev)
+    o = ovf_city.shape[-1]
+    _build.require("sparse_walk ovf_city", ovf_city, torch.int32,
+                   lead + (n, o), dev)
     q, scale = _payload(tau)
     oq, oscale = _payload(ovf_tau)
     dtypes = (torch.float32, torch.int8, torch.bfloat16)
-    _build.require("sparse_walk tau", q, dtypes, (n, k), dev)
-    _build.require("sparse_walk ovf_tau", oq, q.dtype, (n, o), dev)
+    _build.require("sparse_walk tau", q, dtypes, lead + (n, k), dev)
+    _build.require("sparse_walk ovf_tau", oq, q.dtype, lead + (n, o), dev)
     payload = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}[q.dtype]
     scale_ptr = oscale_ptr = None
     if payload == 1:
-        _build.require("sparse_walk tau scale", scale, torch.float32, (n, 1),
-                       dev)
+        _build.require("sparse_walk tau scale", scale, torch.float32,
+                       lead + (n, 1), dev)
         scale_ptr = scale.data_ptr()
         if o:
             _build.require("sparse_walk ovf_tau scale", oscale,
-                           torch.float32, (n, 1), dev)
+                           torch.float32, lead + (n, 1), dev)
             oscale_ptr = oscale.data_ptr()
-    m = start.shape[0]
-    _build.require("sparse_walk start", start, torch.int32, (m,), dev)
-    _build.require("sparse_walk visited", visited, torch.bool, (m, n), dev)
-    steps = keys.shape[0]
-    _build.require("sparse_walk keys", keys, torch.int64, (steps, 2), dev)
-    n_act = n if n_actual is None else int(n_actual)
-    tail = 2 ** 31 - 1 if n_actual is None else int(n_actual)
-    out_city = torch.empty((steps, m), dtype=torch.int32, device=dev)
-    out_dist = torch.empty((steps, m), dtype=torch.float32, device=dev)
-    fallbacks = torch.empty(m, dtype=torch.int32, device=dev)
+    m = start.shape[-1]
+    _build.require("sparse_walk start", start, torch.int32, lead + (m,), dev)
+    _build.require("sparse_walk visited", visited, torch.bool,
+                   lead + (m, n), dev)
+    steps = keys.shape[-2]
+    _build.require("sparse_walk keys", keys, torch.int64,
+                   lead + (steps, 2), dev)
+    if steps > n - 1:
+        raise ValueError(f"sparse_walk: {steps} steps over {n} cities")
+    if n_actual is not None and not isinstance(n_actual, torch.Tensor):
+        if not 1 <= int(n_actual) <= n:
+            raise ValueError(f"sparse_walk: n_actual {n_actual} not in "
+                             f"[1, {n}]")
+        n_actual = _build.count_array(n_actual, nb, dev)
+    n_act_ptr = None
+    if n_actual is not None:
+        # read on the card only: the caller has checked a tensor's values
+        # (sparse_colony_step_batch does)
+        _build.require("sparse_walk n_actual", n_actual, torch.int32, (nb,),
+                       dev)
+        n_act_ptr = n_actual.data_ptr()
+    flags, walked = _build.active_flags(active, nb, dev)
+    alloc = torch.empty if flags is None else torch.zeros
+    out_city = alloc(lead + (steps, m), dtype=torch.int32, device=dev)
+    out_dist = alloc(lead + (steps, m), dtype=torch.float32, device=dev)
+    fallbacks = alloc(lead + (m,), dtype=torch.int32, device=dev)
     span = sampling.uniform_span(draw_mode, DRAW_MIN, DRAW_MAX)
     _build.launch("sparse_walk", dev, coords.data_ptr(), cand.data_ptr(),
                   cand_dist.data_ptr(), cand_eta.data_ptr(), q.data_ptr(),
                   payload, scale_ptr, ovf_city.data_ptr(), oq.data_ptr(),
                   oscale_ptr, start.data_ptr(), visited.data_ptr(),
                   keys.data_ptr(), out_city.data_ptr(), out_dist.data_ptr(),
-                  fallbacks.data_ptr(), m, n, k, o, steps, n_act, tail, code,
-                  DRAW_CODES[draw_mode], EWT_CODES[ewt], DRAW_MIN, span,
-                  float(alpha), float(beta))
+                  fallbacks.data_ptr(), nb, m, n, k, o, steps, n_act_ptr,
+                  None if flags is None else flags.data_ptr(),
+                  code, DRAW_CODES[draw_mode], EWT_CODES[ewt], DRAW_MIN,
+                  span, float(alpha), float(beta))
     sparse_walk.launches += 1
+    sparse_walk.slot_launches += walked
     return out_city, out_dist, fallbacks
 
 
 sparse_walk.launches = 0
+sparse_walk.slot_launches = 0
 
 
 def page_operands(n: int, m: int, k: int, tau_dtype: str,
@@ -365,3 +409,23 @@ def walk_operands(n: int, m: int, k: int, o: int, tau_dtype: str,
     keys = sampling.fold_in(sampling.prng_key(seed + 1, device),
                             torch.arange(1, steps + 1, device=device))
     return problem, tau, ovf_city, ovf_tau, start, visited, keys
+
+
+def stack_walk_operands(ns, n_pad: int, m: int, k: int, o: int,
+                        tau_dtype: str, device: torch.device, seed: int = 0,
+                        window: Optional[int] = None, ewt: str = "EUC_2D"):
+    """A stack of ``walk_operands`` in one bucket of ``n_pad`` cities, one
+    instance per size in ``ns`` (instance b from seed ``seed + b``), for
+    checking and timing the walk's instance axis.  Every operand gains a
+    leading B; the problem carries the sizes as its host ``n_actual``
+    tuple, as a bucket's does.  Returns (problem, tau, ovf_city, ovf_tau,
+    start, visited, keys)."""
+    from .. import tree
+    from ..sparse import store
+    slots = [walk_operands(n, m, k, o, tau_dtype, device, seed + b, n_pad,
+                           window, ewt) for b, n in enumerate(ns)]
+    problem = store.SparseProblem(
+        *(torch.stack([s[0][i] for s in slots]) for i in range(4)),
+        n_actual=tuple(int(n) for n in ns))
+    return (problem,) + tuple(tree.stack([s[i] for s in slots])
+                              for i in range(1, 7))

@@ -6,8 +6,9 @@ The PyTorch port of ``repro.solver``, drain mode:
               phantom cities and stacks them into a ProblemBatch (or a
               SparseBatch of candidate pages);
 - engine.py   advances B colonies per call with per-instance budgets,
-              patience and a done mask, by stepping each active slot's
-              view of the stacked state;
+              patience and a done mask: on the dense fused and the sparse
+              kernel routes the whole stack per engine iteration, else
+              each active slot's view of the stacked state;
 - service.py  a drain-the-queue request loop with throughput stats and
               supervisor/checkpoint crash recovery;
 - streaming.py  continuous batching: resident slot pools on the card,

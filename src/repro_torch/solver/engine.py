@@ -10,20 +10,27 @@ as every colony is done.
 
 Design, two routes:
 
-- the fused kernel route (``aco.batched_route``: ``use_pallas=True``,
-  ``construction="data_parallel"``, no local search, no Hyper; AS, MMAS
-  or ACS over any ``tau_dtype``, metrics on or off) steps the whole stack
-  at once: ``core.aco.colony_step_batch``, one ``split`` of the (B, 2)
-  keys, one ``fused_walk`` launch and one ``pheromone_update`` launch per
-  engine iteration, whatever the number of active slots.  The kernels skip
-  a finished slot, and only the active slots' rows are written back (the
-  reference's ``where``-freeze).  ``colony_step`` is that function's
-  B = 1 case, so batched == solo is bitwise by construction;
-- every other route (the pure route, ``construction="pallas"``, local
-  search, Hyper, ``kind="sparse"``) is a host loop over the active slots,
-  each calling ``core.aco.colony_step`` (or
-  ``sparse.aco.sparse_colony_step``) on that slot's view of the stacked
-  tensors.
+- the kernel routes that take the instance axis step the whole stack at
+  once, whatever the number of active slots:
+  - dense (``aco.batched_route``: ``use_pallas=True``,
+    ``construction="data_parallel"``, no local search, no Hyper; AS, MMAS
+    or ACS over any ``tau_dtype``, metrics on or off):
+    ``core.aco.colony_step_batch``, one ``split`` of the (B, 2) keys, one
+    ``fused_walk`` launch and one ``pheromone_update`` launch per engine
+    iteration;
+  - sparse (``kind="sparse"`` on ``sparse.aco.batched_route``:
+    ``use_pallas=True``, the standard construction; AS, MMAS or ACS over
+    any ``tau_dtype``): ``sparse.aco.sparse_colony_step_batch``, one
+    ``sparse_walk`` launch per engine iteration and the epilogue over
+    (B, ...) pages.
+  The kernels skip a finished slot, and only the active slots' rows are
+  written back (the reference's ``where``-freeze).  ``colony_step`` and
+  ``sparse_colony_step`` are those functions' B = 1 cases, so batched ==
+  solo is bitwise by construction;
+- every other route (the pure routes, ``construction="pallas"``, local
+  search, Hyper) is a host loop over the active slots, each calling
+  ``core.aco.colony_step`` (or ``sparse.aco.sparse_colony_step``) on that
+  slot's view of the stacked tensors.
 
 The done mask is read from the card once per engine iteration, and only
 under ``patience``: budgets compare against a host mirror of each slot's
@@ -160,8 +167,18 @@ def run_batch(problem, states, budgets, cfg: aco.ACOConfig, max_iters: int,
             _check_aligned(problem, states, b)
     it_h = _host_ints(states.iteration)            # one read per call
     if kind == "dense" and aco.batched_route(cfg, problem):
-        return _run_stack(problem, states, budgets_h, it_h, cfg, max_iters,
-                          patience, since, donate, mets)
+        def step_stack(s, active, n_act):
+            return aco.colony_step_batch(problem, s, cfg, active=active,
+                                         n_actual=n_act)
+    elif kind == "sparse" and sparse_aco.batched_route(cfg):
+        def step_stack(s, active, n_act):
+            return sparse_aco.sparse_colony_step_batch(
+                problem, s, cfg, ewt, active=active, n_actual=n_act)
+    else:
+        step_stack = None
+    if step_stack is not None:
+        return _run_stack(problem, states, budgets_h, it_h, max_iters,
+                          patience, since, donate, mets, step_stack)
 
     if kind == "sparse":
         def step(p, s):
@@ -215,12 +232,13 @@ def run_batch(problem, states, budgets, cfg: aco.ACOConfig, max_iters: int,
     return out_states, out_since
 
 
-def _run_stack(problem, states, budgets_h, it_h, cfg, max_iters, patience,
-               since, donate, mets):
-    """``run_batch`` on ``aco.batched_route``: every engine iteration steps
-    the whole stack with ``colony_step_batch`` and writes back the rows of
-    the slots that were active (all of them with one ``copy_`` per leaf
-    when every slot was)."""
+def _run_stack(problem, states, budgets_h, it_h, max_iters, patience,
+               since, donate, mets, step_stack):
+    """``run_batch`` on a route that takes the instance axis: every engine
+    iteration steps the whole stack with ``step_stack(states, active flags,
+    n_actual)`` (``colony_step_batch`` or ``sparse_colony_step_batch``) and
+    writes back the rows of the slots that were active (all of them with
+    one ``copy_`` per leaf when every slot was)."""
     n_slots = len(budgets_h)
     dev = states.key.device
     metrics_on = mets is not None
@@ -239,8 +257,7 @@ def _run_stack(problem, states, budgets_h, it_h, cfg, max_iters, patience,
         if not any(act):
             break
         flags = None if all(act) else act
-        out = aco.colony_step_batch(problem, states, cfg, active=flags,
-                                    n_actual=n_act)
+        out = step_stack(states, flags, n_act)
         new = out[0]
         improved = new.best_len < states.best_len
         new_since = torch.where(improved, torch.zeros_like(since), since + 1)

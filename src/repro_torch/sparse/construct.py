@@ -24,6 +24,12 @@ route, and the kernel route on CPU tensors, run it as a host loop
 (``host_walk``).  ``walk.fallbacks`` counts the (ant, step) pairs that
 took the page-fault fallback, as a device tensor (reset it to 0 to start a
 count).
+
+``construct_sparse_tours`` also builds over a stack of B instances (the
+reference's step under ``vmap``, in the batched engine): (B, 2) keys, a
+stacked problem and pages, per-slot ``n_actual`` as a (B,) int32 tensor.
+On the kernel route that is one ``sparse_walk`` launch for the whole
+stack; each instance's tours are bitwise its own construction.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from .. import tree
 from ..core import floatops, quant, sampling, strategies, tsp
 from ..core.strategies import TourResult
 from . import store
@@ -209,23 +216,55 @@ def host_walk(problem: SparseProblem, tau, ovf_city, ovf_tau, start,
     return torch.stack(steps), torch.stack(dsteps), fallbacks
 
 
+def host_walks(problem: SparseProblem, tau, ovf_city, ovf_tau, start,
+               visited, keys, selection: str, alpha: float, beta: float,
+               ewt: str, use_pallas: bool, draw_mode: str, n_actual=None,
+               active=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``host_walk`` from ``start`` with m = start's last dimension; over a
+    stacked problem (B, n, k) a loop over the active instances, each
+    operand with a leading B, ``n_actual`` B host ints (a sequence or a
+    (B,) tensor); an inactive instance's results are zero and its tabu
+    rows untouched."""
+    m = start.shape[-1]
+    if problem.cand.dim() == 2:
+        return host_walk(problem, tau, ovf_city, ovf_tau, start, visited,
+                         keys, m, selection, alpha, beta, ewt, use_pallas,
+                         draw_mode, None if n_actual is None
+                         else int(n_actual))
+    from ..kernels import _build
+    nb, steps, dev = start.shape[0], keys.shape[-2], start.device
+    cities = torch.zeros((nb, steps, m), dtype=torch.int32, device=dev)
+    dists = torch.zeros((nb, steps, m), dtype=torch.float32, device=dev)
+    fallbacks = torch.zeros((nb, m), dtype=torch.int32, device=dev)
+    acts = [True] * nb if active is None else list(active)
+    for b, n_act in enumerate(_build.slot_ints(n_actual, nb)):
+        if acts[b]:
+            out = host_walk(problem.slot(b, n_act), tree.index(tau, b),
+                            ovf_city[b], tree.index(ovf_tau, b), start[b],
+                            visited[b], keys[b], m, selection, alpha, beta,
+                            ewt, use_pallas, draw_mode, n_act)
+            cities[b], dists[b], fallbacks[b] = out
+    return cities, dists, fallbacks
+
+
 def walk(problem: SparseProblem, tau, ovf_city, ovf_tau, start, visited,
          keys, m: int, selection: str, alpha: float, beta: float, ewt: str,
-         use_pallas: bool, draw_mode: str, n_actual: Optional[int] = None
+         use_pallas: bool, draw_mode: str, n_actual=None, active=None
          ) -> tuple[torch.Tensor, torch.Tensor]:
     """The construction walk from ``start``, one step per key (see
     ``host_walk``): on the kernel route through ``kernels.ops.sparse_walk``
-    (one launch on CUDA tensors), on the pure route as a host loop.
-    Returns the emitted cities and edge lengths, (S, m) each."""
+    (one launch on CUDA tensors, a stack included), on the pure route as a
+    host loop.  Returns the emitted cities and edge lengths, (S, m) each
+    ((B, S, m) over a stack)."""
     if use_pallas:
         from ..kernels import ops as kops
         steps, dsteps, fallbacks = kops.sparse_walk(
             problem, tau, ovf_city, ovf_tau, start, visited, keys, selection,
-            alpha, beta, ewt, draw_mode, n_actual)
+            alpha, beta, ewt, draw_mode, n_actual, active)
     else:
-        steps, dsteps, fallbacks = host_walk(
-            problem, tau, ovf_city, ovf_tau, start, visited, keys, m,
-            selection, alpha, beta, ewt, False, draw_mode, n_actual)
+        steps, dsteps, fallbacks = host_walks(
+            problem, tau, ovf_city, ovf_tau, start, visited, keys, selection,
+            alpha, beta, ewt, False, draw_mode, n_actual, active)
     walk.fallbacks = walk.fallbacks + fallbacks.sum()
     return steps, dsteps
 
@@ -237,42 +276,59 @@ def construct_sparse_tours(key: torch.Tensor, problem: SparseProblem, tau,
                            ovf_city: torch.Tensor, ovf_tau, m: int,
                            selection: str, alpha: float, beta: float,
                            ewt: str, use_pallas: bool = False,
-                           draw_mode: str = "packed") -> TourResult:
+                           draw_mode: str = "packed", n_actual=None,
+                           active=None) -> TourResult:
     """Build m complete tours from candidate pages only.
 
     tau (n, k) candidate-edge pheromone (or its QuantTau); ovf_city /
     ovf_tau (n, O) adopted off-list pages.  ``ewt`` selects the lazy
     distances' rounding rule.  ``selection``: iroulette | gumbel | greedy.
+
+    Over a stack: ``key`` (B, 2), the problem and pages (B, n, ...),
+    ``n_actual`` the problem's counts as a (B,) int32 tensor on its device
+    (built from the host tuple when not given), ``active`` B host flags for
+    the kernel route's walk (None: all); tours (B, m, n) and lengths
+    (B, m), an inactive instance's rows unspecified.
     """
-    n = problem.n
-    n_act = problem.n_actual
+    if key.dim() == 1:
+        res = construct_sparse_tours(
+            key[None], problem.stacked(), tree.map(lambda x: x[None], tau),
+            ovf_city[None], tree.map(lambda x: x[None], ovf_tau), m,
+            selection, alpha, beta, ewt, use_pallas, draw_mode)
+        return TourResult(res.tours[0], res.lengths[0])
+    nb, n = problem.cand.shape[:2]
     dev = problem.cand.device
-    kp, kc = sampling.split(key)
-    start = strategies.place_ants(kp, m, n, n_act)
-    ants = torch.arange(m, device=dev)
-    visited = torch.zeros((m, n), dtype=torch.bool, device=dev)
-    visited[ants, start.long()] = True
-    keys = sampling.fold_in(kc, torch.arange(1, n, device=dev))
+    if n_actual is None:
+        from ..core import aco
+        n_actual = aco.slot_n_actual(problem, dev)
+    ks = sampling.split(key)
+    kp, kc = ks[:, 0], ks[:, 1]
+    start = strategies.place_ants(kp, m, n, n_actual)             # (B, m)
+    visited = torch.zeros((nb, m, n), dtype=torch.bool, device=dev)
+    visited.scatter_(2, start.long()[..., None], True)
+    keys = sampling.fold_in(kc, torch.arange(1, n, device=dev))   # (B, S, 2)
     steps, dsteps = walk(problem, tau, ovf_city, ovf_tau, start, visited,
                          keys, m, selection, float(alpha), float(beta), ewt,
-                         use_pallas, draw_mode, n_act)
-    tours = torch.cat([start[None, :], steps], dim=0).T.contiguous()
-    # (m, n) per-edge array, closing edge last: the dense _finish's array
+                         use_pallas, draw_mode,
+                         n_actual if use_pallas else problem.n_actual,
+                         active)
+    tours = torch.cat([start[:, None, :], steps], dim=1)
+    tours = tours.transpose(1, 2).contiguous()                    # (B, m, n)
+    # (m, n) per-edge arrays, closing edge last: the dense _finish's array
     # and sum order
-    edges = torch.cat([dsteps.T,
-                       torch.zeros((m, 1), dtype=torch.float32, device=dev)],
-                      dim=-1)
-    if n_act is not None:
+    edges = torch.cat([dsteps.transpose(1, 2),
+                       torch.zeros((nb, m, 1), dtype=torch.float32,
+                                   device=dev)], dim=-1)
+    if n_actual is not None:
         idx = torch.arange(n, device=dev)
-        d_close = store.pair_lookup(problem, tours[:, n_act - 1],
-                                    tours[:, 0], ewt)
-        edges = torch.where(idx[None, :] == n_act - 1, d_close[:, None],
-                            edges)
-        edges = torch.where(idx[None, :] < n_act, edges,
-                            torch.zeros_like(edges))
+        n_act = n_actual.long().reshape(nb, 1, 1)
+        last = tours.gather(2, (n_act - 1).expand(nb, m, 1))[..., 0]
+        d_close = store.pair_lookup(problem, last, tours[..., 0], ewt)
+        edges = torch.where(idx == n_act - 1, d_close[..., None], edges)
+        edges = torch.where(idx < n_act, edges, torch.zeros_like(edges))
     else:
-        edges[:, -1] = store.pair_lookup(problem, tours[:, -1], tours[:, 0],
-                                         ewt)
+        edges[..., -1] = store.pair_lookup(problem, tours[..., -1],
+                                           tours[..., 0], ewt)
     return TourResult(tours, tsp.edge_sum(edges))
 
 

@@ -27,6 +27,13 @@ edges, and at the scalar ``tau_def`` for every other edge.
   runs two row-parallel passes, the first update of every row and then
   the second, the same operations on the same values in the same order
   per row as the scan.
+
+Every function also takes a stack of B instances, the reference's update
+under ``vmap`` in the batched engine: (B, n, k) pages, (B, n, O) overflow
+pages, (B,) ``tau_def``, (B, m, n) tours with (B, m) weights and a (B,)
+``n_actual`` tensor.  Each instance's cells sit in their own plane of one
+flat scatter, and adoption runs over the B·n rows at once with phantom
+positions masked, so every instance is bitwise its own update.
 """
 from __future__ import annotations
 
@@ -34,42 +41,43 @@ from typing import Optional
 
 import torch
 
-from ..core import floatops
+from ..core import floatops, tsp
 from ..core import pheromone as dense_ph
-from .store import OVF_EMPTY
+from .store import OVF_EMPTY, flat_rows, take
 
 
 def _positions(cand: torch.Tensor, rows: torch.Tensor,
                targets: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """For each (row, target) pair: (found, position of target in
     cand[row]); position 0 when absent."""
-    eq = cand[rows.long()] == targets[..., None]
+    eq = take(cand, rows) == targets[..., None]
     return eq.any(-1), torch.argmax(eq.to(torch.uint8), dim=-1)
 
 
 def _page_stream(cand: torch.Tensor, rows: torch.Tensor,
                  targets: torch.Tensor, w: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Flat (n*k) page-cell index and value of each (row, target, w) in
-    stream order, the value 0 where the target is off the row's list;
-    and the found mask."""
+    """Flat page-cell index and value of each (row, target, w) in stream
+    order, the value 0 where the target is off the row's list; and the
+    found mask."""
     found, pos = _positions(cand, rows, targets)
-    return (rows.long() * cand.shape[1] + pos,
+    return (flat_rows(cand, rows) * cand.shape[-1] + pos,
             torch.where(found, w, torch.zeros_like(w)), found)
 
 
 def _scatter(base: torch.Tensor, idx: torch.Tensor,
              vals: torch.Tensor) -> torch.Tensor:
-    """A copy of ``base`` with the values added in stream order."""
-    return base.reshape(-1).clone().index_add_(0, idx, vals).view(
-        base.shape)
+    """A copy of ``base`` with the values added in stream order (over a
+    stack, each instance's stream in its own plane)."""
+    return base.reshape(-1).clone().index_add_(
+        0, idx.reshape(-1), vals.reshape(-1)).view(base.shape)
 
 
 def _streams(cand, tours, w, n_actual):
     """The forward (into row f) and reverse (into row t) deposit streams
-    of (m, n) tours with (m,) weights."""
+    of (m, n) tours with (m,) weights ((B, m*n) of a stack's)."""
     f, t = dense_ph.tour_edges(tours, n_actual)
-    fr, tr = f.reshape(-1), t.reshape(-1)
+    fr, tr = f.flatten(-2), t.flatten(-2)
     wrep = dense_ph.edge_weights(tours, w, n_actual)
     return _page_stream(cand, fr, tr, wrep), _page_stream(cand, tr, fr, wrep)
 
@@ -89,13 +97,17 @@ def deposit_sparse(cand: torch.Tensor, tours: torch.Tensor, w: torch.Tensor,
                         dense_ph.edge_weights(tours, w, n_actual)))
 
 
-def _one_dir(cand, oc, ot, rows, cities, we, tau_def):
+def _one_dir(cand, oc, ot, rows, local, cities, we, tau_def, real):
     """The reference's per-edge page update (match adds, a free slot adopts
     at tau_def + w, a full page evicts its weakest slot iff the newcomer
-    is stronger), for distinct ``rows`` at once; in place."""
+    is stronger), for distinct ``rows`` of the flattened pages at once (the
+    instance's own city ids ``local``; only where ``real``, None: every
+    row); in place."""
     page_c, page_t = oc[rows], ot[rows]                         # (P, O)
     onlist = (cand[rows] == cities[:, None]).any(-1)
-    want = (we > 0) & ~onlist & (cities != rows)
+    want = (we > 0) & ~onlist & (cities != local)
+    if real is not None:
+        want = want & real
     match = page_c == cities[:, None]
     free = page_c == OVF_EMPTY
     has_match, has_free = match.any(-1), free.any(-1)
@@ -115,40 +127,64 @@ def _one_dir(cand, oc, ot, rows, cities, we, tau_def):
 
 def adopt_offlist(cand: torch.Tensor, ovf_city: torch.Tensor,
                   ovf_tau: torch.Tensor, tour: torch.Tensor, w: torch.Tensor,
-                  tau_def: torch.Tensor, n_actual: Optional[int] = None
+                  tau_def: torch.Tensor, n_actual=None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Give each off-list edge of one deposit tour (n,) with scalar weight
     ``w`` a bounded overflow slot on both endpoint rows (the reference's
     rules, in two row-parallel passes; see the module docstring).  Needs
-    a valid tour over the real cities."""
-    n_real = tour.shape[0] if n_actual is None else int(n_actual)
-    real = tour[:n_real].long()
-    pred = torch.roll(real, 1)                 # pred[0] = the closing edge's
-    succ = torch.roll(real, -1)                # succ[-1] = real[0]
-    first = torch.cat([succ[:1], pred[1:]])    # row real[0]: successor first
-    second = torch.cat([pred[:1], succ[1:]])
-    we = w.reshape(()).expand(n_real)
-    oc, ot = ovf_city.clone(), ovf_tau.clone()
+    a valid tour over the real cities.  Over a stack: ``tour`` (B, n),
+    ``w`` and ``tau_def`` (B,), ``n_actual`` a (B,) tensor, one tour per
+    instance in one pass over the B·n rows."""
+    if tour.dim() == 1:
+        oc, ot = adopt_offlist(
+            cand[None], ovf_city[None], ovf_tau[None], tour[None],
+            w.reshape(1), tau_def.reshape(1),
+            None if n_actual is None else torch.tensor(
+                [int(n_actual)], device=tour.device))
+        return oc[0], ot[0]
+    nb, n = tour.shape
+    o = ovf_city.shape[-1]
+    local = tour.long()
+    # within the real prefix: pred[0] = the closing edge's, succ[-1] =
+    # real[0]; phantom positions take no update
+    if n_actual is None:
+        pred, succ, real = local.roll(1, -1), local.roll(-1, -1), None
+    else:
+        idx = torch.arange(n, device=tour.device)
+        n_real = n_actual.long().reshape(nb, 1)
+        pred = local.gather(-1, torch.where(idx == 0, n_real - 1, idx - 1))
+        succ = local.gather(-1, torch.where(idx >= n_real - 1, 0, idx + 1))
+        real = (idx < n_real).reshape(-1)
+    # row real[0]: successor first
+    first = torch.cat([succ[:, :1], pred[:, 1:]], -1)
+    second = torch.cat([pred[:, :1], succ[:, 1:]], -1)
+    rows = flat_rows(cand, local).reshape(-1)
+    we = w.reshape(nb, 1).expand(nb, n).reshape(-1)
+    tdef = tau_def.reshape(nb, 1).expand(nb, n).reshape(-1)
+    oc = ovf_city.reshape(nb * n, o).clone()
+    ot = ovf_tau.reshape(nb * n, o).clone()
+    flat = cand.reshape(nb * n, -1)
     for cities in (first, second):
-        _one_dir(cand, oc, ot, real, cities, we, tau_def)
-    return oc, ot
+        _one_dir(flat, oc, ot, rows, local.reshape(-1), cities.reshape(-1),
+                 we, tdef, real)
+    return oc.view(ovf_city.shape), ot.view(ovf_tau.shape)
 
 
 def update_sparse(tau: torch.Tensor, tau_def: torch.Tensor,
                   ovf_city: torch.Tensor, ovf_tau: torch.Tensor,
                   cand: torch.Tensor, tours: torch.Tensor, w: torch.Tensor,
-                  rho: float, adopt: bool, n_actual: Optional[int] = None
+                  rho: float, adopt: bool, n_actual=None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """Full sparse pheromone update: evaporation + deposit (+ adoption over
     every deposit tour, 1 for MMAS/ACS, when ``adopt`` and overflow slots
-    exist)."""
+    exist).  Over a stack as the module docstring says."""
     (fi, fv, _), (ri, rv, _) = _streams(cand, tours, w, n_actual)
-    if 2 * tours.shape[0] < cand.shape[1]:
+    if 2 * tours.shape[-2] < cand.shape[-1]:
         # fewer deposits than page cells: XLA scatters them onto the
         # evaporated trail, forward stream first
-        tau = _scatter(dense_ph.evaporate(tau, rho), torch.cat([fi, ri]),
-                       torch.cat([fv, rv]))
+        tau = _scatter(dense_ph.evaporate(tau, rho), torch.cat([fi, ri], -1),
+                       torch.cat([fv, rv], -1))
     else:
         zeros = torch.zeros_like(tau)
         dep = _scatter(zeros, fi, fv) + _scatter(zeros, ri, rv)
@@ -156,17 +192,17 @@ def update_sparse(tau: torch.Tensor, tau_def: torch.Tensor,
     tau_def = dense_ph.evaporate(tau_def, rho)
     ovf_tau = dense_ph.evaporate(ovf_tau, rho)
     if adopt and ovf_city.shape[-1] > 0:
-        for tour, we in zip(tours, w):
-            ovf_city, ovf_tau = adopt_offlist(cand, ovf_city, ovf_tau, tour,
-                                              we, tau_def, n_actual)
+        for j in range(tours.shape[-2]):
+            ovf_city, ovf_tau = adopt_offlist(cand, ovf_city, ovf_tau,
+                                              tours[..., j, :], w[..., j],
+                                              tau_def, n_actual)
     return tau, tau_def, ovf_city, ovf_tau
 
 
 def local_update_acs_sparse(tau: torch.Tensor, tau_def: torch.Tensor,
                             ovf_tau: torch.Tensor, cand: torch.Tensor,
                             tours: torch.Tensor, xi: float,
-                            tau0: torch.Tensor,
-                            n_actual: Optional[int] = None
+                            tau0: torch.Tensor, n_actual=None
                             ) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """ACS local rule on candidate edges: per-edge crossing counts, then
@@ -174,17 +210,20 @@ def local_update_acs_sparse(tau: torch.Tensor, tau_def: torch.Tensor,
     crossings are dropped; overflow pages keep their trail.  The first
     product is fused into the sum, as in the reference's compiled step
     over a float32 store (over a quantised one XLA's choice of product
-    varies with the page width: ROADMAP queue 3)."""
+    varies with the page width: ROADMAP queue 3).  A stack takes a (B,)
+    ``tau0``."""
     f, t = dense_ph.tour_edges(tours, n_actual)
     ew = torch.ones(f.shape, dtype=tau.dtype, device=tau.device)
     if n_actual is not None:
         idx = torch.arange(f.shape[-1], device=tau.device)
-        ew = torch.where(idx[None, :] < n_actual, ew, torch.zeros_like(ew))
-    fr, tr, ew = f.reshape(-1), t.reshape(-1), ew.reshape(-1)
+        ew = torch.where(idx < tsp.per_slot(n_actual, f.dim()), ew,
+                         torch.zeros_like(ew))
+    fr, tr, ew = f.flatten(-2), t.flatten(-2), ew.flatten(-2)
     fi, fv, _ = _page_stream(cand, fr, tr, ew)
     ri, rv, _ = _page_stream(cand, tr, fr, ew)
-    counts = _scatter(torch.zeros_like(tau), torch.cat([fi, ri]),
-                      torch.cat([fv, rv]))
+    counts = _scatter(torch.zeros_like(tau), torch.cat([fi, ri], -1),
+                      torch.cat([fv, rv], -1))
     factor = torch.pow(floatops.const(1.0 - xi, tau), counts)
-    tau = torch.addcmul((1.0 - factor) * tau0, factor, tau)
+    tau = torch.addcmul((1.0 - factor) * tsp.per_slot(tau0, tau.dim()),
+                        factor, tau)
     return tau, tau_def, ovf_tau

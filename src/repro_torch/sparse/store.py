@@ -45,7 +45,9 @@ class SparseProblem(NamedTuple):
     ``n_actual`` follows the port's ``Problem``: None for ordinary
     instances, the host int count of real cities for a padded one (phantom
     cities never appear in a candidate list).  The TSPLIB rounding rule
-    (edge_weight_type) travels beside the problem as a string.
+    (edge_weight_type) travels beside the problem as a string.  A bucket's
+    stack (``solver.batch.make_sparse_batch``) holds (B, n, ...) tensors
+    and a host tuple of B ``n_actual`` counts.
     """
     coords: torch.Tensor     # (n, 2) float32
     cand: torch.Tensor       # (n, k) int32 candidate ids (self = sentinel)
@@ -60,6 +62,18 @@ class SparseProblem(NamedTuple):
     @property
     def k(self) -> int:
         return int(self.cand.shape[-1])
+
+    def stacked(self) -> "SparseProblem":
+        """This one instance as a stack of one: (1, n, ...) views and a
+        1-tuple ``n_actual``."""
+        return SparseProblem(*(t[None] for t in self[:4]),
+                             n_actual=None if self.n_actual is None
+                             else (int(self.n_actual),))
+
+    def slot(self, b: int, n_actual: Optional[int] = None) -> "SparseProblem":
+        """Instance ``b`` of a stack: its tensors' [b] (views) and the
+        given host ``n_actual``."""
+        return SparseProblem(*(t[b] for t in self[:4]), n_actual=n_actual)
 
 
 TauLike = Union[torch.Tensor, quant.QuantTau]
@@ -163,29 +177,51 @@ def _round_ewt(diff: torch.Tensor, ewt: str) -> torch.Tensor:
     raise ValueError(f"unsupported edge_weight_type {ewt}")
 
 
+def flat_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row numbers ``idx`` of a per-city tensor as rows of it flattened
+    over its leading axes: (n, c) and a one-instance stack as they are; a
+    (B, n, c) stack's (B, ...) ``idx`` shifted into each instance's own
+    plane."""
+    idx = idx.long()
+    if t.dim() == 2 or t.shape[0] == 1:
+        return idx
+    nb, n = t.shape[:2]
+    return idx + torch.arange(nb, device=idx.device).reshape(
+        (nb,) + (1,) * (idx.dim() - 1)) * n
+
+
+def take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of a per-city tensor: (n, c) indexed by any ``idx``;
+    a (B, n, c) stack by a (B, ...) ``idx``, each instance's rows from its
+    own plane."""
+    return t.reshape((-1,) + tuple(t.shape[-1:]))[flat_rows(t, idx)]
+
+
 def lazy_rows(coords: torch.Tensor, cur: torch.Tensor,
               ewt: str) -> torch.Tensor:
     """(m, n) float32 distances from cities ``cur`` to every city, from
-    coordinates: the page-fault path for fallback steps."""
-    diff = coords[cur.long()][:, None, :] - coords[None, :, :]
+    coordinates: the page-fault path for fallback steps ((B, m, n) over a
+    (B, n, 2) stack)."""
+    diff = take(coords, cur)[..., :, None, :] - coords.unsqueeze(-3)
     return _round_ewt(diff, ewt)
 
 
 def lazy_pair(coords: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
               ewt: str) -> torch.Tensor:
-    """Elementwise float32 distances between city tensors of equal shape."""
-    return _round_ewt(coords[a.long()] - coords[b.long()], ewt)
+    """Elementwise float32 distances between city tensors of equal shape
+    (of each instance's cities over a (B, n, 2) stack)."""
+    return _round_ewt(take(coords, a) - take(coords, b), ewt)
 
 
 def pair_lookup(problem: SparseProblem, a: torch.Tensor, b: torch.Tensor,
                 ewt: str) -> torch.Tensor:
     """Distance of arbitrary city pairs: a candidate-page hit gives the
-    stored (dense-bitwise) value, a miss the lazy recompute."""
-    a_l = a.long()
-    eq = problem.cand[a_l] == b[..., None]       # (..., k)
+    stored (dense-bitwise) value, a miss the lazy recompute.  Over a
+    stacked problem ``a`` and ``b`` are (B, ...), instance by instance."""
+    eq = take(problem.cand, a) == b[..., None]   # (..., k)
     found = eq.any(-1)
     pos = torch.argmax(eq.to(torch.uint8), dim=-1)
-    on = torch.gather(problem.cand_dist[a_l], -1, pos[..., None])[..., 0]
+    on = torch.gather(take(problem.cand_dist, a), -1, pos[..., None])[..., 0]
     return torch.where(found, on, lazy_pair(problem.coords, a, b, ewt))
 
 

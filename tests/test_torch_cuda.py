@@ -16,8 +16,9 @@ update (the colony step's) bitwise for any number of ants, and the same
 from launch to launch; the dense and the sparse walk kernels bitwise
 against their plain walks on the card (and, for iroulette and greedy, on
 the CPU); one launch over a stack of instances (the dense walk and the
-update) bitwise single launches and the plain versions, and the batched
-engine one walk and one update launch per engine iteration.
+update, the sparse walk) bitwise single launches and the plain versions,
+and the batched engine one walk and one update launch per engine
+iteration, dense and sparse.
 """
 import numpy as np
 import pytest
@@ -513,6 +514,75 @@ def test_batched_engine_launches_once_per_engine_iteration(kw):
     assert ops.slot_launch_counts()[walk] == sum(its)
     assert ops.slot_launch_counts()["pheromone_update_tours"] == sum(its)
     want, _ = engine.solve_instances(insts, cfg, iterations=its, n_pad=64,
+                                     device="cpu")
+    for a, b in zip(tree.flatten(got), tree.flatten(want)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau_dtype", ["fp32", "int8", "bf16"])
+def test_batched_sparse_walk_kernel_bitwise_single_launches(tau_dtype):
+    """One sparse_walk launch over a stack of four instances in a bucket of
+    304 (mixed n_actual, the second one inactive) is bitwise four single
+    launches and the plain walks on the card (cities, lengths, fallback
+    counts, tabu rows), in all three modes and both draws; the inactive
+    instance costs no walk and its rows stay as they were."""
+    from repro_torch import tree
+    dev = cuda_device()
+    operands = ss.stack_walk_operands((304, 271, 233, 290), 304, 32, 8, 4,
+                                      tau_dtype, dev, seed=5)
+    problem, tau, ovf_city, ovf_tau, start, visited, keys = operands
+    na_dev = torch.tensor(problem.n_actual, dtype=torch.int32, device=dev)
+    active = (True, False, True, True)
+    for mode in MODES:
+        for draw in ("packed", "counter"):
+            vis_k, vis_p = visited.clone(), visited.clone()
+            ops.reset_launch_counts()
+            got = ops.sparse_walk(problem, tau, ovf_city, ovf_tau, start,
+                                  vis_k, keys, mode, 1.0, 2.0, "EUC_2D", draw,
+                                  na_dev, active)
+            assert ops.launch_counts()["sparse_walk"] == 1
+            assert ops.slot_launch_counts()["sparse_walk"] == 3
+            assert not got[0][1].any() and torch.equal(vis_k[1], visited[1])
+            want = ss.sparse_walk_plain(problem, tau, ovf_city, ovf_tau,
+                                        start, vis_p, keys, mode, 1.0, 2.0,
+                                        "EUC_2D", draw, na_dev, active)
+            for g, w, what in zip(got, want, ("cities", "lengths",
+                                              "fallbacks")):
+                assert torch.equal(g, w), (mode, draw, what)
+            assert torch.equal(vis_k, vis_p), (mode, draw)
+            assert int(got[2].sum()) > 0
+            for b in (0, 2, 3):
+                vis_1 = visited[b].clone()
+                one = ops.sparse_walk(
+                    problem.slot(b, problem.n_actual[b]), tree.index(tau, b),
+                    ovf_city[b], tree.index(ovf_tau, b), start[b], vis_1,
+                    keys[b], mode, 1.0, 2.0, "EUC_2D", draw,
+                    problem.n_actual[b])
+                for g, w in zip(got, one):
+                    assert torch.equal(g[b], w), (mode, draw, b)
+                assert torch.equal(vis_k[b], vis_1), (mode, draw, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(variant="mmas", metrics=True),
+                                dict(variant="acs", tau_dtype="int8")])
+def test_batched_sparse_engine_walks_once_per_engine_iteration(kw):
+    """run_batch(kind="sparse") on the kernel route: one sparse_walk launch
+    per engine iteration, slot-launches equal to the slot-iterations, the
+    stack bitwise the CPU's (one deposit tour: no atomic sums)."""
+    from repro_torch import tree
+    from repro_torch.solver import engine
+    dev = cuda_device()
+    insts = [tsp.random_instance(n, seed=n) for n in (120, 97, 128)]
+    cfg = aco.ACOConfig(sparse=True, sparse_k=6, m=16, use_pallas=True,
+                        iterations=5, rho=0.1, **kw)
+    its = [5, 3, 4]
+    ops.reset_launch_counts()
+    got, _ = engine.solve_instances(insts, cfg, iterations=its, device=dev)
+    assert ops.launch_counts()["sparse_walk"] == 5
+    assert ops.slot_launch_counts()["sparse_walk"] == sum(its)
+    want, _ = engine.solve_instances(insts, cfg, iterations=its,
                                      device="cpu")
     for a, b in zip(tree.flatten(got), tree.flatten(want)):
         assert torch.equal(a.cpu(), b)

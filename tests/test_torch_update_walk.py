@@ -295,6 +295,7 @@ def test_new_launchers_refuse_cpu_tensors_and_bad_inputs():
             (dict(ewt="GEO"), ValueError, "edge_weight_type"),
             (dict(visited=C(visited.to(torch.uint8))), TypeError, "bool"),
             (dict(keys=C(keys[:, :1].contiguous())), ValueError, "shape"),
+            (dict(keys=C(torch.cat([keys, keys[:1]]))), ValueError, "steps"),
             (dict(start=C(start.long())), TypeError, "int32"),
             (dict(tau=quant.QuantTau(C(tq.q), C(tq.scale[:5]), C(tq.err))),
              ValueError, "shape"),

@@ -46,6 +46,11 @@ non-zero:
    (the one-step kernel over the plain draw, once a step) and the plain
    walk, with its bound: bytes, float32 work and the threefry hashes'
    integer work at the INT32 rate derived from the card's clock;
+   K3 and K4 over a stack at bucket 1024, B = 4 (n_actual 1024, 613,
+   1002, 801, slot 1 inactive) bitwise their single launches and plain
+   versions, and K5 over a B = 4 local-search round's folded (4096, 30720)
+   rows bitwise one launch per slot; each stack's device time beside four
+   single launches;
 4. small   -- the one-rounding multiply-add (``torch.addcmul``) and the
    per-step draw on the card against the CPU, bitwise; small colonies on
    the card's kernel route (plain MMAS and AS, MMAS + 2-opt/Or-opt, MMAS
@@ -86,8 +91,9 @@ non-zero:
    and the plain walks, one update launch (m = 1024 and 1) bitwise single
    launches and the plain updates, the stack's walk timed beside four
    single launches; MMAS +
-   2-opt over an int8 store (two slots, two iterations; ``two_opt_best``
-   once per local-search round reported); sparse MMAS (k = 16 + 4,
+   2-opt over an int8 store (two slots, two iterations: one walk launch
+   per engine iteration, ``two_opt_best`` once per round of the stack);
+   sparse MMAS (k = 16 + 4,
    m = 64) on n = 1500 and 2000 in bucket 2048, 10 iterations, batched ==
    solo, 10 ``sparse_walk`` launches serving 20 slot-iterations; the
    sparse walk's instance axis at bucket 2048, B = 4 (n = 2048, 1500,
@@ -95,7 +101,17 @@ non-zero:
    bitwise four single launches in fp32/int8/bf16 x three modes x packed
    and counter draws (whole walks), and the plain walks (each walk's last
    50 steps over the same grid, and one padded slot's whole walk), timed
-   beside four single launches; sparse AS in the same bucket (one
+   beside four single launches; AS on ``construction="pallas"`` over the
+   bucket of 1024 (two iterations: one ``choice_info`` launch and 1023
+   ``tour_select`` launches per engine iteration, every slot bitwise its
+   solo run); MMAS + 2-opt fp32 with ``ls_every=2`` over the four slots
+   started at iterations 0-3 (one ``two_opt_best`` launch per round of the
+   stack, every slot bitwise its solo run from the same state) and the
+   peak memory of one 2-opt and one Or-opt round over the stack and over
+   one slot; one MMAS + 2-opt (profiled) and one AS ``pallas`` engine
+   iteration at B = 4 beside four solo ones (wall, local-search share,
+   peak memory, busy, idle share);
+   sparse AS in the same bucket (one
    iteration: a solo run repeated, and batched against solo, tau at rtol
    1e-5 / atol 1e-7 where the card's atomic deposit sums differ); small
    buckets (n <= 64) card == CPU
@@ -129,8 +145,10 @@ non-zero:
    cli       -- the serving CLI, ``python -m repro_torch.launch.solve_serve``
    in subprocesses on the card: a dense MMAS drain (``--use-pallas
    --metrics``, six requests of 500-1002 cities, buckets 512 / 1024, m =
-   the bucket, six iterations, ``--max-batch 4``), the same requests
-   streamed (``--stream --arrival-rate 20 --chunk 2``), and sparse MMAS
+   the bucket, six iterations, ``--max-batch 4``), the same drain with
+   ``--local-search 2opt`` (one ``two_opt_best`` launch per round of each
+   job's stack), the same requests streamed (``--stream --arrival-rate
+   20 --chunk 2``), and sparse MMAS
    drains (``--sparse --ants 64 --sparse-k 16 --sparse-overflow 4``, six
    requests of 1500-2392 cities, buckets 2048 / 4096, ten iterations) over
    fp32 and int8 pages: each exits 0 with every request completed, its
@@ -669,6 +687,114 @@ def phase_kernels(results: dict) -> None:
     d_ms, d_wall = both(draw, 5)
     log(f"[kernels] per-step draw U(1e-6, 1) at (1002, 1002), plain: device "
         f"{d_ms * 1e3:.1f} us, per call {d_wall * 1e3:.1f} us")
+    _stacked_selection_kernels()
+
+
+# K3 and K4 over a stack: the [batched] bucket (m = 1024 ants a slot), its
+# slot 1 inactive in the checks; every slot active in the timings.
+STACK_NS, STACK_PAD = (1024, 613, 1002, 801), 1024
+STACK_ACTIVE = (True, False, True, True)
+
+
+def _stacked_selection_kernels() -> None:
+    """The instance axis of K3 and K4 at bucket 1024, B = 4 (n_actual
+    1024, 613, 1002, 801, slot 1 inactive): one launch over the stack
+    bitwise its single launches and the plain version; K5 at a B = 4
+    local-search round's folded (B m, M) shape bitwise one launch per slot
+    and the plain reduction.  Then each stack's device time (every slot
+    active) beside four single launches."""
+    import torch
+    from repro_torch.core import aco, localsearch, tsp
+    from repro_torch.kernels import (choice_info as ci, tour_select as ts,
+                                     two_opt as topt)
+    from repro_torch.solver import batch
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    nb, pad, act, ns = len(STACK_NS), STACK_PAD, STACK_ACTIVE, STACK_NS
+    bt = batch.make_batch([tsp.random_instance(n, seed=n) for n in ns], pad,
+                          30, device=dev)
+    eta, na = bt.problem.eta, aco.slot_n_actual(bt.problem, dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    tau = torch.rand((nb, pad, pad), generator=gen, device=dev) * 1e-3 + 1e-4
+    for alpha, beta in ((1.0, 2.0), (2.0, 3.0)):
+        got = ci.choice_info(tau, eta, alpha, beta, na, act)
+        want = ci.choice_info_plain(tau, eta, alpha, beta, na, act)
+        for i in range(nb):
+            if act[i] and not (torch.equal(got[i], want[i]) and torch.equal(
+                    got[i], ci.choice_info(tau[i], eta[i], alpha, beta,
+                                           ns[i]))):
+                raise AssertionError(f"choice_info stack slot {i} != its "
+                                     f"single launch / plain (a={alpha})")
+    m = pad
+    choice = ci.choice_info_plain(tau, eta, 1.0, 2.0, na)
+    cur = torch.stack([torch.randint(0, n, (m,), generator=gen, device=dev,
+                                     dtype=torch.int32) for n in ns])
+    rows = choice[torch.arange(nb, device=dev)[:, None], cur.long()]
+    visited = torch.rand((nb, m, pad), generator=gen, device=dev) < 0.5
+    rand = torch.rand((nb, m, pad), generator=gen, device=dev) \
+        * (1 - 1e-6) + 1e-6
+    for mode in MODES:
+        got = ts.tour_select(rows, visited, rand, mode, na, act)
+        want = ts.tour_select_plain(rows, visited, rand, mode, na, act)
+        if not torch.equal(got, want):
+            raise AssertionError(f"tour_select stack != plain ({mode})")
+        for i in range(nb):
+            if act[i] and not torch.equal(got[i], ts.tour_select(
+                    rows[i], visited[i], rand[i], mode, ns[i])):
+                raise AssertionError(f"tour_select stack slot {i} != its "
+                                     f"single launch ({mode})")
+    # K5: one round's operands over real tours (phantom tails in order)
+    tours = torch.stack([torch.stack([torch.cat([
+        torch.randperm(n, generator=gen, device=dev),
+        torch.arange(n, pad, device=dev)]) for _ in range(m)])
+        for n in ns]).to(torch.int32)
+    operands = localsearch._two_opt_operands(bt.problem.dist, bt.problem.nn,
+                                             tours, na)
+    flat = [x.reshape(nb * m, -1) for x in operands[:5]]
+    del operands
+    per_slot = [[x[i * m:(i + 1) * m] for x in flat] for i in range(nb)]
+    for mode in ("best", "first"):
+        got = topt.two_opt_best(*flat, thr=1e-3, mode=mode)
+        want = topt.two_opt_best_plain(*flat, thr=1e-3, mode=mode)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            raise AssertionError(f"two_opt_best fold != plain ({mode})")
+        for i in range(nb):
+            one = topt.two_opt_best(*per_slot[i], thr=1e-3, mode=mode)
+            if not (torch.equal(got[0][i * m:(i + 1) * m], one[0])
+                    and torch.equal(got[1][i * m:(i + 1) * m], one[1])):
+                raise AssertionError(f"two_opt_best fold slot {i} != its "
+                                     f"single launch ({mode})")
+    check_s = time.perf_counter() - t0
+    timed = {
+        "choice_info": (
+            lambda: ci.choice_info(tau, eta, 1.0, 2.0, na),
+            lambda: [ci.choice_info(tau[i], eta[i], 1.0, 2.0, ns[i])
+                     for i in range(nb)]),
+        "tour_select": (
+            lambda: ts.tour_select(rows, visited, rand, "iroulette", na),
+            lambda: [ts.tour_select(rows[i], visited[i], rand[i],
+                                    "iroulette", ns[i]) for i in range(nb)]),
+        "two_opt_best": (
+            lambda: topt.two_opt_best(*flat, thr=1e-3, mode="best"),
+            lambda: [topt.two_opt_best(*per_slot[i], thr=1e-3, mode="best")
+                     for i in range(nb)]),
+    }
+    for name, (stack_fn, singles_fn) in timed.items():
+        st_dev, si_dev = device_ms(stack_fn), device_ms(singles_fn)
+        st_call, si_call = cuda_ms(stack_fn), cuda_ms(singles_fn)
+        log(f"[kernels] {name} stack B={nb} at bucket {pad} (m={m}"
+            + (f", M={flat[0].shape[1]}" if name == "two_opt_best" else "")
+            + f"): device {st_dev * 1e3:.2f} us vs {si_dev * 1e3:.2f} us for "
+            f"{nb} single launches (ratio {st_dev / si_dev:.3f}); per call "
+            f"{st_call * 1e3:.1f} us vs {si_call * 1e3:.1f} us (ratio "
+            f"{st_call / si_call:.3f})")
+    log(f"[kernels] stacks at bucket {pad}, n_actual={list(ns)}, slot 1 "
+        f"inactive: choice_info (a/b 1/2, 2/3) and tour_select "
+        f"({'/'.join(MODES)}) bitwise single launches and plain; "
+        f"two_opt_best over the folded ({nb * m}, {flat[0].shape[1]}) rows "
+        f"bitwise one launch per slot and plain, best and first "
+        f"({check_s:.1f} s)")
 
 
 def _dense_walk_operands(n, n_act, dtype, seed, window=None):
@@ -1833,14 +1959,237 @@ def _batched_sparse_profile() -> None:
             f"{name[:90]}")
 
 
+def _batched_pallas(launches: dict) -> None:
+    """AS on ``construction="pallas"`` over the [batched] bucket (n = 613,
+    801, 1002, 1024 in bucket 1024, two iterations): one ``choice_info``
+    launch and 1023 ``tour_select`` launches per engine iteration for the
+    whole stack, every slot bitwise its solo run."""
+    from repro_torch import tree
+    from repro_torch.core import aco, tsp
+    from repro_torch.solver import engine
+    insts = [tsp.random_instance(n, seed=n) for n in BATCH_NS]
+    cfg = aco.ACOConfig(variant="as", use_pallas=True, construction="pallas",
+                        iterations=2)
+    states, _, counts, secs = _counted_batch(
+        insts, cfg, seeds=BATCH_SEEDS, n_pad=BATCH_PAD)
+    steps = max(BATCH_NS) - 1
+    _check_counts("batched as pallas", counts,
+                  {"choice_info": 2, "tour_select": 2 * steps,
+                   "pheromone_update_tours": 2})
+    for k in ("choice_info", "tour_select", "pheromone_update_tours"):
+        launches[k] = launches.get(k, 0) + counts[k]
+    t0 = time.perf_counter()
+    for i, inst in enumerate(insts):
+        solo, _ = engine.solve_instances([inst], cfg, seeds=[BATCH_SEEDS[i]],
+                                         n_pad=BATCH_PAD, device=DEV)
+        if not _leaves_equal(tree.index(states, i), tree.index(solo, 0)):
+            raise AssertionError(f"batched as pallas slot {i} (n={inst.n}) "
+                                 "!= its solo run")
+    solo_s = time.perf_counter() - t0
+    ratios = _check_padded_tours("batched as pallas", states, insts, 1.3)
+    log(f"[batched] AS construction=pallas, bucket {BATCH_PAD}, "
+        f"n={list(BATCH_NS)}, x2: {secs:.2f} s incl. set-up (the four solo "
+        f"runs {solo_s:.2f} s); every slot bitwise its solo run; "
+        f"choice_info={counts['choice_info']}, tour_select="
+        f"{counts['tour_select']} (= 2 x {steps}), pheromone_update_tours="
+        f"{counts['pheromone_update_tours']}; best / NN tour "
+        + " ".join(f"{r:.3f}" for r in ratios))
+
+
+# MMAS + 2-opt over the [batched] bucket with ls_every = 2: the slots start
+# at different iterations (a refilled streaming pool's), so the gate opens
+# for different slots at each engine iteration.
+LS_START, LS_BUDGETS = (0, 1, 2, 3), (3, 4, 5, 6)
+
+
+def _batched_local_search(launches: dict) -> None:
+    """MMAS + 2-opt (fp32, ``ls_every=2``) over four slots of bucket 1024
+    whose counters start at 0, 1, 2, 3: one walk launch per engine
+    iteration, one ``two_opt_best`` launch per round of the stack, every
+    slot bitwise its solo run from the same state; then the peak memory of
+    one 2-opt and one Or-opt round over the stack against
+    ``BYTES_PER_MOVE``."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import aco, localsearch, tsp
+    from repro_torch.kernels import ops
+    from repro_torch.solver import batch, engine
+    insts = [tsp.random_instance(n, seed=n) for n in BATCH_NS]
+    cfg = aco.ACOConfig(variant="mmas", use_pallas=True, local_search="2opt",
+                        ls_every=2)
+    b = batch.make_batch(insts, BATCH_PAD, cfg.nn_k, device=DEV)
+    init = engine.init_states(insts, cfg, list(BATCH_SEEDS), BATCH_PAD,
+                              device=DEV)
+    init = init._replace(iteration=torch.tensor(LS_START, dtype=torch.int32,
+                                                device=DEV))
+    its = max(e - s for s, e in zip(LS_START, LS_BUDGETS))
+    _sync()
+    ops.reset_launch_counts()
+    localsearch.improve.rounds = 0
+    t0 = time.perf_counter()
+    states = engine.run_batch(b.problem, init, list(LS_BUDGETS), cfg, its)[0]
+    _sync()
+    secs = time.perf_counter() - t0
+    counts, rounds = ops.launch_counts(), localsearch.improve.rounds
+    if rounds == 0:
+        raise AssertionError("batched mmas+2opt: no local-search round")
+    _check_counts("batched mmas+2opt ls_every=2", counts,
+                  {"fused_walk": its, "pheromone_update_tours": its,
+                   "two_opt_best": rounds})
+    for k in ("fused_walk", "pheromone_update_tours", "two_opt_best"):
+        launches[k] = launches.get(k, 0) + counts[k]
+    solo_rounds = 0
+    for i in range(len(insts)):
+        localsearch.improve.rounds = 0
+        one = aco.Problem(b.problem.dist[i:i + 1], b.problem.eta[i:i + 1],
+                          b.problem.nn[i:i + 1], (b.problem.n_actual[i],))
+        solo = engine.run_batch(one, tree.map(lambda x: x[i:i + 1], init),
+                                [LS_BUDGETS[i]], cfg, its)[0]
+        solo_rounds += localsearch.improve.rounds
+        if not _leaves_equal(tree.index(states, i), tree.index(solo, 0)):
+            raise AssertionError(f"batched mmas+2opt ls_every=2 slot {i} "
+                                 "!= its solo run")
+    if states.iteration.tolist() != list(LS_BUDGETS):
+        raise AssertionError("batched mmas+2opt: iterations "
+                             f"{states.iteration.tolist()}")
+    # the peak of one 2-opt and one Or-opt round over the stack, beside
+    # one slot's, in bytes a move
+    m, n, k = BATCH_PAD, BATCH_PAD, b.problem.nn.shape[-1]
+    tours = states.best_tour[:, None, :].expand(-1, m, -1).contiguous()
+    ls_cfg = aco.ls_config(cfg)
+    na = aco.slot_n_actual(b.problem, torch.device(DEV))
+    peaks = {}
+    for kind, round_fn in (("2opt", localsearch.two_opt_round),
+                           ("oropt", localsearch.or_opt_round)):
+        for group in (slice(0, len(insts)), slice(0, 1)):
+            _sync()
+            base = torch.cuda.memory_allocated() if DEV == "cuda" else 0
+            if DEV == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            round_fn(b.problem.dist[group], b.problem.nn[group],
+                     tours[group], ls_cfg, na[group])
+            _sync()
+            peak = torch.cuda.max_memory_allocated() - base \
+                if DEV == "cuda" else 0
+            peaks.setdefault(kind, []).append(
+                peak / (tours[group].shape[0] * m * n * k))
+        if peaks[kind][0] > localsearch.BYTES_PER_MOVE:
+            raise AssertionError(f"a {kind} round over the stack peaks at "
+                                 f"{peaks[kind][0]:.1f} bytes a move, above "
+                                 f"localsearch.BYTES_PER_MOVE")
+    log(f"[batched] MMAS + 2-opt fp32 ls_every=2, bucket {BATCH_PAD}, "
+        f"n={list(BATCH_NS)} from iterations {list(LS_START)} to "
+        f"{list(LS_BUDGETS)}: {secs:.2f} s; every slot bitwise its solo run; "
+        f"fused_walk={counts['fused_walk']} = engine iterations, "
+        f"two_opt_best={counts['two_opt_best']} = the stack's rounds "
+        f"(the four solo runs: {solo_rounds} rounds) | peak of one round: "
+        + "; ".join(f"{kind} stack of {len(insts)} "
+                    f"{p[0] * len(insts) * m * n * k / 2**30:.2f} GiB "
+                    f"({p[0]:.1f} bytes a move), one slot "
+                    f"{p[1] * m * n * k / 2**30:.2f} GiB ({p[1]:.1f})"
+                    for kind, p in peaks.items())
+        + f"; localsearch.BYTES_PER_MOVE {localsearch.BYTES_PER_MOVE}")
+
+
+def _batched_iteration_profile(label: str, cfg, turns: int,
+                               profiled: bool = True) -> None:
+    """The first engine iteration of ``cfg`` at B = 4 (bucket 1024, every
+    slot active, the kernels warm from the phases before) beside four solo
+    engine iterations, in turns (best of ``turns``): wall time, the local
+    search's share of it (host clock around each synchronised
+    local-search pass), the peak memory above the resident state; then,
+    when ``profiled``, a ``torch.profiler`` pass of the stack's iteration:
+    device busy time, idle share and the busiest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import localsearch, tsp
+    from repro_torch.solver import batch, engine
+    insts = [tsp.random_instance(n, seed=n) for n in BATCH_NS]
+
+    def prepared(group, seeds):
+        pb = batch.make_batch(group, BATCH_PAD, cfg.nn_k, device=DEV)
+        return pb, engine.init_states(group, cfg, seeds, BATCH_PAD,
+                                      device=DEV)
+
+    ls_ms = [0.0]
+    real = localsearch.improve_with_lengths
+
+    def timed_ls(*a, **kw):
+        _sync()
+        t = time.perf_counter()
+        out = real(*a, **kw)
+        _sync()
+        ls_ms[0] += (time.perf_counter() - t) * 1e3
+        return out
+
+    def one_iteration(pb, s):
+        _sync()
+        base = torch.cuda.memory_allocated() if DEV == "cuda" else 0
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine.run_batch(pb.problem, s, [1] * s.key.shape[0], cfg, 1)
+        _sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) \
+            if DEV == "cuda" else 0
+        ls_ms[0] = 0.0
+        if cfg.local_search != "none":
+            localsearch.improve_with_lengths = timed_ls
+            try:
+                engine.run_batch(pb.problem, s, [1] * s.key.shape[0], cfg, 1)
+            finally:
+                localsearch.improve_with_lengths = real
+        return wall, ls_ms[0], peak
+
+    stack = prepared(insts, list(BATCH_SEEDS))
+    solos = [prepared([inst], [i]) for i, inst in enumerate(insts)]
+    rows, solo_rows = [], []
+    for _ in range(turns):
+        rows.append(one_iteration(*stack))
+        parts = [one_iteration(*p) for p in solos]
+        solo_rows.append(tuple(sum(x[j] for x in parts) for j in range(2))
+                         + (max(x[2] for x in parts),))
+    wall, ls, peak = min(rows)
+    s_wall, s_ls, s_peak = min(solo_rows)
+    head = (f"[batched] {'profile' if profiled else 'time'}: one {label} "
+            f"engine iteration, B=4, bucket {BATCH_PAD}: wall {wall:.1f} ms "
+            f"(no profiler; runs {', '.join(f'{r[0]:.1f}' for r in rows)}) "
+            f"vs {s_wall:.1f} ms for four solo engine iterations (ratio "
+            f"{wall / s_wall:.3f}); local search {ls:.1f} ms "
+            f"({ls / wall:.3f} of the wall; solo {s_ls:.1f} ms); peak memory "
+            f"above the state {peak / 2**30:.2f} GiB (solo "
+            f"{s_peak / 2**30:.2f})")
+    if not profiled:
+        log(head)
+        return
+    acts = [ProfilerActivity.CUDA] if DEV == "cuda" else \
+        [ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        engine.run_batch(stack[0].problem, stack[1], [1] * 4, cfg, 1)
+        _sync()
+    per_name = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0) or 0)
+        if us > 0 and DEV == "cuda":
+            per_name[e.key] = (per_name.get(e.key, (0.0, 0))[0] + us,
+                               e.count)
+    busy_ms = sum(us for us, _ in per_name.values()) / 1e3
+    log(f"{head}; device busy {busy_ms:.1f} ms, device idle share "
+        f"{1 - busy_ms / wall:.3f}")
+    for name, (us, count) in sorted(per_name.items(),
+                                    key=lambda kv: -kv[1][0])[:6]:
+        log(f"[batched]   {us / 1e3:8.2f} ms  {count:6d} launches  "
+            f"{name[:90]}")
+
+
 def phase_batched(launches: dict) -> None:
     """The batched engine (``solver.engine``) on the kernel route: one
     bucket of four MMAS colonies at the paper's sizes, each slot bitwise
     its solo run; MMAS + 2-opt over an int8 store; a sparse bucket of 2048;
     small buckets card == CPU; the batched time beside the solo runs' and
     a profile of one engine iteration."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import aco, localsearch, tsp
     from repro_torch.kernels import ops
     from repro_torch.solver import batch, engine
@@ -1924,35 +2273,7 @@ def phase_batched(launches: dict) -> None:
         f"batched {min(bt_setup):.2f} s, solo sum {min(solo_setup):.2f} s")
 
     # -- one engine iteration at B = 4, every slot active, profiled
-    b1 = batch.make_batch(insts, BATCH_PAD, cfg.nn_k, device=DEV)
-    s1 = engine.init_states(insts, cfg, list(BATCH_SEEDS), BATCH_PAD,
-                            device=DEV)
-    s1 = engine.run_batch(b1.problem, s1, [1] * 4, cfg, 1)[0]   # warm
-    _sync()
-    t0 = time.perf_counter()
-    engine.run_batch(b1.problem, s1, [2] * 4, cfg, 1)
-    _sync()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    acts = [ProfilerActivity.CUDA] if DEV == "cuda" else \
-        [ProfilerActivity.CPU]
-    with profile(activities=acts) as prof:
-        engine.run_batch(b1.problem, s1, [2] * 4, cfg, 1)
-        _sync()
-    per_name = {}
-    for e in prof.key_averages():
-        us = (getattr(e, "self_device_time_total", None)
-              or getattr(e, "self_cuda_time_total", 0) or 0)
-        if us > 0 and DEV == "cuda":
-            per_name[e.key] = (per_name.get(e.key, (0.0, 0))[0] + us,
-                               e.count)
-    busy_ms = sum(us for us, _ in per_name.values()) / 1e3
-    log(f"[batched] profile: one engine iteration, B=4 MMAS slots, bucket "
-        f"{BATCH_PAD}: wall {wall_ms:.1f} ms (no profiler), device busy "
-        f"{busy_ms:.1f} ms, device idle share {1 - busy_ms / wall_ms:.3f}")
-    for name, (us, count) in sorted(per_name.items(),
-                                    key=lambda kv: -kv[1][0])[:6]:
-        log(f"[batched]   {us / 1e3:8.2f} ms  {count:6d} launches  "
-            f"{name[:90]}")
+    _batched_iteration_profile("MMAS", cfg, 2)
 
     # -- MMAS + 2-opt over an int8 store: two slots, two iterations
     pair = [insts[0], insts[2]]
@@ -1964,13 +2285,15 @@ def phase_batched(launches: dict) -> None:
     rounds = localsearch.improve.rounds
     if rounds == 0:
         raise AssertionError("batched mmas+2opt int8: no local-search round")
+    # the stack: one walk and one update launch per engine iteration, one
+    # two_opt_best launch per round of the stack's local search
     _check_counts("batched mmas+2opt int8", counts,
-                  {"fused_walk_quant": 4, "pheromone_update_tours": 4,
+                  {"fused_walk_quant": 2, "pheromone_update_tours": 2,
                    "two_opt_best": rounds})
     launches["fused_walk_quant_int8"] = \
         launches.get("fused_walk_quant_int8", 0) + counts["fused_walk_quant"]
     launches["two_opt_best"] = launches.get("two_opt_best", 0) + rounds
-    launches["pheromone_update_tours"] += 4
+    launches["pheromone_update_tours"] += 2
     for i, inst in enumerate(pair):
         solo, _ = engine.solve_instances([inst], cfg_q, seeds=[i],
                                          n_pad=BATCH_PAD, device=DEV)
@@ -1980,9 +2303,18 @@ def phase_batched(launches: dict) -> None:
                                  1.2)
     log(f"[batched] MMAS + 2-opt, int8 store, n={[i.n for i in pair]} in "
         f"bucket {BATCH_PAD}, x2: {secs:.2f} s incl. set-up; slots bitwise "
-        f"their solo runs; fused_walk_quant={counts['fused_walk_quant']}, "
-        f"two_opt_best={counts['two_opt_best']} = local-search rounds "
-        f"{rounds}; best / NN tour " + " ".join(f"{r:.3f}" for r in ratios))
+        f"their solo runs; fused_walk_quant={counts['fused_walk_quant']} = "
+        f"engine iterations, two_opt_best={counts['two_opt_best']} = the "
+        f"stack's local-search rounds {rounds}; best / NN tour "
+        + " ".join(f"{r:.3f}" for r in ratios))
+    _batched_pallas(launches)
+    _batched_local_search(launches)
+    _batched_iteration_profile("MMAS + 2-opt", aco.ACOConfig(
+        variant="mmas", use_pallas=True, local_search="2opt"), 2)
+    # the pallas iteration's 1023 steps make a long trace: timed only
+    _batched_iteration_profile("AS construction=pallas", aco.ACOConfig(
+        variant="as", use_pallas=True, construction="pallas"), 1,
+        profiled=False)
 
     # -- sparse MMAS (k = 16 + 4, m = 64), bucket 2048, 10 iterations: the
     # instance axis, one walk launch per engine iteration for both slots
@@ -2459,6 +2791,24 @@ def phase_cli(launches: dict) -> None:
     rep, counts = _cli_main("dense drain", CLI_DENSE)
     for kernel in ("fused_walk", "pheromone_update_tours"):
         count("dense drain", counts, kernel, engine_its(rep, its))
+    # the dense drain with 2-opt: one two_opt_best launch per round of
+    # each job's stack (localsearch.improve counts the stacks' rounds)
+    from repro_torch.core import localsearch
+    localsearch.improve.rounds = 0
+    rep, counts = _cli_main("dense drain 2opt",
+                            CLI_DENSE + ["--local-search", "2opt"])
+    rounds = localsearch.improve.rounds
+    count("dense drain 2opt", counts, "fused_walk", engine_its(rep, its))
+    if rounds == 0 or counts["two_opt_best"] != rounds:
+        raise AssertionError(f"cli dense drain 2opt: two_opt_best launched "
+                             f"{counts['two_opt_best']} times for {rounds} "
+                             "rounds of the stacks")
+    launches["two_opt_best"] = launches.get("two_opt_best", 0) + rounds
+    launches["pheromone_update_tours"] += counts["pheromone_update_tours"]
+    log(f"[cli] dense drain 2opt: fused_walk={counts['fused_walk']} = engine "
+        f"iterations, two_opt_best={counts['two_opt_best']} = the stacks' "
+        f"local-search rounds; best "
+        + ", ".join(f"{r['best_len']:.1f}" for r in rep["results"]))
     rep, counts = _cli_main("dense stream", CLI_DENSE + CLI_STREAM)
     for kernel in ("fused_walk", "pheromone_update_tours"):
         if counts[kernel] == 0:

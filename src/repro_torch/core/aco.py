@@ -211,15 +211,6 @@ def operand(value: Scalar, like: torch.Tensor) -> torch.Tensor:
     return floatops.const(value, like)
 
 
-def _choice(tau: torch.Tensor, eta: torch.Tensor, cfg: ACOConfig,
-            alpha: Scalar, beta: Scalar,
-            n_actual: Optional[int]) -> torch.Tensor:
-    if cfg.use_pallas:
-        from ..kernels import ops as kops
-        return kops.choice_info(tau, eta, alpha, beta, n_actual)
-    return strategies.choice_matrix(tau, eta, alpha, beta)
-
-
 def ls_config(cfg: ACOConfig) -> localsearch.LocalSearchConfig:
     """The LocalSearchConfig embedded in an ACOConfig."""
     return localsearch.LocalSearchConfig(
@@ -237,24 +228,52 @@ def polish_tours(problem: Problem, tours: torch.Tensor, cfg: ACOConfig
 
 
 def _apply_local_search(problem: Problem, res: strategies.TourResult,
-                        iteration: int, cfg: ACOConfig
+                        iterations: Sequence[int], cfg: ACOConfig,
+                        active: Optional[Sequence[bool]],
+                        n_act: Optional[torch.Tensor]
                         ) -> strategies.TourResult:
-    """Polish the constructed tours per ``cfg.ls_tours`` on every
-    ``cfg.ls_every``-th iteration (the reference's ``lax.cond`` gate, a
-    host ``if`` here)."""
+    """Polish a stack's constructed tours per ``cfg.ls_tours``: each slot
+    that is active and at an iteration the ``cfg.ls_every`` gate admits
+    (the reference's ``lax.cond``, a host choice per slot here from the
+    host ``iterations``), the others' tours as they were.  The polished
+    slots run as one stack, or in groups where the card's free memory
+    holds fewer (``localsearch.slots_per_pass``); rows are independent, so
+    every grouping gives the same tours."""
     if cfg.ls_tours not in ("all", "iteration_best"):
         raise ValueError(f"unknown ls_tours {cfg.ls_tours!r}")
-    if cfg.ls_every > 1 and iteration % cfg.ls_every != 0:
+    n_slots, m, n = res.tours.shape
+    slots = [b for b in range(n_slots)
+             if (active is None or active[b])
+             and (cfg.ls_every <= 1 or iterations[b] % cfg.ls_every == 0)]
+    if not slots:
         return res
     tours, lengths = res.tours, res.lengths
     if cfg.ls_tours == "iteration_best":
-        ib = torch.argmin(lengths)
-        pol, pol_len = polish_tours(problem, tours[ib][None, :], cfg)
-        tours, lengths = tours.clone(), lengths.clone()
-        tours[ib], lengths[ib] = pol[0], pol_len[0]
+        # each slot's own best ant, a (B, 1, n) stack
+        ib = torch.argmin(lengths, dim=-1)[:, None]
+        tours = tours.gather(1, ib[..., None].expand(n_slots, 1, n))
+        lengths = lengths.gather(1, ib)
+    per = localsearch.slots_per_pass(tours.device, len(slots),
+                                     tours.shape[1], n, problem.nn.shape[-1])
+    ls_cfg = ls_config(cfg)
+    if per == len(slots) == n_slots:
+        out_t, out_l = localsearch.improve_with_lengths(
+            problem.dist, problem.nn, tours, ls_cfg, n_act)
     else:
-        tours, lengths = polish_tours(problem, tours, cfg)
-    return strategies.TourResult(tours, lengths)
+        out_t, out_l = tours.clone(), lengths.clone()
+        for g in range(0, len(slots), per):
+            idx = torch.tensor(slots[g:g + per], dtype=torch.long,
+                               device=tours.device)
+            pol, pol_len = localsearch.improve_with_lengths(
+                problem.dist[idx], problem.nn[idx], tours[idx], ls_cfg,
+                None if n_act is None else n_act[idx])
+            out_t.index_copy_(0, idx, pol)
+            out_l.index_copy_(0, idx, pol_len)
+    if cfg.ls_tours == "iteration_best":
+        out_t = res.tours.scatter(1, ib[..., None].expand(n_slots, 1, n),
+                                  out_t)
+        out_l = res.lengths.scatter(1, ib, out_l)
+    return strategies.TourResult(out_t, out_l)
 
 
 def mmas_bounds(best_len: torch.Tensor, cfg: ACOConfig, n: int,
@@ -285,11 +304,12 @@ def mmas_bounds(best_len: torch.Tensor, cfg: ACOConfig, n: int,
 
 def batched_route(cfg: ACOConfig, problem: Problem) -> bool:
     """Whether ``colony_step_batch`` steps a stack of this problem in one
-    pass: the dense fused kernel route (``use_pallas``,
-    ``construction="data_parallel"``) without local search or Hyper.  Any
-    other route takes one instance at a time."""
-    return (cfg.use_pallas and cfg.construction == "data_parallel"
-            and cfg.local_search == "none" and problem.hyper is None
+    pass: the dense kernel routes (``use_pallas``, the fused or the
+    ``pallas`` construction, with or without local search) without Hyper.
+    The pure routes take one instance at a time."""
+    return (cfg.use_pallas
+            and cfg.construction in ("data_parallel", "pallas")
+            and problem.hyper is None
             and cfg.variant in ("as", "mmas", "acs"))
 
 
@@ -317,7 +337,8 @@ def _slot(problem: Problem, b: int) -> Problem:
 def colony_step_batch(problem: Problem, states: ColonyState,
                       cfg: ACOConfig,
                       active: Optional[Sequence[bool]] = None,
-                      n_actual: Optional[torch.Tensor] = None) -> tuple:
+                      n_actual: Optional[torch.Tensor] = None,
+                      iterations: Optional[Sequence[int]] = None) -> tuple:
     """One full ACO iteration of B colonies stacked on a leading axis:
     construct m tours each, update pheromone, track best.
 
@@ -329,25 +350,29 @@ def colony_step_batch(problem: Problem, states: ColonyState,
     instance b alone gives: this is the one implementation of the step, and
     ``colony_step`` is its B = 1 case.
 
-    On ``batched_route`` the stack takes one ``fused_walk`` launch and one
-    ``pheromone_update`` launch and plain tensor work over (B, ...); every
-    other route takes B = 1 only.  ``active``: B host flags (None: all);
-    the kernels skip an inactive instance, and its rows of the result are
-    unspecified: the caller keeps its old state (the reference's
-    where-freeze).  ``n_actual``: the problem's per-slot counts as a (B,)
-    int32 tensor on the states' device (``slot_n_actual``), built here when
-    not given.
+    On ``batched_route`` the stack takes, per iteration, one ``fused_walk``
+    launch (or, on ``construction="pallas"``, one ``choice_info`` launch
+    and one ``tour_select`` launch a step), a local-search pass over the
+    stack (one ``two_opt_best`` launch a round), one ``pheromone_update``
+    launch and plain tensor work over (B, ...); the pure routes take B = 1
+    only.  ``active``: B host flags (None: all); the kernels skip an
+    inactive instance, and its rows of the result are unspecified: the
+    caller keeps its old state (the reference's where-freeze).
+    ``n_actual``: the problem's per-slot counts as a (B,) int32 tensor on
+    the states' device (``slot_n_actual``), built here when not given.
+    ``iterations``: the slots' iteration counts on the host, for the
+    ``ls_every`` gate (read from ``states`` when not given and needed).
     """
     _check_supported(problem, cfg)
     n_slots = states.key.shape[0]
     n = problem.dist.shape[-1]
     m = cfg.num_ants(n)
     dev = states.key.device
-    fused = cfg.use_pallas and cfg.construction == "data_parallel"
-    if n_slots != 1 and not batched_route(cfg, problem):
-        raise ValueError("colony_step_batch steps a stack only on the fused "
-                         "kernel route without local search or Hyper; "
-                         "step other routes one instance at a time")
+    stacked = batched_route(cfg, problem)
+    if n_slots != 1 and not stacked:
+        raise ValueError("colony_step_batch steps a stack only on the dense "
+                         "kernel routes without Hyper; step other routes "
+                         "one instance at a time")
     # the launchers cannot read a device n_actual: its host values are
     # checked here, once for the whole stack
     if problem.n_actual is not None and not all(
@@ -356,8 +381,6 @@ def colony_step_batch(problem: Problem, states: ColonyState,
                          f"not all in [1, {n}]")
     n_act = n_actual if n_actual is not None or problem.n_actual is None \
         else slot_n_actual(problem, dev)
-    # the one instance of a route without a batched form
-    p0 = _slot(problem, 0) if n_slots == 1 else None
     h = problem.hyper
     alpha = cfg.alpha if h is None else h.alpha
     beta = cfg.beta if h is None else h.beta
@@ -371,7 +394,7 @@ def colony_step_batch(problem: Problem, states: ColonyState,
     # Transient fp32 view for this step's compute.
     tau_full = quant.dequantise(states.tau)
 
-    if fused:
+    if stacked and cfg.construction == "data_parallel":
         # The fused_walk kernel does the whole construction: no (n, n)
         # choice precompute on this route at all; a quantised store
         # reaches it as its payload, dequantised inside the kernel.
@@ -385,25 +408,37 @@ def colony_step_batch(problem: Problem, states: ColonyState,
             selection=cfg.selection, tau=tau_c, eta=problem.eta,
             alpha=alpha, beta=beta, n_actual=n_act,
             draw_mode=cfg.draw_mode, tau_scale=tau_scale, active=active)
+    elif stacked:
+        # the paper's unfused pair over the stack: one choice_info launch,
+        # then one tour_select launch a step
+        from ..kernels import ops as kops
+        choice = kops.choice_info(tau_full, problem.eta, alpha, beta, n_act,
+                                  active)
+        res = strategies.construct_tours(
+            k_tour, problem.dist, choice, m, method="pallas",
+            selection=cfg.selection, n_actual=n_act,
+            draw_mode=cfg.draw_mode, active=active, n_host=problem.n_actual)
     else:
+        # a pure route: the one instance of a stack of one
+        p0 = _slot(problem, 0)
         h0 = p0.hyper
         a0 = cfg.alpha if h0 is None else h0.alpha
         b0 = cfg.beta if h0 is None else h0.beta
-        choice_info = _choice(tau_full[0], p0.eta, cfg, a0, b0, p0.n_actual)
+        choice = strategies.choice_matrix(tau_full[0], p0.eta, a0, b0)
         r = strategies.construct_tours(
-            k_tour[0], p0.dist, choice_info, m, method=cfg.construction,
+            k_tour[0], p0.dist, choice, m, method=cfg.construction,
             selection=cfg.selection, eta=p0.eta, alpha=a0, beta=b0,
             n_actual=p0.n_actual, draw_mode=cfg.draw_mode)
         res = strategies.TourResult(r.tours[None], r.lengths[None])
 
     pre_ls_lengths = None
     if cfg.local_search != "none":
-        # improved tours drive best-tracking and the deposit (B = 1)
+        # improved tours drive best-tracking and the deposit
         pre_ls_lengths = res.lengths
-        r = _apply_local_search(
-            p0, strategies.TourResult(res.tours[0], res.lengths[0]),
-            int(states.iteration[0]), cfg)
-        res = strategies.TourResult(r.tours[None], r.lengths[None])
+        if iterations is None and cfg.ls_every > 1:
+            iterations = states.iteration.tolist()
+        res = _apply_local_search(problem, res, iterations, cfg, active,
+                                  n_act)
 
     it_best_idx = torch.argmin(res.lengths, dim=-1)               # (B,)
     it_best_len = res.lengths.gather(-1, it_best_idx[:, None])[:, 0]
@@ -437,10 +472,11 @@ def colony_step_batch(problem: Problem, states: ColonyState,
         tau = kops.pheromone_update(tau_full, dep_tours, dep_w, rho,
                                     n_actual=n_act, active=active)
     else:
-        rho0 = rho if h is None else p0.hyper.rho
+        rho0 = rho if h is None else h.rho[0]
         tau = pheromone.update(tau_full[0], dep_tours[0], dep_w[0], rho0,
                                strategy=cfg.deposit, tile=cfg.deposit_tile,
-                               n_actual=p0.n_actual)[None]
+                               n_actual=None if problem.n_actual is None
+                               else problem.n_actual[0])[None]
 
     # MMAS/ACS normalisations use the real city count of padded instances.
     clamp = None

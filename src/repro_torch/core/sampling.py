@@ -113,7 +113,9 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 
 
 def counter_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """Width-invariant bits for a 2-D (m, n) draw (reference counter mode)."""
+    """Width-invariant bits for a 2-D (m, n) draw (reference counter mode).
+    A (B, 2) stack of keys gives (B, m, n), row b bitwise
+    ``counter_bits(key[b], shape)``."""
     m, n = shape
     if n > COUNTER_STRIDE:
         raise ValueError(f"counter draw width {n} > {COUNTER_STRIDE}")
@@ -121,8 +123,10 @@ def counter_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     rows = torch.arange(m, dtype=torch.int64, device=dev) * COUNTER_STRIDE
     ctr = (rows[:, None] + torch.arange(n, dtype=torch.int64,
                                         device=dev)[None, :]) & _MASK
-    y0, _ = threefry2x32(key[0], key[1], ctr, torch.zeros_like(ctr))
-    return y0
+    lead = tuple(key.shape[:-1]) + (1, 1)
+    y0, _ = threefry2x32(key[..., 0].reshape(lead), key[..., 1].reshape(lead),
+                         ctr, torch.zeros_like(ctr))
+    return y0.reshape(tuple(key.shape[:-1]) + (m, n))
 
 
 def _uniform_from_bits(bits: torch.Tensor, minval: float,

@@ -14,15 +14,18 @@ Three construction methods of the reference's ladder are ported:
                      selection and tabu update -- in one launch, with no
                      (n, n) choice matrix and no (m, n) draw tensor.
 
-``fused`` also takes a stack of B instances ((B, 2) keys, (B, n, n)
-operands, a (B,) ``n_actual`` tensor, host ``active`` flags): one walk
-launch for the batch, each instance bitwise its own construction.
+``fused`` and ``pallas`` also take a stack of B instances ((B, 2) keys,
+(B, n, n) operands, a (B,) ``n_actual`` tensor, host ``active`` flags):
+one walk launch for the batch (``fused``), or one ``tour_select`` launch
+per step for the batch (``pallas``), each instance bitwise its own
+construction.
 
 For the other methods the reference's ``lax.scan`` over the n-1 steps is a
-Python loop here.  Step ``t`` draws from ``fold_in(key, t)``.  Padded
-instances (``n_actual``) emit the phantom tail in fixed index order, as the
-reference does.  The other methods (``task_baseline``, ``task_choice``,
-``nn_list``) are not ported yet (ROADMAP queue 1 item 5).
+Python loop here, over a stack of one instance or more.  Step ``t`` draws
+from ``fold_in(key, t)``.  Padded instances (``n_actual``) emit the
+phantom tail in fixed index order, as the reference does.  The other
+methods (``task_baseline``, ``task_choice``, ``nn_list``) are not ported
+yet (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -37,8 +40,8 @@ NActual = Union[int, torch.Tensor, None]
 
 
 class TourState(NamedTuple):
-    cur: torch.Tensor      # (m,) int32 current city
-    visited: torch.Tensor  # (m, n) bool tabu list
+    cur: torch.Tensor      # (..., m) int32 current city
+    visited: torch.Tensor  # (..., m, n) bool tabu list
 
 
 class TourResult(NamedTuple):
@@ -58,13 +61,6 @@ def place_ants(key: torch.Tensor, m: int, n: int,
     return sampling.randint(key, (m,), 0, hi)
 
 
-def _init_state(start: torch.Tensor, n: int) -> TourState:
-    m = start.shape[0]
-    visited = torch.zeros((m, n), dtype=torch.bool, device=start.device)
-    visited[torch.arange(m, device=start.device), start.long()] = True
-    return TourState(start, visited)
-
-
 def _finish(start: torch.Tensor, steps: torch.Tensor, dist: torch.Tensor,
             n_actual: NActual = None) -> TourResult:
     """steps: (n-1, m) int32 emitted cities -> tours (m, n) + lengths; with
@@ -74,38 +70,44 @@ def _finish(start: torch.Tensor, steps: torch.Tensor, dist: torch.Tensor,
     return TourResult(tours, tsp.tour_length(dist, tours, n_actual))
 
 
-StepImpl = Callable[[torch.Tensor, torch.Tensor, TourState, int, dict],
+StepImpl = Callable[[torch.Tensor, torch.Tensor, TourState, dict],
                     torch.Tensor]
-# (key, choice_info, state, t, extras) -> next city (m,)
+# (keys (B, 2), choice_info (B, n, n), state over (B, m), extras)
+#   -> next city (B, m)
 
 
 def _make_dense_step(selector: str, draw_mode: str = "packed") -> StepImpl:
+    """The pure route's step: one instance (B = 1)."""
     sel = sampling.get_selector(selector, draw_mode)
 
-    def step(key, choice_info, st, t, extras):
-        del t, extras
-        w = choice_info[st.cur.long()] * (~st.visited)          # (m, n)
-        return sel(key, w)
+    def step(key, choice_info, st, extras):
+        del extras
+        w = choice_info[0][st.cur[0].long()] * (~st.visited[0])  # (m, n)
+        return sel(key[0], w)[None]
 
     return step
 
 
 def _draw_step_uniform(key: torch.Tensor, shape: tuple,
                        draw_mode: str) -> torch.Tensor:
-    """The per-(ant, city) U(1e-6, 1) tensor the kernel steps consume."""
+    """The per-(ant, city) U(1e-6, 1) tensor the kernel steps consume; a
+    (B, 2) stack of keys gives (B, *shape), row b bitwise key b's draw."""
     if draw_mode == "counter":
         return sampling.counter_uniform(key, shape, minval=1e-6, maxval=1.0)
     return sampling.uniform(key, shape, minval=1e-6, maxval=1.0)
 
 
 def _make_pallas_step(selector: str, draw_mode: str = "packed") -> StepImpl:
-    def step(key, choice_info, st, t, extras):
-        del t
+    """The unfused kernel pair's step over a stack: gather each ant's row
+    of its instance's choice matrix, draw, one ``tour_select`` launch."""
+    def step(key, choice_info, st, extras):
         from ..kernels import ops as kops
-        rows = choice_info[st.cur.long()]
-        u = _draw_step_uniform(key, tuple(rows.shape), draw_mode)
+        nb, m = st.cur.shape
+        bidx = torch.arange(nb, device=st.cur.device)[:, None]
+        rows = choice_info[bidx, st.cur.long()]                # (B, m, n)
+        u = _draw_step_uniform(key, tuple(rows.shape[1:]), draw_mode)
         return kops.tour_select(rows, st.visited, u, selector,
-                                extras["n_actual"])
+                                extras["n_actual"], extras["active"])
 
     return step
 
@@ -125,6 +127,7 @@ def construct_tours(
     draw_mode: str = "packed",
     tau_scale: Optional[torch.Tensor] = None,
     active: Optional[Sequence[bool]] = None,
+    n_host: Optional[Sequence[int]] = None,
 ) -> TourResult:
     """Build m complete tours under the given method.
 
@@ -134,10 +137,12 @@ def construct_tours(
     ``core/quant.py``); ``tau_scale`` is the int8 per-row scale.
     ``n_actual``: real-city count of a padded instance (host int), or None.
 
-    ``fused`` over a stack: ``key`` (B, 2), ``dist``/``tau``/``eta``
-    (B, n, n), ``n_actual`` a (B,) int32 tensor or None, ``active`` B host
-    flags (None: all); tours (B, m, n) and lengths (B, m), an inactive
-    instance's tours all zero.
+    ``fused`` and ``pallas`` over a stack: ``key`` (B, 2),
+    ``dist``/``tau``/``eta``/``choice_info`` (B, n, n), ``n_actual`` a (B,)
+    int32 tensor or None (``n_host``: its host values, which bound the
+    ``pallas`` step loop; read from the card when not given), ``active`` B
+    host flags (None: all); tours (B, m, n) and lengths (B, m), an inactive
+    instance's tours unspecified (``fused``: all zero).
     """
     if method not in METHODS:
         if method in ("task_choice", "task_baseline", "nn_list",
@@ -149,9 +154,9 @@ def construct_tours(
     if draw_mode not in sampling.DRAW_MODES:
         raise ValueError(f"unknown draw_mode {draw_mode!r}; "
                          f"supported: {', '.join(sampling.DRAW_MODES)}")
-    if key.dim() == 2 and method != "fused":
+    if key.dim() == 2 and method == "data_parallel":
         raise ValueError(f"construction {method!r} takes one instance; only "
-                         "'fused' takes a stack")
+                         "'fused' and 'pallas' take a stack")
     n = dist.shape[-1]
     ks = sampling.split(key)
     kp, kc = ks[..., 0, :], ks[..., 1, :].contiguous()
@@ -169,24 +174,60 @@ def construct_tours(
         step_impl = _make_pallas_step(selection, draw_mode)
     else:
         step_impl = _make_dense_step(selection, draw_mode)
-    extras = {"n_actual": n_actual}
-    st = _init_state(start, n)
-    ants = torch.arange(m, device=dist.device)
-    # One batched hash gives every step's key: fold_in(kc, t), t = 1..n-1.
-    step_keys = sampling.fold_in(kc, torch.arange(1, n, device=kc.device))
-    steps = torch.empty((n - 1, m), dtype=torch.int32, device=dist.device)
-    for t in range(1, n):
-        if n_actual is not None and t >= n_actual:
-            # Padded instance: the real cities are exhausted, emit the
-            # phantom tail in fixed index order (the reference computes
-            # and discards a selection here; its draws feed nothing).
-            nxt = torch.full((m,), t, dtype=torch.int32, device=dist.device)
-        else:
-            nxt = step_impl(step_keys[t - 1], choice_info, st, t, extras)
-        st.visited[ants, nxt.long()] = True      # in place: one (m, n) buffer
-        st = TourState(nxt, st.visited)
-        steps[t - 1] = nxt
+    one = key.dim() == 1
+    if one:                              # one instance is a stack of one
+        kc, start = kc[None], start[None]
+        choice_info = choice_info[None]
+        if n_actual is not None:
+            n_host = (int(n_actual),)
+    elif n_actual is not None and n_host is None:
+        n_host = tuple(int(v) for v in n_actual.tolist())
+    steps = _walk_steps(step_impl, kc, choice_info, start, n,
+                        {"n_actual": n_actual, "active": active},
+                        None if n_actual is None else n_host)
+    if one:
+        start, steps = start[0], steps[0]
     return _finish(start, steps, dist, n_actual)
+
+
+def _walk_steps(step_impl: StepImpl, kc: torch.Tensor,
+                choice_info: torch.Tensor, start: torch.Tensor, n: int,
+                extras: dict, n_host: Optional[Sequence[int]]
+                ) -> torch.Tensor:
+    """Steps 1..n-1 of every ant of a (B, m) stack -> (B, n-1, m) cities.
+    Step ``t`` draws from ``fold_in(kc[b], t)``.  A padded instance emits
+    its phantom tail in fixed index order once its real cities are
+    exhausted (t >= its n_actual): a per-instance choice against the (B,)
+    ``n_actual`` on the card, the selection's pick discarded as the
+    reference discards it; a step past every instance's ``n_host`` launches
+    no selection at all.  The draws of a real step never depend on another
+    instance's count."""
+    nb, m = start.shape
+    dev = start.device
+    bidx = torch.arange(nb, device=dev)[:, None]
+    ants = torch.arange(m, device=dev)[None, :]
+    visited = torch.zeros((nb, m, n), dtype=torch.bool, device=dev)
+    visited[bidx, ants, start.long()] = True
+    st = TourState(start, visited)
+    hi = lo = n                         # t >= lo: some tail; t >= hi: all
+    if n_host is not None:
+        hi, lo = max(n_host), min(n_host)
+        n_act = tsp.per_slot(extras["n_actual"], 2)
+    # One batched hash gives every step's key: fold_in(kc, t), t = 1..n-1.
+    step_keys = sampling.fold_in(kc, torch.arange(1, n, device=dev))
+    steps = torch.empty((nb, n - 1, m), dtype=torch.int32, device=dev)
+    for t in range(1, n):
+        if t >= hi:
+            nxt = torch.full((nb, m), t, dtype=torch.int32, device=dev)
+        else:
+            nxt = step_impl(step_keys[:, t - 1], choice_info, st, extras)
+            if t >= lo:
+                nxt = torch.where(t < n_act, nxt,
+                                  torch.full_like(nxt, t))
+        st.visited[bidx, ants, nxt.long()] = True   # in place: one buffer
+        st = TourState(nxt, st.visited)
+        steps[:, t - 1] = nxt
+    return steps
 
 
 def choice_matrix(tau: torch.Tensor, eta: torch.Tensor,

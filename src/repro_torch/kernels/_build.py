@@ -33,8 +33,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    "aco_choice_info": [_P, _P, _P, _I, _I, _F, _F, _I, _P],
-    "aco_tour_select": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "aco_choice_info": [_P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P],
+    "aco_tour_select": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "aco_fused_select": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I,
                          _P],
     "aco_fused_select_quant": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I,
@@ -192,6 +192,22 @@ def slot_ints(n_actual, batch: int) -> list:
     if hasattr(n_actual, "tolist"):
         return [int(v) for v in n_actual.tolist()]
     return [None if v is None else int(v) for v in n_actual]
+
+
+def n_actual_arg(name: str, n_actual, batch: int, n: int, device) -> tuple:
+    """A launcher's ``n_actual`` as the C interface takes it: (host count,
+    device pointer or None).  A (batch,) int32 tensor on ``device`` is read
+    on the card only (its values are the caller's to check); a host int
+    must lie in [1, n]; None is n, every city real."""
+    import torch
+    if isinstance(n_actual, torch.Tensor):
+        require(f"{name} n_actual", n_actual, torch.int32, (batch,), device)
+        return n, n_actual.data_ptr()
+    if n_actual is None:
+        return n, None
+    if not 1 <= int(n_actual) <= n:
+        raise ValueError(f"{name}: n_actual {n_actual} not in [1, {n}]")
+    return int(n_actual), None
 
 
 def active_flags(active, batch: int, device) -> tuple:

@@ -255,16 +255,9 @@ def _launch_walk(name: str, tau: torch.Tensor, scale, eta: torch.Tensor,
                          f"{sampling.COUNTER_STRIDE}, got {n}")
     if first_step < 1:
         raise ValueError(f"{name}: first_step {first_step} < 1")
-    n_act, n_act_ptr = n, None
-    if isinstance(n_actual, torch.Tensor):
-        # read on the card only: the caller has checked its values
-        # (colony_step_batch does)
-        _build.require(f"{name} n_actual", n_actual, torch.int32, (nb,), dev)
-        n_act_ptr = n_actual.data_ptr()
-    elif n_actual is not None:
-        n_act = int(n_actual)
-        if not 1 <= n_act <= n:
-            raise ValueError(f"{name}: n_actual {n_actual} not in [1, {n}]")
+    # a (B,) tensor is read on the card only: the caller has checked its
+    # values (colony_step_batch does)
+    n_act, n_act_ptr = _build.n_actual_arg(name, n_actual, nb, n, dev)
     flags, walked = _build.active_flags(active, nb, dev)
     # the quantised entry takes the payload kind and the int8 scale first
     payload = () if name == "fused_walk" else (

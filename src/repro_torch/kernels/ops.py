@@ -12,14 +12,16 @@ single typed rejection point, with the reference's messages.
 Each kernel wrapper counts its launches in a plain integer attribute
 (``fused_select.launches`` ...); ``launch_counts``/``reset_launch_counts``
 read and zero them all.  The launchers that take a leading instance axis
-(the two dense walks, the tours-driven update and the sparse walk) also
-count the instances their launches served (``slot_launches``, read by
-``slot_launch_counts``).
+(the two dense walks, the tours-driven update, the sparse walk, the
+Choice kernel and the selection) also count the instances their launches
+served (``slot_launches``, read by ``slot_launch_counts``).
 
-The dense walk and the tours-driven update take that instance axis as a
-(B, n, n) stack of instances in one launch, the sparse walk as (B, n, k)
-pages; ``n_actual`` a (B,) int32 tensor and ``active`` B host flags (an
-inactive instance costs no work).
+The dense walk, the tours-driven update and the Choice kernel take that
+instance axis as a (B, n, n) stack of instances in one launch, the
+selection as (B, m, n) rows and the sparse walk as (B, n, k) pages;
+``n_actual`` a (B,) int32 tensor and ``active`` B host flags (an inactive
+instance costs no work).  The 2-opt reduction needs no instance axis: a
+stack's moves fold into its (B * m, M) rows.
 """
 from __future__ import annotations
 
@@ -160,19 +162,25 @@ def check_kernel_route(masked: bool = False, hyper: bool = False,
 
 
 def choice_info(tau: torch.Tensor, eta: torch.Tensor, alpha: float = 1.0,
-                beta: float = 2.0,
-                n_actual: Optional[int] = None) -> torch.Tensor:
+                beta: float = 2.0, n_actual=None,
+                active: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """tau^alpha * eta^beta, rows and columns >= n_actual 0; a (B, n, n)
+    stack of instances in one launch (``choice_info.choice_info``)."""
     if _plain(tau):
-        return _ci.choice_info_plain(tau, eta, alpha, beta, n_actual)
-    return _ci.choice_info(tau, eta, alpha, beta, n_actual)
+        return _ci.choice_info_plain(tau, eta, alpha, beta, n_actual, active)
+    return _ci.choice_info(tau, eta, alpha, beta, n_actual, active)
 
 
 def tour_select(rows: torch.Tensor, visited: torch.Tensor,
                 rand: torch.Tensor, mode: str = "iroulette",
-                n_actual: Optional[int] = None) -> torch.Tensor:
+                n_actual=None,
+                active: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """Fig. 1 selection over (m, n) choice rows; a (B, m, n) stack of
+    instances in one launch (``tour_select.tour_select``)."""
     if _plain(rows):
-        return _ts.tour_select_plain(rows, visited, rand, mode, n_actual)
-    return _ts.tour_select(rows, visited, rand, mode, n_actual)
+        return _ts.tour_select_plain(rows, visited, rand, mode, n_actual,
+                                     active)
+    return _ts.tour_select(rows, visited, rand, mode, n_actual, active)
 
 
 def fused_select(tau: torch.Tensor, eta: torch.Tensor, cur: torch.Tensor,

@@ -148,18 +148,10 @@ def pheromone_update_tours(tau: torch.Tensor, tours: torch.Tensor,
                    lead + (m, n), dev)
     _build.require("pheromone_update_tours w", w, torch.float32, lead + (m,),
                    dev)
-    n_eff, n_eff_ptr = n, None
-    if isinstance(n_actual, torch.Tensor):
-        # read on the card only: the caller has checked its values
-        # (colony_step_batch does); the kernel skips one out of [1, n]
-        _build.require("pheromone_update_tours n_actual", n_actual,
-                       torch.int32, (nb,), dev)
-        n_eff_ptr = n_actual.data_ptr()
-    elif n_actual is not None:
-        n_eff = int(n_actual)
-        if not 1 <= n_eff <= n:
-            raise ValueError(f"pheromone_update_tours: n_actual {n_actual} "
-                             f"not in [1, {n}]")
+    # a (B,) tensor is read on the card only: the caller has checked its
+    # values (colony_step_batch does); the kernel skips one out of [1, n]
+    n_eff, n_eff_ptr = _build.n_actual_arg("pheromone_update_tours",
+                                           n_actual, nb, n, dev)
     flags, updated = _build.active_flags(active, nb, dev)
     nbr = torch.empty(lead + (n, m, 2), dtype=torch.int32, device=dev)
     out = torch.empty_like(tau)

@@ -12,12 +12,15 @@ Design, two routes:
 
 - the kernel routes that take the instance axis step the whole stack at
   once, whatever the number of active slots:
-  - dense (``aco.batched_route``: ``use_pallas=True``,
-    ``construction="data_parallel"``, no local search, no Hyper; AS, MMAS
-    or ACS over any ``tau_dtype``, metrics on or off):
+  - dense (``aco.batched_route``: ``use_pallas=True``, the fused or the
+    ``pallas`` construction, with or without local search, no Hyper;
+    AS, MMAS or ACS over any ``tau_dtype``, metrics on or off):
     ``core.aco.colony_step_batch``, one ``split`` of the (B, 2) keys, one
-    ``fused_walk`` launch and one ``pheromone_update`` launch per engine
-    iteration;
+    ``fused_walk`` launch (``pallas``: one ``choice_info`` launch and one
+    ``tour_select`` launch a step), one local-search pass over the
+    stack's tours (one ``two_opt_best`` launch a round; the ``ls_every``
+    gate per slot, from the host mirror of the slots' iterations) and one
+    ``pheromone_update`` launch per engine iteration;
   - sparse (``kind="sparse"`` on ``sparse.aco.batched_route``:
     ``use_pallas=True``, the standard construction; AS, MMAS or ACS over
     any ``tau_dtype``): ``sparse.aco.sparse_colony_step_batch``, one
@@ -27,10 +30,10 @@ Design, two routes:
   written back (the reference's ``where``-freeze).  ``colony_step`` and
   ``sparse_colony_step`` are those functions' B = 1 cases, so batched ==
   solo is bitwise by construction;
-- every other route (the pure routes, ``construction="pallas"``, local
-  search, Hyper) is a host loop over the active slots, each calling
-  ``core.aco.colony_step`` (or ``sparse.aco.sparse_colony_step``) on that
-  slot's view of the stacked tensors.
+- every other route (the pure routes, Hyper) is a host loop over the
+  active slots, each calling ``core.aco.colony_step`` (or
+  ``sparse.aco.sparse_colony_step``) on that slot's view of the stacked
+  tensors.
 
 The done mask is read from the card once per engine iteration, and only
 under ``patience``: budgets compare against a host mirror of each slot's
@@ -167,11 +170,12 @@ def run_batch(problem, states, budgets, cfg: aco.ACOConfig, max_iters: int,
             _check_aligned(problem, states, b)
     it_h = _host_ints(states.iteration)            # one read per call
     if kind == "dense" and aco.batched_route(cfg, problem):
-        def step_stack(s, active, n_act):
+        def step_stack(s, active, n_act, its):
             return aco.colony_step_batch(problem, s, cfg, active=active,
-                                         n_actual=n_act)
+                                         n_actual=n_act, iterations=its)
     elif kind == "sparse" and sparse_aco.batched_route(cfg):
-        def step_stack(s, active, n_act):
+        def step_stack(s, active, n_act, its):
+            del its
             return sparse_aco.sparse_colony_step_batch(
                 problem, s, cfg, ewt, active=active, n_actual=n_act)
     else:
@@ -236,9 +240,10 @@ def _run_stack(problem, states, budgets_h, it_h, max_iters, patience,
                since, donate, mets, step_stack):
     """``run_batch`` on a route that takes the instance axis: every engine
     iteration steps the whole stack with ``step_stack(states, active flags,
-    n_actual)`` (``colony_step_batch`` or ``sparse_colony_step_batch``) and
-    writes back the rows of the slots that were active (all of them with
-    one ``copy_`` per leaf when every slot was)."""
+    n_actual, host iteration counts)`` (``colony_step_batch`` or
+    ``sparse_colony_step_batch``) and writes back the rows of the slots
+    that were active (all of them with one ``copy_`` per leaf when every
+    slot was)."""
     n_slots = len(budgets_h)
     dev = states.key.device
     metrics_on = mets is not None
@@ -257,7 +262,7 @@ def _run_stack(problem, states, budgets_h, it_h, max_iters, patience,
         if not any(act):
             break
         flags = None if all(act) else act
-        out = step_stack(states, flags, n_act)
+        out = step_stack(states, flags, n_act, tuple(it_h))
         new = out[0]
         improved = new.best_len < states.best_len
         new_since = torch.where(improved, torch.zeros_like(since), since + 1)

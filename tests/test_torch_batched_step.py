@@ -14,6 +14,13 @@
   ``colony_step``, AS/MMAS/ACS x fp32/int8/bf16 x metrics on/off, with
   frozen slots and ``patience``; one walk and one update call per engine
   iteration whatever the number of active slots.
+- The Choice kernel and the selection over a stack (the CPU path of
+  ``ops.choice_info`` / ``ops.tour_select`` on (B, ...) operands) against
+  single calls, with an inactive slot; the ``pallas`` construction over a
+  stack against per-instance ``construct_tours`` (packed and counter
+  draws, three modes); ``run_batch`` on the ``pallas`` route bitwise the
+  per-slot steps, with one ``choice_info`` call per engine iteration and
+  max n_actual - 1 ``tour_select`` calls.
 """
 import numpy as np
 import pytest
@@ -28,7 +35,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pheromone_update as pu  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.solver import batch, engine  # noqa: E402
-from torch_parity import OnCard, assert_bitwise  # noqa: E402
+from torch_parity import (OnCard, assert_bitwise,  # noqa: E402
+                          per_slot_steps)
 
 MODES = ["iroulette", "gumbel", "greedy"]
 N_PAD = 32
@@ -234,30 +242,6 @@ def test_batched_launchers_refuse_bad_stacks():
 
 
 # ------------------------------------------------------------ the engine
-def _per_slot(problem, states, budgets, cfg, max_iters, patience):
-    """The reference semantics: each slot stepped alone by colony_step
-    until its budget or patience stops it."""
-    out, since_out, rows = [], [], []
-    for b in range(states.key.shape[0]):
-        p, s = batch.slot_problem(problem, b), tree.index(states, b)
-        since = torch.zeros((), dtype=torch.int32)
-        row = tree.index(obs_metrics.zeros_batch(1, "cpu"), 0)
-        for _ in range(max_iters):
-            if int(s.iteration) >= budgets[b] or \
-                    (patience and int(since) >= patience):
-                break
-            res = aco.colony_step(p, s, cfg)
-            improved = res[0].best_len < s.best_len
-            since = torch.where(improved, torch.zeros_like(since), since + 1)
-            if cfg.metrics:
-                row = res[2]._replace(stagnation=since)
-            s = res[0]
-        out.append(s)
-        since_out.append(since)
-        rows.append(row)
-    return tree.stack(out), torch.stack(since_out), obs_metrics.stack(rows)
-
-
 @pytest.mark.parametrize("metrics", [False, True])
 @pytest.mark.parametrize("tau_dtype", ["fp32", "int8", "bf16"])
 @pytest.mark.parametrize("variant", ["as", "mmas", "acs"])
@@ -287,8 +271,8 @@ def test_run_batch_stack_equals_per_slot_steps(variant, tau_dtype, metrics,
     monkeypatch.setattr(ops, "pheromone_update", update)
     out = engine.run_batch(b.problem, init, budgets, cfg, 5, patience)
     monkeypatch.undo()
-    want_s, want_since, want_rows = _per_slot(b.problem, init, budgets, cfg,
-                                              5, patience)
+    want_s, want_since, want_rows = per_slot_steps(b.problem, init, budgets,
+                                                   cfg, 5, patience)
     _leaves_equal(out[0], want_s, "states")
     assert_bitwise(out[1], want_since, "since")
     if metrics:
@@ -314,8 +298,13 @@ def test_run_batch_stack_donate_and_frozen_leaves():
     assert out[0] is st
     _leaves_equal(st, kept[0], "donated")
     _leaves_equal(tree.index(st, 0), tree.index(before, 0), "frozen slot")
-    assert not aco.batched_route(aco.ACOConfig(use_pallas=True,
-                                               local_search="2opt"),
+    # local search and the pallas construction step the stack too; the
+    # pure route and Hyper one instance at a time
+    assert aco.batched_route(aco.ACOConfig(use_pallas=True,
+                                           local_search="2opt"), b.problem)
+    assert aco.batched_route(aco.ACOConfig(use_pallas=True,
+                                           construction="pallas"), b.problem)
+    assert not aco.batched_route(aco.ACOConfig(local_search="2opt"),
                                  b.problem)
     with pytest.raises(ValueError, match="one instance at a time"):
         aco.colony_step_batch(b.problem, st, aco.ACOConfig(variant="mmas"))
@@ -383,3 +372,130 @@ def test_fused_route_step_reads_nothing_back(variant, tau_dtype, monkeypatch):
         aco.colony_step(prob, st, cfg)
         aco.colony_step_batch(b.problem, stack, cfg, n_actual=n_act)
     assert Reads.n == 0
+
+
+# ------------------------------------------------------ K3, K4, pallas
+def _choice_stack(seed=0):
+    g = torch.Generator().manual_seed(seed)
+    tau = torch.rand((3, N_PAD, N_PAD), generator=g) * 1e-2 + 1e-3
+    eta = 1.0 / (torch.rand((3, N_PAD, N_PAD), generator=g) * 100 + 1)
+    return tau, eta
+
+
+@pytest.mark.parametrize("alpha,beta", [(1.0, 2.0), (2.0, 3.0), (1.5, 2.0)])
+def test_batched_plain_choice_info_equals_single_calls(alpha, beta):
+    tau, eta = _choice_stack()
+    n_act = torch.tensor(N_ACT, dtype=torch.int32)
+    got = ops.choice_info(tau, eta, alpha, beta, n_act,
+                          active=(True, False, True))
+    assert not got[1].any()                          # inactive: untouched
+    for b in (0, 2):
+        assert_bitwise(got[b], ops.choice_info(tau[b], eta[b], alpha, beta,
+                                               N_ACT[b]), f"slot {b}")
+        assert not got[b, N_ACT[b]:].any() and not got[b, :, N_ACT[b]:].any()
+    full = ops.choice_info(tau, eta, alpha, beta)
+    for b in range(3):
+        assert_bitwise(full[b], ops.choice_info(tau[b], eta[b], alpha, beta),
+                       f"unmasked slot {b}")
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_batched_plain_tour_select_equals_single_calls(mode):
+    g = torch.Generator().manual_seed(5)
+    tau, eta = _choice_stack(1)
+    rows = ops.choice_info(tau, eta)[:, :9].contiguous()
+    visited = torch.rand((3, 9, N_PAD), generator=g) < 0.5
+    rand = torch.rand((3, 9, N_PAD), generator=g) * (1 - 1e-6) + 1e-6
+    n_act = torch.tensor(N_ACT, dtype=torch.int32)
+    got = ops.tour_select(rows, visited, rand, mode, n_act,
+                          active=(False, True, True))
+    assert got.shape == (3, 9) and not got[0].any()
+    for b in (1, 2):
+        assert_bitwise(got[b], ops.tour_select(rows[b], visited[b], rand[b],
+                                               mode, N_ACT[b]), f"slot {b}")
+    full = ops.tour_select(rows, visited, rand, mode)
+    for b in range(3):
+        assert_bitwise(full[b], ops.tour_select(rows[b], visited[b], rand[b],
+                                                mode), f"unmasked slot {b}")
+
+
+def _counting(monkeypatch, calls, *names):
+    """Count the ``ops`` calls of ``names``, each on a stack."""
+    for name in names:
+        real = getattr(ops, name)
+
+        def call(first, *a, _real=real, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            assert first.dim() == 3, _name
+            return _real(first, *a, **kw)
+
+        monkeypatch.setattr(ops, name, call)
+
+
+@pytest.mark.parametrize("draw_mode", ["packed", "counter"])
+@pytest.mark.parametrize("mode", MODES)
+def test_batched_pallas_construction_equals_single(mode, draw_mode,
+                                                   monkeypatch):
+    """The ``pallas`` construction over a stack: one selection call a step
+    (none past the largest n_actual), each slot bitwise its own
+    construction, an inactive slot costing its selections nothing."""
+    _, bt = _stack_problem()
+    tau, _ = _choice_stack(2)
+    n_act = torch.tensor(N_ACT, dtype=torch.int32)
+    choice = ops.choice_info(tau, bt.problem.eta, 1.0, 2.0, n_act)
+    keys = _keys(3, seed=9)
+    calls = {}
+    _counting(monkeypatch, calls, "tour_select")
+    res = strategies.construct_tours(keys, bt.problem.dist, choice, 9,
+                                     method="pallas", selection=mode,
+                                     n_actual=n_act, draw_mode=draw_mode,
+                                     n_host=N_ACT)
+    assert calls == {"tour_select": max(N_ACT) - 1}
+    part = strategies.construct_tours(keys, bt.problem.dist, choice, 9,
+                                      method="pallas", selection=mode,
+                                      n_actual=n_act, draw_mode=draw_mode,
+                                      active=(True, False, True))
+    monkeypatch.undo()
+    assert res.tours.shape == (3, 9, N_PAD)
+    for b in range(3):
+        one = strategies.construct_tours(
+            keys[b], bt.problem.dist[b], choice[b], 9, method="pallas",
+            selection=mode, n_actual=N_ACT[b], draw_mode=draw_mode)
+        assert_bitwise(res.tours[b], one.tours, f"tours {b}")
+        assert_bitwise(res.lengths[b], one.lengths, f"lengths {b}")
+        assert torch.equal(res.tours[b, :, N_ACT[b]:],
+                           torch.arange(N_ACT[b], N_PAD).expand(9, -1))
+        if b != 1:
+            assert_bitwise(part.tours[b], one.tours, f"active {b}")
+
+
+@pytest.mark.parametrize("variant,tau_dtype", [("as", "fp32"),
+                                               ("mmas", "int8"),
+                                               ("acs", "bf16")])
+def test_run_batch_pallas_stack_equals_per_slot_steps(variant, tau_dtype,
+                                                      monkeypatch):
+    """``run_batch`` on the ``pallas`` construction: one ``choice_info``
+    call and max n_actual - 1 ``tour_select`` calls per engine iteration,
+    each over the stack, and every slot bitwise its solo steps."""
+    insts = [tsp.random_instance(n, seed=n) for n in (16, 11, 13)]
+    cfg = aco.ACOConfig(variant=variant, tau_dtype=tau_dtype, rho=0.1,
+                        use_pallas=True, construction="pallas",
+                        selection="gumbel" if variant == "acs"
+                        else "iroulette", metrics=variant == "mmas")
+    b = batch.make_batch(insts, 16, device="cpu")
+    init = engine.init_states(insts, cfg, [4, 5, 6], 16, device="cpu")
+    budgets = [3, 2, 3]
+    calls = {}
+    _counting(monkeypatch, calls, "choice_info", "tour_select",
+              "pheromone_update")
+    out = engine.run_batch(b.problem, init, budgets, cfg, 3)
+    monkeypatch.undo()
+    want_s, want_since, want_rows = per_slot_steps(b.problem, init, budgets,
+                                                   cfg, 3, 0)
+    _leaves_equal(out[0], want_s, "states")
+    assert_bitwise(out[1], want_since, "since")
+    if cfg.metrics:
+        for f in obs_metrics.StepMetrics._fields:
+            assert_bitwise(getattr(out[2], f), getattr(want_rows, f), f)
+    assert calls == {"choice_info": 3, "tour_select": 3 * 15,
+                     "pheromone_update": 3}

@@ -16,9 +16,12 @@ update (the colony step's) bitwise for any number of ants, and the same
 from launch to launch; the dense and the sparse walk kernels bitwise
 against their plain walks on the card (and, for iroulette and greedy, on
 the CPU); one launch over a stack of instances (the dense walk and the
-update, the sparse walk) bitwise single launches and the plain versions,
-and the batched engine one walk and one update launch per engine
-iteration, dense and sparse.
+update, the sparse walk, the Choice kernel and the selection, the 2-opt
+reduction over a stack's folded rows) bitwise single launches and the
+plain versions, and the batched engine one walk and one update launch
+per engine iteration, dense and sparse, one ``choice_info`` launch per
+engine iteration on the ``pallas`` construction and one ``two_opt_best``
+launch per local-search round of the stack.
 """
 import numpy as np
 import pytest
@@ -586,3 +589,128 @@ def test_batched_sparse_engine_walks_once_per_engine_iteration(kw):
                                      device="cpu")
     for a, b in zip(tree.flatten(got), tree.flatten(want)):
         assert torch.equal(a.cpu(), b)
+
+
+def _stack_choice_operands(dev, n, b=3):
+    rng = np.random.default_rng(n + 7 * b)
+    tau = torch.tensor((rng.random((b, n, n)) * 1e-2 + 1e-3).astype(
+        np.float32), device=dev)
+    eta = torch.tensor((1.0 / (rng.random((b, n, n)) * 100 + 1)).astype(
+        np.float32), device=dev)
+    n_act = (n, n - 14, n - 54)
+    return tau, eta, n_act, torch.tensor(n_act, dtype=torch.int32,
+                                         device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [304, 301])       # float4 and scalar passes
+def test_batched_choice_info_kernel_bitwise_single_launches(n):
+    """One Choice launch over a stack (mixed n_actual, the middle instance
+    inactive) is bitwise the single launches and the plain version."""
+    dev = cuda_device()
+    tau, eta, n_act, na_dev = _stack_choice_operands(dev, n)
+    active = (True, False, True)
+    for alpha, beta in ((1.0, 2.0), (2.0, 3.0)):
+        ops.reset_launch_counts()
+        got = ops.choice_info(tau, eta, alpha, beta, na_dev, active)
+        assert ops.launch_counts()["choice_info"] == 1
+        assert ops.slot_launch_counts()["choice_info"] == 2
+        want = ci.choice_info_plain(tau, eta, alpha, beta, na_dev, active)
+        for b in (0, 2):
+            assert torch.equal(got[b], want[b]), (alpha, b)
+            assert torch.equal(got[b], ci.choice_info(
+                tau[b], eta[b], alpha, beta, n_act[b])), (alpha, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_batched_tour_select_kernel_bitwise_single_launches(mode):
+    """One selection launch over (3, 40, n) rows (mixed n_actual, the
+    first instance inactive: its ants pick 0) is bitwise the single
+    launches and the plain version."""
+    dev = cuda_device()
+    n, m = 304, 40
+    tau, eta, n_act, na_dev = _stack_choice_operands(dev, n)
+    rng = np.random.default_rng(m)
+    rows = ci.choice_info_plain(tau, eta, 1.0, 2.0)[:, :m].contiguous()
+    visited = torch.tensor(rng.random((3, m, n)) < 0.5, device=dev)
+    rand = torch.tensor((rng.random((3, m, n)) * (1 - 1e-6) + 1e-6).astype(
+        np.float32), device=dev)
+    active = (False, True, True)
+    ops.reset_launch_counts()
+    got = ops.tour_select(rows, visited, rand, mode, na_dev, active)
+    assert ops.launch_counts()["tour_select"] == 1
+    assert ops.slot_launch_counts()["tour_select"] == 2
+    assert not got[0].any()
+    assert torch.equal(got, ts.tour_select_plain(rows, visited, rand, mode,
+                                                 na_dev, active))
+    for b in (1, 2):
+        assert torch.equal(got[b], ts.tour_select(rows[b], visited[b],
+                                                  rand[b], mode, n_act[b]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["best", "first"])
+def test_two_opt_best_fold_bitwise_single_launches(mode):
+    """A stack's 2-opt moves folded into (B * m, M) rows: one launch is
+    bitwise one launch per instance and the plain reduction."""
+    from repro_torch.solver import batch
+    dev = cuda_device()
+    ns, m = (304, 290, 250, 301), 40
+    bt = batch.make_batch([tsp.random_instance(n, seed=n) for n in ns], 304,
+                          nn_k=16, device=dev)
+    rng = np.random.default_rng(3)
+    tours = torch.tensor(np.stack([np.stack([np.concatenate(
+        [rng.permutation(n), np.arange(n, 304)]) for _ in range(m)])
+        for n in ns]).astype(np.int32), device=dev)
+    na_dev = torch.tensor(ns, dtype=torch.int32, device=dev)
+    operands = localsearch._two_opt_operands(bt.problem.dist, bt.problem.nn,
+                                         tours, na_dev)
+    flat = [x.reshape(len(ns) * m, -1) for x in operands[:5]]
+    got = to.two_opt_best(*flat, thr=1e-3, mode=mode)
+    want = to.two_opt_best_plain(*flat, thr=1e-3, mode=mode)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for b in range(len(ns)):
+        one = to.two_opt_best(*(x[b * m:(b + 1) * m].contiguous()
+                                for x in flat), thr=1e-3, mode=mode)
+        assert torch.equal(got[0][b * m:(b + 1) * m], one[0]), b
+        assert torch.equal(got[1][b * m:(b + 1) * m], one[1]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(variant="as", construction="pallas"),
+                                dict(variant="mmas", local_search="2opt",
+                                     ls_rounds=6, ls_every=2)])
+def test_batched_pallas_and_local_search_step_the_stack(kw):
+    """run_batch on the ``pallas`` construction (one ``choice_info`` launch
+    and max n_actual - 1 ``tour_select`` launches per engine iteration) and
+    with local search (one ``two_opt_best`` launch per round of the
+    stack): the stack bitwise the CPU's and every slot its solo run."""
+    from repro_torch import tree
+    from repro_torch.solver import engine
+    dev = cuda_device()
+    insts = [tsp.random_instance(n, seed=n) for n in (40, 57, 64, 33)]
+    cfg = aco.ACOConfig(use_pallas=True, iterations=4, **kw)
+    its = [4, 3, 4, 2]
+    ops.reset_launch_counts()
+    localsearch.improve.rounds = 0
+    got, _ = engine.solve_instances(insts, cfg, iterations=its, n_pad=64,
+                                    device=dev)
+    counts = ops.launch_counts()
+    if cfg.construction == "pallas":
+        assert counts["choice_info"] == 4
+        assert counts["tour_select"] == 4 * 63
+    else:
+        assert counts["fused_walk"] == 4
+        assert counts["two_opt_best"] == localsearch.improve.rounds > 0
+    want, _ = engine.solve_instances(insts, cfg, iterations=its, n_pad=64,
+                                     device="cpu")
+    for a, b in zip(tree.flatten(got), tree.flatten(want)):
+        assert torch.equal(a.cpu(), b)
+    for i, inst in enumerate(insts):
+        solo, _ = engine.solve_instances([inst], cfg, iterations=[its[i]],
+                                         seeds=[cfg.seed + i], n_pad=64,
+                                         device=dev)
+        for a, b in zip(tree.flatten(tree.index(got, i)),
+                        tree.flatten(tree.index(solo, 0))):
+            assert torch.equal(a, b)

@@ -1,7 +1,9 @@
 """Port parity for the batched solver: repro_torch.solver against repro.solver.
 
-The port's engine is a host loop of single-instance colony steps over the
-slots of a stacked state; the reference's is one jitted ``while_loop`` of
+The port's engine steps the whole stack at once on the dense kernel
+routes (fused or ``pallas`` construction, with or without local search)
+and is a host loop of single-instance colony steps over the slots of a
+stacked state elsewhere; the reference's is one jitted ``while_loop`` of
 the vmapped step.  Held against ``repro.solver.engine`` directly, on the
 four instances of tests/test_solver.py in bucket 16 (every slot masked):
 
@@ -186,6 +188,22 @@ def test_engine_kernel_route_equals_reference_kernel_route(variant):
     sj, st, _ = _both(dict(variant=variant, use_pallas=True, rho=0.1,
                            iterations=6))
     assert_states(sj, st, tau_exact=variant == "mmas")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(use_pallas=True, construction="pallas"),
+    dict(use_pallas=True, local_search="2opt", ls_rounds=4),
+])
+def test_engine_stacked_kernel_routes_equal_reference(kw):
+    """The kernel routes whose whole bucket the port steps as one stack
+    (the ``pallas`` construction: one ``choice_info`` and one
+    ``tour_select`` call a step; local search: one ``two_opt_best`` call a
+    round) against the reference's vmapped engine (Pallas in interpret
+    mode), under ``test_kernel_route_vs_jax_kernel_route``'s contract:
+    tours, lengths, iterations and keys bitwise; AS tau (several ants'
+    deposits a cell) at TOL."""
+    sj, st, _ = _both(dict(iterations=6, **kw))
+    assert_states(sj, st, tau_exact=False)
 
 
 @pytest.mark.parametrize("kw", [dict(variant="mmas", tau_dtype="int8"),

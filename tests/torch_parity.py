@@ -92,3 +92,32 @@ class OnCard:
 
     def data_ptr(self):
         return self.t.data_ptr()
+
+
+def per_slot_steps(problem, states, budgets, cfg, max_iters, patience=0):
+    """The reference semantics of a batched engine: each slot of a stacked
+    ``problem``/``states`` stepped alone by ``colony_step`` until its
+    budget or patience stops it -> (states, since, metrics rows)."""
+    from repro_torch import tree
+    from repro_torch.core import aco
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.solver import batch
+    out, since_out, rows = [], [], []
+    for b in range(states.key.shape[0]):
+        p, s = batch.slot_problem(problem, b), tree.index(states, b)
+        since = torch.zeros((), dtype=torch.int32)
+        row = tree.index(obs_metrics.zeros_batch(1, "cpu"), 0)
+        for _ in range(max_iters):
+            if int(s.iteration) >= budgets[b] or \
+                    (patience and int(since) >= patience):
+                break
+            res = aco.colony_step(p, s, cfg)
+            improved = res[0].best_len < s.best_len
+            since = torch.where(improved, torch.zeros_like(since), since + 1)
+            if cfg.metrics:
+                row = res[2]._replace(stagnation=since)
+            s = res[0]
+        out.append(s)
+        since_out.append(since)
+        rows.append(row)
+    return tree.stack(out), torch.stack(since_out), obs_metrics.stack(rows)

@@ -153,9 +153,27 @@ non-zero:
    requests of 1500-2392 cities, buckets 2048 / 4096, ten iterations) over
    fp32 and int8 pages: each exits 0 with every request completed, its
    results equal to an in-process ``SolverService`` over the same
-   requests (whose launches are counted); ``--shard`` and ``--sparse
-   --stream`` exit 2 with one line on stderr.  Prints instances/s and
-   mean / max latency from each report;
+   requests (whose launches are counted); the dense drain with
+   ``--shard`` (a mesh of the card's one position) equal to the unsharded
+   drain per request; ``--sparse --shard`` and ``--sparse --stream`` exit
+   2 with one line on stderr.  Prints instances/s and mean / max latency
+   from each report;
+   mesh      -- ROADMAP item 14 over meshes whose positions repeat the
+   card: four MMAS islands at n = m = 1002 (two rounds of two iterations,
+   plain and with 2-opt polish of the immigrants; one ``fused_walk`` and
+   one ``pheromone_update_tours`` launch per island iteration) and one
+   round timed beside four solo colonies, the exchange alone; four AS +
+   2-opt islands at n = 100 card == CPU; the city-sharded colony at
+   n = m = 1002 over S = 3 column slabs (two iterations) and over a
+   (2, 3) mesh with the ants split over ``data`` (one), the edge-stream
+   ``pheromone_update`` launched once per slab and iteration, one
+   iteration beside S = 1; the edge-stream kernel on a (1002, 334) slab
+   against its plain version, timed with its bound and the library
+   call; the sharded colony at n = 96, S = 4 card == CPU; ``run_batch``
+   over four positions on the [batched] bucket bitwise the unsharded run
+   per slot and timed beside it; ``SolverService`` and
+   ``StreamingSolverService`` over four positions bitwise their
+   unsharded runs;
 6. profile -- device busy time and idle share of one AS iteration at
    n = 1002, and the kernels that take most of it; the split of one MMAS
    + 2-opt iteration over an int8 store into construction, local search
@@ -163,10 +181,12 @@ non-zero:
    at n = 2392 and the profile of a sparse fp32 one;
 7. one JSON line listing every kernel, then the card's ``nvidia-smi``
    line, then the last line ``{"ok": true, "device": {...}}``.  The
-   one-step K1/K6, the edge-stream K2 and the one-step K7 keep the
-   reference kernels' own signatures and are checked and timed, but no
-   path launches them any more: their entries report 0 launches and name
-   the kernel that took their place (``superseded_by``).
+   one-step K1/K6 and the one-step K7 keep the reference kernels' own
+   signatures and are checked and timed, but no path launches them any
+   more: their entries report 0 launches and name the kernel that took
+   their place (``superseded_by``).  The edge-stream K2 is launched by the
+   city-sharded colony ([mesh]); its entry holds the (1002, 334) slab's
+   numbers.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -246,7 +266,6 @@ SUPERSEDED = {
     "fused_select": "fused_walk",
     "fused_select_quant_int8": "fused_walk_quant_int8",
     "fused_select_quant_bf16": "fused_walk_quant_bf16",
-    "pheromone_update": "pheromone_update_tours",
     "sparse_select": "sparse_walk",
     "sparse_select_quant_int8": "sparse_walk_quant_int8",
     "sparse_select_quant_bf16": "sparse_walk_quant_bf16",
@@ -2765,7 +2784,7 @@ def phase_cli(launches: dict) -> None:
     refused = {label: subprocess.Popen(
         _cli_cmd(argv), cwd=root, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for label, argv in (
-            ("--shard", CLI_DENSE + ["--shard"]),
+            ("--sparse --shard", CLI_SPARSE + ["--shard"]),
             ("--sparse --stream", CLI_SPARSE + CLI_STREAM))}
     per = _flag(CLI_DENSE, "--max-batch")
 
@@ -2791,6 +2810,17 @@ def phase_cli(launches: dict) -> None:
     rep, counts = _cli_main("dense drain", CLI_DENSE)
     for kernel in ("fused_walk", "pheromone_update_tours"):
         count("dense drain", counts, kernel, engine_its(rep, its))
+    # --shard over the card's one position: the same report per request,
+    # the same launches
+    shard, counts = _cli_main("dense drain --shard", CLI_DENSE + ["--shard"])
+    if _rows(shard) != _rows(rep) or shard["stats"]["devices"] != 1:
+        raise AssertionError("cli dense drain --shard: results differ from "
+                             f"the unsharded drain:\n{_rows(shard)}\n"
+                             f"{_rows(rep)}")
+    for kernel in ("fused_walk", "pheromone_update_tours"):
+        count("dense drain --shard", counts, kernel, engine_its(rep, its))
+    log("[cli] dense drain --shard (one position): every request equal to "
+        "the unsharded drain, the same walk and update launches")
     # the dense drain with 2-opt: one two_opt_best launch per round of
     # each job's stack (localsearch.improve counts the stacks' rounds)
     from repro_torch.core import localsearch
@@ -2859,6 +2889,374 @@ def phase_cli(launches: dict) -> None:
             raise AssertionError(f"cli {label}: exit {proc.returncode}, "
                                  f"stderr {err[-2000:]!r}")
         log(f"[cli] {label}: exit 2, one line: {lines[0][:120]}")
+
+
+# [mesh]: the island model, the city-sharded colony and the instance-sharded
+# engine and services over meshes whose positions repeat the one card.
+MESH_N = 1002                  # pr1002's size, m = n ants
+MESH_ISLANDS, MESH_EVERY, MESH_ROUNDS = 4, 2, 2
+MESH_SLABS = 3                 # 1002 % 3 == 0: (1002, 334) column slabs
+MESH_SMALL_ISL_N = 100         # card == CPU, 4 islands
+MESH_SMALL_SC_N, MESH_SMALL_SC_S = 96, 4   # card == CPU, sharded colony
+MESH_SERVICE_NS = (613, 801, 1002, 700, 900)
+
+
+def _mesh_of(shape, names, dev=None):
+    """A mesh of ``shape`` whose every position is ``dev`` (the card by
+    default)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    if dev is None:
+        dev = torch.device(DEV, 0) if DEV == "cuda" else torch.device(DEV)
+    devs = np.empty(int(np.prod(shape)), dtype=object)
+    devs[:] = [dev] * devs.size
+    return Mesh(devs.reshape(shape), names)
+
+
+def _timed(fn):
+    """(result, wall seconds) of ``fn()`` between two synchronisations."""
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return out, time.perf_counter() - t0
+
+
+def _mesh_islands(launches: dict) -> None:
+    """Four islands on one card at n = m = 1002, two rounds of two
+    iterations, with and without 2-opt polish; one fused_walk and one
+    pheromone_update_tours launch per island iteration; a round and its
+    exchange timed beside four solo colonies; four islands at n = 100 on
+    the card equal to the same islands on the CPU."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import aco, collectives, islands, tsp
+    from repro_torch.kernels import ops
+    mesh = _mesh_of((MESH_ISLANDS,), ("data",))
+    inst = tsp.random_instance(MESH_N, seed=7)
+    its = MESH_EVERY * MESH_ROUNDS
+    for label, kw in (("plain", {}),
+                      ("2-opt polish", dict(local_search="2opt",
+                                            ls_tours="iteration_best"))):
+        cfg = islands.IslandConfig(
+            aco=aco.ACOConfig(variant="mmas", use_pallas=True, **kw),
+            exchange_every=MESH_EVERY, rounds=MESH_ROUNDS, mix_lambda=0.1)
+        _sync()
+        ops.reset_launch_counts()
+        st, secs = _timed(lambda: islands.run_islands(inst, cfg, mesh))
+        counts = ops.launch_counts()
+        want = {"fused_walk": MESH_ISLANDS * its,
+                "pheromone_update_tours": MESH_ISLANDS * its}
+        if kw:
+            if counts["two_opt_best"] < 1:
+                raise AssertionError("mesh islands 2-opt: no two_opt_best "
+                                     "launch")
+            want["two_opt_best"] = counts["two_opt_best"]
+        _check_counts(f"mesh islands {label}", counts, want)
+        for k in want:
+            launches[k] = launches.get(k, 0) + counts[k]
+        best, c_nn = _check_run(f"mesh islands {label}", tree.index(
+            st, int(torch.argmin(st.best_len))), inst, MESH_N, 1.3)
+        ratio = best / c_nn
+        if not torch.isfinite(st.tau).all():
+            raise AssertionError(f"mesh islands {label}: tau not finite")
+        log(f"[mesh] islands {label}: {MESH_ISLANDS} islands on one card, "
+            f"MMAS n=m={MESH_N}, {MESH_ROUNDS} rounds x {MESH_EVERY} "
+            f"iterations: {secs:.3f} s; launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
+            + f"; global best {best:.1f} ({ratio:.3f} x NN tour), islands' "
+            f"best " + " ".join(f"{float(b):.1f}" for b in st.best_len))
+
+    # one round (exchange_every iterations + the exchange) beside the same
+    # iterations of four solo colonies, set-up excluded, and the exchange
+    # alone
+    dev0 = mesh.device_list()[0]
+    for label, kw in (("plain", {}),
+                      ("2-opt polish", dict(local_search="2opt",
+                                            ls_tours="iteration_best"))):
+        acfg = aco.ACOConfig(variant="mmas", use_pallas=True, **kw)
+        cfg = islands.IslandConfig(aco=acfg, exchange_every=MESH_EVERY,
+                                   rounds=1, mix_lambda=0.1)
+        probs = [aco.make_problem(inst, acfg.nn_k, dev0)] * MESH_ISLANDS
+        first = islands.scatter_islands(islands.init_island_states(
+            inst, cfg, MESH_ISLANDS, device=dev0), mesh.device_list())
+
+        def solo():
+            return [aco.run_scan(p, s, acfg, MESH_EVERY)[0]
+                    for p, s in zip(probs, first)]
+
+        def one_round():
+            return islands._exchange(solo(), probs, cfg, "data", mesh)
+        one_round()                                                # warm
+        _, round_s = _timed(one_round)
+        states, solo_s = _timed(solo)
+        _, ex_s = _timed(lambda: islands._exchange(states, probs, cfg,
+                                                   "data", mesh))
+        _, pm_s = _timed(lambda: collectives.pmean(
+            [s.tau for s in states], "data", mesh))
+        log(f"[mesh] one island round, {label}: {MESH_ISLANDS} islands x "
+            f"{MESH_EVERY} iterations + exchange {round_s * 1e3:.1f} ms | "
+            f"{MESH_ISLANDS} solo colonies x {MESH_EVERY} iterations "
+            f"{solo_s * 1e3:.1f} ms | ratio {round_s / solo_s:.3f} | the "
+            f"exchange alone (ring, polish, deposit, pmean, mix) "
+            f"{ex_s * 1e3:.2f} ms, of which pmean of {MESH_ISLANDS} (n, n) "
+            f"tau {pm_s * 1e3:.2f} ms")
+
+    # card == CPU at n = 100
+    small = tsp.random_instance(MESH_SMALL_ISL_N, seed=3)
+    cfg = islands.IslandConfig(
+        aco=aco.ACOConfig(variant="as", rho=0.1, use_pallas=True,
+                          local_search="2opt", ls_tours="iteration_best"),
+        exchange_every=2, rounds=2, mix_lambda=0.1)
+    card = islands.run_islands(small, cfg, mesh)
+    cpu = islands.run_islands(small, cfg, _mesh_of((MESH_ISLANDS,),
+                                                   ("data",), "cpu"))
+    for f in ("best_tour", "best_len", "iteration", "key"):
+        if not torch.equal(getattr(card, f).cpu(), getattr(cpu, f)):
+            raise AssertionError(f"mesh islands n={MESH_SMALL_ISL_N}: {f} "
+                                 "card != CPU")
+    torch.testing.assert_close(card.tau.cpu(), cpu.tau, rtol=1e-5,
+                               atol=1e-7)
+    log(f"[mesh] islands n={MESH_SMALL_ISL_N}, AS + 2-opt polish, 4 "
+        f"islands: card == CPU (tours, lengths, keys bitwise; tau max abs "
+        f"diff {float((card.tau.cpu() - cpu.tau).abs().max()):.3e})")
+
+
+def _slab_stream(n, s, m, seed):
+    """A (n, n/s) slab's deposit operands as the sharded step builds them:
+    the edge stream of m random tours, ``to`` in slab 1's column frame and
+    -1 outside it (slab 0 when s = 1)."""
+    import torch
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    dev = DEV
+    nl = n // s
+    c0 = nl if s > 1 else 0
+    tours = torch.stack([torch.randperm(n, generator=gen, device=dev)
+                         for _ in range(m)]).to(torch.int32)
+    frm = tours.reshape(-1)
+    to = torch.roll(tours, -1, dims=-1).reshape(-1)
+    lens = torch.rand(m, generator=gen, device=dev) * 1e3 + 1e3
+    wrep = torch.repeat_interleave(1.0 / lens, n)
+    f2, t2 = torch.cat([frm, to]), torch.cat([to, frm]) - c0
+    t2 = torch.where((t2 >= 0) & (t2 < nl), t2, torch.full_like(t2, -1))
+    tau = torch.rand((n, nl), generator=gen, device=dev) * 1e-3 + 1e-4
+    return tau, f2, t2, torch.cat([wrep, wrep])
+
+
+def _mesh_sharded_colony(launches: dict, results: dict) -> None:
+    """The city-sharded colony on one card at n = m = 1002: S = 3 column
+    slabs, the edge-stream pheromone_update launched once per slab and
+    iteration; a (2, 3) mesh with the ants split over ``data``; one
+    iteration at S = 3 beside S = 1; the edge-stream kernel on a (1002,
+    334) slab against its plain version, timed with its bound; the colony
+    at n = 96, S = 4 on the card equal to the CPU's."""
+    import torch
+    from repro_torch.core import aco, islands, tsp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pheromone_update as pu
+    inst = tsp.random_instance(MESH_N, seed=11)
+    cfg = aco.ACOConfig(use_pallas=True, seed=2)
+    iters = {}
+    for label, shape, ants, n_it in (("S=3", (1, MESH_SLABS), None, 2),
+                                     ("(2, 3) ants over data",
+                                      (2, MESH_SLABS), "data", 1)):
+        mesh = _mesh_of(shape, ("data", "model"))
+        _sync()
+        ops.reset_launch_counts()
+        st, secs = _timed(lambda: islands.run_sharded_colony(
+            inst, cfg, mesh, iterations=n_it, ants_axis=ants))
+        counts = ops.launch_counts()
+        _check_counts(f"mesh sharded colony {label}", counts,
+                      {"pheromone_update": mesh.size * n_it})
+        launches["pheromone_update"] = launches.get("pheromone_update", 0) \
+            + counts["pheromone_update"]
+        best, c_nn = _check_run(f"mesh sharded colony {label}", st, inst,
+                                MESH_N, 1.3)
+        ratio = best / c_nn
+        for t in st.tau:
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"mesh sharded colony {label}: tau not "
+                                     "finite")
+        iters[label] = secs / n_it
+        log(f"[mesh] sharded colony {label}: AS n=m={MESH_N}, {n_it} "
+            f"iterations over {mesh.size} positions of one card: "
+            f"{secs:.2f} s; pheromone_update (edge stream, ({MESH_N}, "
+            f"{MESH_N // MESH_SLABS}) slabs) launched "
+            f"{counts['pheromone_update']} times; best "
+            f"{float(st.best_len):.1f} ({ratio:.3f} x NN tour)")
+    one = _mesh_of((1, 1), ("data", "model"))
+    _, s1 = _timed(lambda: islands.run_sharded_colony(inst, cfg, one,
+                                                      iterations=1))
+    log(f"[mesh] sharded colony, one iteration: S=3 {iters['S=3']:.2f} s "
+        f"| S=1 {s1:.2f} s | ratio {iters['S=3'] / s1:.3f}")
+
+    # the edge-stream kernel on the slab shape the S = 3 step launches it
+    # at, against its plain version (atomic order: rtol 1e-5 / atol 1e-7)
+    n, nl = MESH_N, MESH_N // MESH_SLABS
+    tau, f2, t2, w2 = _slab_stream(n, MESH_SLABS, n, 5)
+    got = pu.pheromone_update(tau, f2, t2, w2, 0.5)
+    want = pu.pheromone_update_plain(tau, f2, t2, w2, 0.5)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+    err = float((got - want).abs().max())
+    valid = t2 >= 0
+    flat = (f2[valid].long() * nl + t2[valid].long())
+    wv = w2[valid]
+    n_valid = int(valid.sum())
+
+    def library():
+        return (tau * 0.5).view(-1).index_add_(0, flat, wv)
+    ms = device_ms(lambda: pu.pheromone_update(tau, f2, t2, w2, 0.5))
+    wall = cuda_ms(lambda: pu.pheromone_update(tau, f2, t2, w2, 0.5))
+    plain_ms = device_ms(lambda: pu.pheromone_update_plain(tau, f2, t2, w2,
+                                                           0.5))
+    lib_split = device_split(library)
+    lib_ms = sum(lib_split.values()) / 1e3 or device_ms(library)
+    lib_wall = cuda_ms(library)
+    # each input read once, the slab written once: tau and out, the whole
+    # stream (frm, to, w); the work this data needs: one multiply a cell
+    # and one add per edge that lands in the slab
+    nbytes = n * nl * 8 + f2.numel() * 12
+    b_ms, b_by = bound(nbytes, n * nl + n_valid)
+    results["pheromone_update"] = {
+        "max_abs_err": err, "ms": wall if ms is None else ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms}
+    log(f"[mesh] pheromone_update (edge stream) on a ({n}, {nl}) slab, "
+        f"E={f2.numel()} edges ({n_valid} in the slab): device "
+        f"{(wall if ms is None else ms) * 1e3:.2f} us, per call "
+        f"{wall * 1e3:.1f} us | plain device {plain_ms * 1e3:.1f} us | "
+        f"library (mul + index_add_ of the slab's edges) device "
+        f"{lib_ms * 1e3:.1f} us ("
+        + ", ".join(f"{k[:40]} {v:.1f}" for k, v in lib_split.items())
+        + f"), per call {lib_wall * 1e3:.1f} us | bound {b_ms * 1e3:.2f} "
+        f"us by {b_by} "
+        f"({nbytes / 1e6:.1f} MB) | max abs err {err:.3e}")
+
+    # card == CPU at n = 96 over S = 4 slabs: the kernel route on the card
+    # against the plain versions on the CPU, two iterations
+    small = tsp.random_instance(MESH_SMALL_SC_N, seed=4)
+    scfg = aco.ACOConfig(use_pallas=True, rho=0.1, seed=6)
+    shape = (1, MESH_SMALL_SC_S)
+    card = islands.run_sharded_colony(small, scfg,
+                                      _mesh_of(shape, ("data", "model")),
+                                      iterations=2)
+    cmesh = _mesh_of(shape, ("data", "model"), "cpu")
+    cpu = islands.run_sharded_colony(small, scfg, cmesh, iterations=2)
+    for f in ("best_tour", "best_len", "iteration", "key"):
+        if not torch.equal(getattr(card, f).cpu(), getattr(cpu, f)):
+            raise AssertionError(f"mesh sharded colony n={MESH_SMALL_SC_N}: "
+                                 f"{f} card != CPU")
+    tc = islands.unshard_columns([t.cpu() for t in card.tau], cmesh)
+    tp = islands.unshard_columns(cpu.tau, cmesh)
+    torch.testing.assert_close(tc, tp, rtol=1e-5, atol=1e-7)
+    log(f"[mesh] sharded colony n={MESH_SMALL_SC_N}, S={MESH_SMALL_SC_S}, "
+        f"2 iterations: card (edge-stream kernel) == CPU (plain): tours, "
+        f"lengths, keys bitwise, tau max abs diff "
+        f"{float((tc - tp).abs().max()):.3e} (rtol 1e-5 / atol 1e-7)")
+
+
+def _mesh_placement(launches: dict) -> None:
+    """run_batch over a 4-position mesh of the card on the [batched]
+    bucket (four MMAS slots, bucket 1024) bitwise the unsharded run per
+    slot, timed beside it; both services over a 4-position mesh bitwise
+    their unsharded runs."""
+    from repro_torch.core import aco, tsp
+    from repro_torch.kernels import ops
+    from repro_torch.solver import batch, engine, service, streaming
+    mesh = _mesh_of((4,), ("data",))
+    insts = [tsp.random_instance(n, seed=n) for n in BATCH_NS]
+    budgets = list(BATCH_BUDGETS)
+    cfg = aco.ACOConfig(variant="mmas", use_pallas=True,
+                        iterations=max(budgets))
+    b = batch.make_batch(insts, BATCH_PAD, cfg.nn_k, device=DEV)
+
+    def run(m):
+        st = engine.init_states(insts, cfg, BATCH_SEEDS, BATCH_PAD,
+                                device=DEV)
+        _sync()
+        return _timed(lambda: engine.run_batch(
+            b.problem, st, budgets, cfg, max(budgets), donate=True,
+            mesh=m)[0])
+    run(None)
+    run(mesh)                                                      # warm
+    ops.reset_launch_counts()
+    sharded, sh_s = run(mesh)
+    counts = ops.launch_counts()
+    plain, pl_s = run(None)
+    # one shard a slot: each slot's own budget of walks and updates
+    _check_counts("mesh run_batch", counts,
+                  {"fused_walk": sum(budgets),
+                   "pheromone_update_tours": sum(budgets)})
+    for k in ("fused_walk", "pheromone_update_tours"):
+        launches[k] = launches.get(k, 0) + counts[k]
+    if not _leaves_equal(sharded, plain):
+        raise AssertionError("mesh run_batch: sharded != unsharded")
+    sharded2, sh2_s = run(mesh)
+    plain2, pl2_s = run(None)
+    # device busy time of each call (torch.profiler, one call)
+    busy = {tag: sum(device_split(lambda m=m: run(m), reps=1).values())
+            / 1e3 for tag, m in (("sharded", mesh), ("unsharded", None))}
+    log(f"[mesh] run_batch over 4 positions of one card, MMAS bucket "
+        f"{BATCH_PAD}, n={list(BATCH_NS)}, budgets {budgets}: bitwise the "
+        f"unsharded run in every slot; fused_walk={counts['fused_walk']} "
+        f"launches (one shard a slot); wall sharded {sh_s * 1e3:.1f} / "
+        f"{sh2_s * 1e3:.1f} ms, unsharded {pl_s * 1e3:.1f} / "
+        f"{pl2_s * 1e3:.1f} ms, ratio {sh_s / pl_s:.3f} / "
+        f"{sh2_s / pl2_s:.3f}; device busy sharded {busy['sharded']:.1f} "
+        f"ms (idle share {1 - busy['sharded'] / sh2_s / 1e3:.3f}), "
+        f"unsharded {busy['unsharded']:.1f} ms (idle share "
+        f"{1 - busy['unsharded'] / pl2_s / 1e3:.3f})")
+
+    # both services over the mesh against their unsharded runs
+    reqs = [tsp.random_instance(n, seed=200 + i)
+            for i, n in enumerate(MESH_SERVICE_NS)]
+    scfg = aco.ACOConfig(variant="mmas", use_pallas=True, metrics=True,
+                         iterations=3)
+    out = {}
+    for tag, m in (("mesh", mesh), ("one", None)):
+        svc = service.SolverService(scfg, max_batch=4, device=DEV, mesh=m)
+        for i, inst in enumerate(reqs):
+            svc.submit(inst, iterations=2 + i % 2, seed=i)
+        ops.reset_launch_counts()
+        out[tag] = svc.run()
+        if tag == "mesh":
+            c = ops.launch_counts()
+            launches["fused_walk"] += c["fused_walk"]
+            launches["pheromone_update_tours"] += c["pheromone_update_tours"]
+            if svc.stats["devices"] != 4:
+                raise AssertionError("mesh service: devices != 4")
+        st = streaming.StreamingSolverService(scfg, max_batch=2, chunk=2,
+                                              device=DEV, mesh=m)
+        for i, inst in enumerate(reqs):
+            st.submit(inst, iterations=2 + i % 2, seed=i)
+        out["stream_" + tag] = sorted(st.run_until_drained(),
+                                      key=lambda r: r.request_id)
+        if tag == "mesh" and st.stats["pools"] < 2:
+            raise AssertionError(f"mesh streaming: {st.stats['pools']} "
+                                 "pools")
+    for a_tag, b_tag in (("mesh", "one"), ("stream_mesh", "stream_one")):
+        for x, y in zip(out[a_tag], out[b_tag]):
+            if (x.request_id, x.best_len, x.iterations) != \
+                    (y.request_id, y.best_len, y.iterations) or \
+                    not (x.best_tour == y.best_tour).all() or \
+                    x.metrics != y.metrics:
+                raise AssertionError(f"mesh {a_tag}: request "
+                                     f"{x.request_id} != unsharded")
+    log(f"[mesh] SolverService and StreamingSolverService over 4 positions "
+        f"of one card ({len(reqs)} MMAS requests, n {list(MESH_SERVICE_NS)}"
+        f"): every result "
+        f"bitwise the unsharded service's (tour, length, iterations, "
+        f"metrics row)")
+
+
+def phase_mesh(launches: dict, results: dict) -> None:
+    """[mesh]: ROADMAP item 14 on one card, positions repeating it."""
+    t0 = time.perf_counter()
+    _mesh_islands(launches)
+    _mesh_sharded_colony(launches, results)
+    _mesh_placement(launches)
+    log(f"[mesh] phase wall {time.perf_counter() - t0:.1f} s")
 
 
 def phase_sparse_split() -> None:
@@ -3129,6 +3527,7 @@ def main() -> int:
     phase_service(launches)
     phase_streaming(launches)
     phase_cli(launches)
+    phase_mesh(launches, results)
     phase_profile()
     phase_split()
     phase_sparse_split()

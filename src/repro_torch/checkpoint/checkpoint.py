@@ -13,10 +13,10 @@ The PyTorch port of ``repro.checkpoint.checkpoint``:
 - **On the template's device**: ``load_pytree`` puts each leaf where the
   template's leaf lives, so a state saved from the card restores onto the
   card.
-
-Restoring onto a mesh (``restore_to_sharding``) and re-splitting island
-states (``reshard_islands``) wait for multi-device placement (ROADMAP
-queue 1 item 14).
+- **Elastic restore**: ``restore_to_sharding`` puts each leaf on a target
+  device, or splits stacked leaves one row per mesh position, so a
+  checkpoint written on one mesh restarts on another; ``reshard_islands``
+  re-splits stacked island states across a different island count.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import tree
+from ..core import sampling
 
 # torch dtypes NumPy has no type for: stored as raw bits of this width
 _RAW = {torch.bfloat16: (torch.int16, np.int16)}
@@ -84,6 +85,63 @@ def load_pytree(path: str, template: Any) -> Any:
                 t = t.view(_RAW_BY_NAME[raw[str(i)]][0])
             leaves.append(t.to(like.device))
     return tree.unflatten(template, leaves)
+
+
+def restore_to_sharding(path: str, template: Any, shardings: Any) -> Any:
+    """Restore ``path`` in ``template``'s structure onto target devices.
+
+    ``shardings`` is one device for every leaf, a tree like ``template``
+    with one device per leaf, or a list of per-position devices: every
+    leaf is then stacked with one row per position (island states), and
+    the result is a list of per-position trees, row i on ``shardings[i]``.
+    """
+    host = load_pytree(path, tree.map(lambda x: x.to("cpu"), template))
+    if isinstance(shardings, (str, torch.device)):
+        return tree.map(lambda x: x.to(shardings), host)
+    if isinstance(shardings, list) and shardings and all(
+            isinstance(d, (str, torch.device)) for d in shardings) and \
+            not isinstance(template, list):
+        return [tree.map(lambda x: x[i].to(dev), host)
+                for i, dev in enumerate(shardings)]
+    devs = _device_leaves(shardings)
+    leaves = tree.flatten(host)
+    if len(devs) != len(leaves):
+        raise ValueError(f"{len(devs)} shardings for {len(leaves)} leaves")
+    return tree.unflatten(host, [x.to(d) for x, d in zip(leaves, devs)])
+
+
+def _device_leaves(shardings: Any) -> list:
+    """The device leaves of a tree of devices, in field order."""
+    if isinstance(shardings, (str, torch.device)):
+        return [torch.device(shardings)]
+    if shardings is None:
+        return []
+    out = []
+    for kid in shardings:
+        out.extend(_device_leaves(kid))
+    return out
+
+
+def reshard_islands(state: Any, n_new: int) -> Any:
+    """Elastically change the island count of a stacked ColonyState.
+
+    Shrink: keep the best ``n_new`` islands (by ``best_len``, in NumPy's
+    ``argsort`` order, as the reference).  Grow: tile the islands
+    round-robin and decorrelate the copies' keys with ``fold_in(key, i)``
+    for island i.
+    """
+    lens = state.best_len.cpu().numpy()
+    n_old = lens.shape[0]
+    if n_new <= n_old:
+        keep = torch.as_tensor(np.argsort(lens)[:n_new],
+                               device=state.best_len.device)
+        return tree.map(lambda x: x[keep], state)
+    reps = torch.tensor([i % n_old for i in range(n_new)],
+                        device=state.best_len.device)
+    out = tree.map(lambda x: x[reps], state)
+    keys = torch.stack([sampling.fold_in(k, i)
+                        for i, k in enumerate(out.key)])
+    return out._replace(key=keys)
 
 
 class CheckpointManager:
@@ -155,11 +213,15 @@ class CheckpointManager:
             self._q.join()
         self._raise_pending()
 
-    def restore(self, template: Any, step: Optional[int] = None
-                ) -> tuple[Any, int]:
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Any = None) -> tuple[Any, int]:
         """The newest (or ``step``'s) checkpoint in ``template``'s
-        structure, on its devices."""
+        structure, on its devices, or on ``shardings``
+        (``restore_to_sharding``)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
-        return load_pytree(self._path(step), template), step
+        path = self._path(step)
+        if shardings is not None:
+            return restore_to_sharding(path, template, shardings), step
+        return load_pytree(path, template), step

@@ -17,7 +17,11 @@ The stacked counterparts carry a batch of the reference's solver across:
 ``problem_batch_from_numpy`` (a ``ProblemBatch.problem``: fields (B, ...),
 ``n_actual`` (B,) becoming the port's host tuple), ``states_from_numpy`` /
 ``states_to_numpy`` (a dense or sparse state stack, leaves (B, ...)) and
-``metrics_to_numpy`` (StepMetrics rows).
+``metrics_to_numpy`` (StepMetrics rows).  Stacked island states (leading
+island axis) cross as any other stack.  The city-sharded colony's state
+crosses with its full (n, n) tau: ``sharded_state_from_numpy`` splits it
+into the mesh positions' column slabs, ``sharded_state_to_numpy`` joins
+them back.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 
 from . import device as _device
-from .core import aco, quant
+from .core import aco, islands, quant
 from .obs import metrics as obs_metrics
 from .sparse import store
 
@@ -101,6 +105,29 @@ def state_to_numpy(state: aco.ColonyState) -> dict:
         "iteration": state.iteration.cpu().numpy(),
         "key": state.key.cpu().numpy().astype(np.uint32),
     }
+
+
+def sharded_state_from_numpy(tau, best_tour, best_len, iteration, key,
+                             mesh, axis: str = "model"
+                             ) -> islands.ShardedColonyState:
+    """Reference ``ShardedColonyState`` fields (``tau`` the full (n, n)
+    matrix) -> the port's, tau split into per-position column slabs, the
+    replicated fields on the mesh's first position."""
+    home = mesh.device_list()[0]
+    st = state_from_numpy(tau, best_tour, best_len, iteration, key,
+                          device=home)
+    return islands.ShardedColonyState(
+        islands.shard_columns(st.tau, mesh, axis), st.best_tour,
+        st.best_len, st.iteration, st.key)
+
+
+def sharded_state_to_numpy(state: islands.ShardedColonyState, mesh,
+                           axis: str = "model") -> dict:
+    """The port's city-sharded state as NumPy arrays, tau joined back to
+    the full (n, n) matrix."""
+    return state_to_numpy(aco.ColonyState(
+        islands.unshard_columns(state.tau, mesh, axis), state.best_tour,
+        state.best_len, state.iteration, state.key))
 
 
 def problem_to_numpy(problem: aco.Problem) -> dict:

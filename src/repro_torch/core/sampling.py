@@ -100,6 +100,17 @@ def fold_in(key: torch.Tensor, data: IntLike) -> torch.Tensor:
     return _hash_counters(key, lo)[0]
 
 
+def fold_in_rows(keys: torch.Tensor, data: IntLike) -> torch.Tensor:
+    """A (B, 2) key stack, row b ``fold_in(keys[b], data[b])`` (``data``
+    a (B,) integer tensor or one host int for every row)."""
+    if not isinstance(data, torch.Tensor):
+        data = torch.full(keys.shape[:1], int(data) & _MASK,
+                          dtype=torch.int64, device=keys.device)
+    lo = data.to(device=keys.device, dtype=torch.int64) & _MASK
+    y0, y1 = threefry2x32(keys[:, 0], keys[:, 1], torch.zeros_like(lo), lo)
+    return torch.stack([y0, y1], dim=-1)
+
+
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32 values in int64).  A (B, 2)
     stack of keys gives (B, *shape), row b bitwise ``random_bits(key[b],

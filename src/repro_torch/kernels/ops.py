@@ -85,7 +85,7 @@ def check_kernel_route(masked: bool = False, hyper: bool = False,
                        local_search: Optional[str] = None,
                        construction: Optional[str] = None,
                        streaming: bool = False,
-                       tau_dtype: str = "fp32") -> None:
+                       tau_dtype: str = "fp32", mesh: bool = False) -> None:
     """Validate that the kernel/sparse route supports this problem shape.
 
     The single typed rejection point: every combination the kernels or
@@ -99,7 +99,8 @@ def check_kernel_route(masked: bool = False, hyper: bool = False,
       exponents are static);
     - sparse x roulette (needs a full row's cumsum), sparse x local search
       (dense distance matrix), sparse x another construction, sparse x
-      streaming (slot surgery assumes dense (n, n) state buffers);
+      streaming (slot surgery assumes dense (n, n) state buffers), sparse
+      x mesh (the placement layer shards dense problems);
     - ``tau_dtype``: 'fp32' | 'bf16' | 'int8', and not quantised together
       with ``Hyper``.
     """
@@ -159,6 +160,11 @@ def check_kernel_route(masked: bool = False, hyper: bool = False,
             "slot surgery assumes dense (n, n) ColonyState buffers. Use "
             "the batched sparse engine route (solver.engine."
             "solve_instances with sparse=True) or stream dense.")
+    if mesh:
+        raise UnsupportedKernelRoute(
+            "sparse batches are not wired through mesh sharding yet: the "
+            "placement layer shards dense Problem pytrees. Run sparse "
+            "batches single-device (mesh=None) or shard dense.")
 
 
 def choice_info(tau: torch.Tensor, eta: torch.Tensor, alpha: float = 1.0,

@@ -33,10 +33,17 @@ the drain.  ``--tenant a,b`` cycles tenant labels over the workload.
 ``--tau-dtype bf16|int8`` holds every resident pheromone matrix in low
 precision; compute stays fp32 (the kernels dequantise in registers).
 
+``--shard`` places the solver over a 1-D mesh (``launch.mesh``): batch
+jobs shard their instance axis across its positions, and streaming mode
+runs one resident pool per position.  ``--devices`` sizes the mesh: the
+first that many cards (default all local cards; more than there are
+fails as the reference's ``data_mesh`` does), or, with ``--device``, that
+many positions of the one device given (``--device cpu --shard --devices
+4`` runs a 4-position mesh on the CPU; default one position).
+
 Not ported yet, and refused with exit code 2 and one line on stderr:
-``--shard``/``--devices`` (multi-device placement, ROADMAP queue 1 item
-14) and ``--warmup``/``--warmup-async``/``--cache-dir``/
-``--bucket-ladder``/``--dry`` (the program cache, item 15).
+``--warmup``/``--warmup-async``/``--cache-dir``/``--bucket-ladder``/
+``--dry`` (the program cache, ROADMAP queue 1 item 15).
 
 Usage, on the card and on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.solve_serve --use-pallas \\
@@ -62,16 +69,16 @@ from .. import device as _device
 from .. import obs
 from ..core import aco, tsp
 from ..kernels.ops import UnsupportedKernelRoute
+from .mesh import make_data_mesh
 from ..solver import (SolverService, StreamingSolverService,
                       make_poisson_trace, replay_trace)
 
 # flag -> the ROADMAP item that ports what it asks for
 NOT_PORTED = {
-    "shard": 14, "devices": 14,
     "warmup": 15, "warmup_async": 15, "cache_dir": 15, "bucket_ladder": 15,
     "dry": 15,
 }
-_ITEM_WHAT = {14: "multi-device placement", 15: "the program cache"}
+_ITEM_WHAT = {15: "the program cache"}
 
 
 def make_workload(num: int, min_n: int, max_n: int, seed: int):
@@ -187,9 +194,13 @@ def _parser() -> argparse.ArgumentParser:
                     help="--sparse: per-city off-list adoption slots "
                          "(0 disables adoption)")
     ap.add_argument("--shard", action="store_true",
-                    help="not ported yet (ROADMAP queue 1 item 14)")
+                    help="shard the solver over a 1-D device mesh: batch "
+                         "jobs split their instance axis across devices; "
+                         "--stream runs one resident pool per device")
     ap.add_argument("--devices", type=int, default=None,
-                    help="not ported yet (ROADMAP queue 1 item 14)")
+                    help="--shard: mesh size (default: all local devices; "
+                         "with --device, positions of that one device, "
+                         "default 1)")
     ap.add_argument("--stream", action="store_true",
                     help="replay a Poisson arrival trace through the "
                          "continuous-batching streaming service")
@@ -279,6 +290,10 @@ def main() -> None:
                         sparse_overflow=args.sparse_overflow,
                         tau_dtype=args.tau_dtype, tau_round=args.tau_round,
                         metrics=args.metrics)
+    mesh = None
+    if args.shard:
+        mesh = make_data_mesh(args.devices if args.device is None
+                              else [dev] * (args.devices or 1))
     tel = obs.Telemetry(events_path=args.events_out,
                         profile_dir=args.profile_dir)
     tenants = (args.tenant.split(",") if args.tenant else None)
@@ -293,8 +308,8 @@ def main() -> None:
                 cfg, max_batch=args.max_batch, min_bucket=args.min_bucket,
                 chunk=args.chunk, patience=args.patience,
                 max_waiting=args.max_waiting,
-                per_instance_hyper=args.per_instance_hyper, telemetry=tel,
-                snapshot_every=args.stats_every, device=dev)
+                per_instance_hyper=args.per_instance_hyper, mesh=mesh,
+                telemetry=tel, snapshot_every=args.stats_every, device=dev)
             server = _start_metrics_server(args, tel, svc)
             trace = make_poisson_trace(args.num_instances, args.arrival_rate,
                                        args.min_n, args.max_n,
@@ -310,7 +325,7 @@ def main() -> None:
                                 min_bucket=args.min_bucket,
                                 patience=args.patience,
                                 checkpoint_dir=args.checkpoint_dir,
-                                telemetry=tel, device=dev)
+                                mesh=mesh, telemetry=tel, device=dev)
             server = _start_metrics_server(args, tel, svc)
             for i, inst in enumerate(make_workload(
                     args.num_instances, args.min_n, args.max_n, args.seed)):

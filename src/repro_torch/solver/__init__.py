@@ -13,10 +13,12 @@ The PyTorch port of ``repro.solver``, drain mode:
               supervisor/checkpoint crash recovery;
 - streaming.py  continuous batching: resident slot pools on the card,
               refill surgery, priority/deadline admission, deadline
-              eviction, backpressure and trace replay.
+              eviction, backpressure and trace replay;
+- placement.py  the instance axis sharded over the positions of a
+              ``launch.mesh.Mesh`` (``run_batch(mesh=)``), phantom-slot
+              padding, device labels.
 
-Multi-device placement and the program cache are not ported yet (ROADMAP
-queue 1 items 14 and 15).
+The program cache is not ported yet (ROADMAP queue 1 item 15).
 """
 from .batch import (ProblemBatch, SparseBatch, bucket_ladder,  # noqa: F401
                     bucket_size, make_batch, make_sparse_batch,

@@ -39,8 +39,10 @@ The done mask is read from the card once per engine iteration, and only
 under ``patience``: budgets compare against a host mirror of each slot's
 iteration count.
 
-Multi-device placement (``mesh=``) and the program cache (``programs=``)
-are not ported yet (ROADMAP queue 1 items 14 and 15).
+``mesh=`` shards the instance axis over the positions of a
+``launch.mesh.Mesh`` (``placement.run_batch_sharded``), bitwise the
+single-device call per instance.  The program cache (``programs=``) is
+not ported yet (ROADMAP queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -120,8 +122,9 @@ def _check_aligned(problem, states, b: int) -> None:
 
 def run_batch(problem, states, budgets, cfg: aco.ACOConfig, max_iters: int,
               patience: int = 0, since: Optional[torch.Tensor] = None,
-              donate: bool = False, mesh=None, kind: str = "dense",
-              ewt: str = "EUC_2D", mets=None, programs=None):
+              donate: bool = False, mesh=None, instance_spec: str = "data",
+              kind: str = "dense", ewt: str = "EUC_2D", mets=None,
+              programs=None):
     """Advance B colonies by up to ``max_iters`` more iterations each.
 
     problem: the stacked ``Problem`` (``kind="dense"``) or ``SparseProblem``
@@ -138,17 +141,29 @@ def run_batch(problem, states, budgets, cfg: aco.ACOConfig, max_iters: int,
     donate: update ``states``/``since``/``mets`` in place and return them;
     without it the inputs are left as they were.  The results are the
     same either way.
+    mesh: a ``launch.mesh.Mesh`` routes the call through the placement
+    layer: the instance axis is padded to a multiple of the mesh's
+    ``instance_spec`` axis with already-done phantom slots and split over
+    its positions, bitwise the single-device call per instance.  Sparse
+    batches are rejected there, as in the reference.
 
     Returns ``(states, since)``, or ``(states, since, mets)`` with metrics.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_batch(mesh=...): multi-device placement is not ported yet "
-            "(ROADMAP queue 1 item 14)")
     if programs is not None:
         raise NotImplementedError(
             "run_batch(programs=...): the program cache is not ported yet "
             "(ROADMAP queue 1 item 15)")
+    if mesh is not None:
+        if kind == "sparse":
+            from ..kernels import ops as kops
+            kops.check_kernel_route(sparse=True, mesh=True,
+                                    selection=cfg.selection,
+                                    local_search=cfg.local_search,
+                                    construction=cfg.construction)
+        from . import placement
+        return placement.run_batch_sharded(problem, states, budgets, cfg,
+                                           max_iters, patience, since, mesh,
+                                           instance_spec, donate, mets)
     if kind not in ("dense", "sparse"):
         raise ValueError(f"unknown kind {kind!r}")
     dev = states.key.device
@@ -299,16 +314,15 @@ def solve_instances(instances: Sequence[tsp.TSPInstance], cfg: aco.ACOConfig,
     (stacked states, batch).
 
     ``hypers``: per-instance alpha/beta/rho/q profiles (``aco.Hyper``), so
-    one bucket mixes tuning profiles.  ``cfg.sparse`` runs the bucket on
-    the O(n·k) paged representation (stacked SparseColonyState,
-    SparseBatch); unsupported sparse combinations raise
-    ``UnsupportedKernelRoute``.
+    one bucket mixes tuning profiles.  ``mesh``: shard the instance axis
+    over the mesh (placement layer); the batch is built on ``device``, or
+    on the mesh's first position when no device is given.  ``cfg.sparse``
+    runs the bucket on the O(n·k) paged representation (stacked
+    SparseColonyState, SparseBatch); unsupported sparse combinations
+    raise ``UnsupportedKernelRoute``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "solve_instances(mesh=...): multi-device placement is not "
-            "ported yet (ROADMAP queue 1 item 14)")
-    dev = _device.resolve(device)
+    dev = _device.resolve(device) if device is not None or mesh is None \
+        else mesh.device_list()[0]
     instances = tuple(instances)
     its = list(iterations) if iterations is not None else \
         [cfg.iterations] * len(instances)
@@ -323,7 +337,7 @@ def solve_instances(instances: Sequence[tsp.TSPInstance], cfg: aco.ACOConfig,
         sparse_aco.check_sparse_route(cfg, masked=True)
         sstates = init_sparse_states(instances, cfg, sds, sb.n_pad, dev)
         sstates = run_batch(sb.problem, sstates, its, cfg, int(max(its)),
-                            patience, donate=True, kind="sparse",
+                            patience, donate=True, mesh=mesh, kind="sparse",
                             ewt=sb.ewt)[0]
         return sstates, sb
     b = batch_mod.make_batch(instances, n_pad,
@@ -332,7 +346,7 @@ def solve_instances(instances: Sequence[tsp.TSPInstance], cfg: aco.ACOConfig,
     states = init_states(instances, cfg, sds, b.n_pad, hypers, dev)
     # freshly built states are never reused: update them in place
     states = run_batch(b.problem, states, its, cfg, int(max(its)),
-                       patience, donate=True)[0]
+                       patience, donate=True, mesh=mesh)[0]
     return states, b
 
 

@@ -14,10 +14,13 @@ engine freezes instances against their *absolute* iteration count, so the
 chunked trajectory is the uninterrupted one
 (tests/test_torch_service.py injects a crash and asserts equal results).
 
-The service runs on the card unless ``device="cpu"`` is passed.  The
-program cache (``programs=``, ``warm_programs``) and multi-device
-placement (``mesh=``) are not ported yet (ROADMAP queue 1 items 15 and
-14).
+The service runs on the card unless ``device="cpu"`` is passed.  With a
+``mesh`` (``launch.mesh.Mesh``) every batch job's instance axis is
+sharded over the mesh's positions by the placement layer, and the
+results stay bitwise what the single-device service returns; the batches
+are built on the mesh's first position unless a device is given.  The
+program cache (``programs=``, ``warm_programs``) is not ported yet
+(ROADMAP queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -84,10 +87,6 @@ class SolverService:
                  ckpt_chunk: int = 25, mesh=None,
                  telemetry: Optional[obs.Telemetry] = None,
                  programs=None, device: _device.DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SolverService(mesh=...): multi-device placement is not "
-                "ported yet (ROADMAP queue 1 item 14)")
         if programs is not None:
             raise NotImplementedError(
                 "SolverService(programs=...): the program cache is not "
@@ -103,13 +102,17 @@ class SolverService:
                              f"supported: {', '.join(pheromone.STRATEGIES)}")
         if cfg.sparse:
             # fail at construction, not mid-drain: batched slots are
-            # always padded (masked)
+            # always padded (masked), and a mesh needs the dense placement
+            # layer
             from ..kernels import ops as kops
             kops.check_kernel_route(masked=True, sparse=True,
                                     selection=cfg.selection,
                                     local_search=cfg.local_search,
-                                    construction=cfg.construction)
-        self.device = _device.resolve(device)
+                                    construction=cfg.construction,
+                                    mesh=mesh is not None)
+        self.mesh = mesh
+        self.device = _device.resolve(device) \
+            if device is not None or mesh is None else mesh.device_list()[0]
         self.cfg = cfg
         self.max_batch = max_batch
         self.min_bucket = min_bucket
@@ -162,6 +165,12 @@ class SolverService:
             "queue 1 item 15)")
 
     @property
+    def devices(self) -> int:
+        """Mesh positions a job's instance axis spreads over (1 without a
+        mesh)."""
+        return 1 if self.mesh is None else self.mesh.size
+
+    @property
     def pending(self) -> int:
         return len(self._queue)
 
@@ -172,7 +181,7 @@ class SolverService:
             "uptime_s": time.perf_counter() - self._t_started,
             "pending": self.pending,
             "jobs_run": self._jobs_run,
-            "devices": 1,
+            "devices": self.devices,
             "tenants": sorted(self.slo.tenants),
         }
 
@@ -203,7 +212,7 @@ class SolverService:
         lat = [r.latency_s for r in results]
         self.stats = {
             "requests": len(queue),
-            "devices": 1,
+            "devices": self.devices,
             "batches": batch_count,
             "buckets": {str(b): len(rs)
                         for b, rs in sorted(by_bucket.items())},
@@ -280,17 +289,19 @@ class SolverService:
                     mgr, init_st,
                     lambda st, i: engine.run_batch(
                         b.problem, st[0], budgets, self.cfg, chunk,
-                        self.patience, st[1], kind=kind, ewt=ewt,
-                        mets=st[2] if metrics_on else None))
+                        self.patience, st[1], mesh=self.mesh, kind=kind,
+                        ewt=ewt, mets=st[2] if metrics_on else None))
                 out_st = sup.run()
             else:
                 out_st = engine.run_batch(b.problem, init(), budgets,
                                           self.cfg, max_it, self.patience,
-                                          kind=kind, ewt=ewt)
+                                          mesh=self.mesh, kind=kind, ewt=ewt)
             states = out_st[0]
             mets = out_st[2] if metrics_on else None
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            for d in {dev} if self.mesh is None else \
+                    set(self.mesh.device_list()):
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
         solve_s = time.perf_counter() - t0
 
         with self.tel.tracer.span("collect", thread=thread, job=job_id):

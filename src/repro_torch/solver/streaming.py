@@ -40,9 +40,14 @@ histograms behind ``stats``, the slot lifecycle as JSON-lines events,
 chunk dispatches and slot residencies as Chrome-trace spans, and with
 ``cfg.metrics`` the StepMetrics rows resident beside the state.
 
-The service runs on the card unless ``device="cpu"`` is passed.
-Multi-device pools (``mesh=``) and the program cache (``programs=``,
-``warm_programs``) are not ported yet (ROADMAP queue 1 items 14 and 15).
+The service runs on the card unless ``device="cpu"`` is passed.  With a
+``mesh`` (``launch.mesh.Mesh``) each bucket owns one resident pool per
+mesh position, on that position's device; admission goes to the
+least-occupied pool, and every step dispatches all pools' chunks before
+it harvests any.  Requests are prepped on the service's device (the
+mesh's first position unless a device is given) and copied to their
+pool's device by the refill surgery.  The program cache (``programs=``,
+``warm_programs``) is not ported yet (ROADMAP queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -195,8 +200,8 @@ class StreamingPool:
             self.fills += 1
         ix = torch.tensor(idx, dtype=torch.long, device=self.device)
 
-        def put(dst, src):
-            dst.index_copy_(0, ix, src)
+        def put(dst, src):            # prepped on the service's device
+            dst.index_copy_(0, ix, src.to(dst.device))
         tree.map(put, _tensor_fields(self.problem), tree.stack(probs))
         tree.map(put, self.states, tree.stack(states))
         self.problem = self.problem._replace(n_actual=tuple(n_actual))
@@ -357,10 +362,6 @@ class StreamingSolverService:
                  telemetry: Optional[obs.Telemetry] = None,
                  snapshot_every: float = 0.0, programs=None,
                  device: _device.DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamingSolverService(mesh=...): multi-device placement "
-                "is not ported yet (ROADMAP queue 1 item 14)")
         if programs is not None:
             raise NotImplementedError(
                 "StreamingSolverService(programs=...): the program cache "
@@ -394,7 +395,8 @@ class StreamingSolverService:
         if max_waiting is not None and max_waiting < 1:
             raise ValueError(f"max_waiting {max_waiting} < 1")
         self.cfg = cfg
-        self.device = _device.resolve(device)
+        self.device = _device.resolve(device) \
+            if device is not None or mesh is None else mesh.device_list()[0]
         self.max_batch = max_batch
         self.min_bucket = min_bucket
         self.chunk = chunk
@@ -405,7 +407,10 @@ class StreamingSolverService:
         # bucket 1024) is eager only for the head of the queue, so a deep
         # backlog does not pin O(waiting * n_pad^2) device memory.
         self.prep_ahead = 4 * max_batch
-        self._devices = [None]              # one device: no mesh
+        # one pool per mesh position and bucket; without a mesh one pool
+        # per bucket on the service's device (the bare ``dev0`` label)
+        self.mesh = mesh
+        self._devices = mesh.device_list() if mesh is not None else [None]
         self._pools: dict[int, list[StreamingPool]] = {}
         self._waiting: list[StreamRequest] = []
         self._next_id = 0
@@ -516,7 +521,8 @@ class StreamingSolverService:
                 StreamingPool(bucket, self.max_batch, self.cfg,
                               self.patience,
                               per_instance_hyper=self.per_instance_hyper,
-                              device=self.device, telemetry=self.tel,
+                              device=self.device if dev is None else dev,
+                              telemetry=self.tel,
                               dev_label=placement.device_label(dev, j),
                               slo=self.slo)
                 for j, dev in enumerate(self._devices)]

@@ -32,8 +32,8 @@ def map(fn: Callable, *trees: Any) -> Any:        # noqa: A001
         return fn(*trees)
     if _is_node(first):
         return _rebuild(first, [map(fn, *kids) for kids in zip(*trees)])
-    if isinstance(first, dict):
-        return {k: map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, dict):               # sorted keys, as jax.tree
+        return {k: map(fn, *(t[k] for t in trees)) for k in sorted(first)}
     raise TypeError(f"not a tree of tensors: {type(first).__name__}")
 
 

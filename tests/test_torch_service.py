@@ -26,6 +26,7 @@ from repro_torch import obs, tree  # noqa: E402
 from repro_torch.core import aco as taco  # noqa: E402
 from repro_torch.core import tsp as ttsp  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import validate  # noqa: E402
 from repro_torch.runtime import Supervisor, SupervisorConfig  # noqa: E402
@@ -179,10 +180,17 @@ def test_health_and_slo():
 
 def test_service_rejections_name_their_items():
     cfg = taco.ACOConfig()
-    for kw, item in ((dict(mesh=object()), "item 14"),
-                     (dict(programs=object()), "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
-            tsvc.SolverService(cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        tsvc.SolverService(cfg, device="cpu", programs=object())
+    # a mesh is served (tests/test_torch_mesh.py), a sparse one refused
+    # with the reference's message
+    mesh = Mesh([torch.device("cpu")] * 2, ("data",))
+    assert tsvc.SolverService(cfg, mesh=mesh).devices == 2
+    with pytest.raises(Exception) as want:
+        jsvc.SolverService(jaco.ACOConfig(sparse=True), mesh=object())
+    with pytest.raises(tops.UnsupportedKernelRoute) as got:
+        tsvc.SolverService(taco.ACOConfig(sparse=True), mesh=mesh)
+    assert str(got.value) == str(want.value)
     svc = tsvc.SolverService(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
         svc.warm_programs(10, 100)

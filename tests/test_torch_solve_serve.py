@@ -61,8 +61,8 @@ def test_reports_equal_the_reference_per_request(mode, capsys, monkeypatch):
 
 @pytest.mark.parametrize("argv,needle", [
     (["--stream", "--use-pallas", "--per-instance-hyper"], "Hyper"),
-    (["--shard"], "item 14"),
-    (["--devices", "2"], "item 14"),
+    (["--sparse", "--shard"], "mesh sharding"),
+    (["--sparse", "--shard", "--devices", "2"], "mesh sharding"),
     (["--warmup"], "item 15"),
     (["--cache-dir", "x"], "item 15"),
     (["--sparse", "--stream"], "streaming pool"),

@@ -32,6 +32,7 @@ from repro_torch import convert, tree  # noqa: E402
 from repro_torch.core import aco as taco  # noqa: E402
 from repro_torch.core import tsp as ttsp  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.solver import batch as tbatch  # noqa: E402
 from repro_torch.solver import engine as teng  # noqa: E402
 from torch_parity import assert_bitwise  # noqa: E402
@@ -399,14 +400,22 @@ def test_donate_updates_in_place_with_the_same_result():
 
 def test_engine_rejections():
     cfg = taco.ACOConfig(iterations=2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        teng.solve_instances(INSTS, cfg, mesh=object(), device="cpu")
+    mesh = Mesh([torch.device("cpu")] * 2, ("data",))
+    # a sparse bucket over a mesh: the reference's message
+    scfg = dict(sparse=True, sparse_k=6, iterations=2)
+    with pytest.raises(Exception) as want:
+        jeng.solve_instances(INSTS, jaco.ACOConfig(**scfg), mesh=object())
+    with pytest.raises(tops.UnsupportedKernelRoute) as got:
+        teng.solve_instances(INSTS, taco.ACOConfig(**scfg), mesh=mesh,
+                             device="cpu")
+    assert str(got.value) == str(want.value)
     b = tbatch.make_batch(INSTS, 16, device="cpu")
     st = teng.init_states(INSTS, cfg, SEEDS, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
         teng.run_batch(b.problem, st, BUDGETS, cfg, 2, programs=object())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        teng.run_batch(b.problem, st, BUDGETS, cfg, 2, mesh=object())
+    with pytest.raises(ValueError, match="no axis"):
+        teng.run_batch(b.problem, st, BUDGETS, cfg, 2, mesh=mesh,
+                       instance_spec="model")
     with pytest.raises(ValueError, match="budgets"):
         teng.run_batch(b.problem, st, BUDGETS[:2], cfg, 2)
     # the kernel route rejects a Hyper with the reference's message

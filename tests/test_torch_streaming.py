@@ -24,6 +24,7 @@ from repro_torch import obs  # noqa: E402
 from repro_torch.core import aco as taco  # noqa: E402
 from repro_torch.core import tsp as ttsp  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import validate  # noqa: E402
 from repro_torch.solver import engine as teng  # noqa: E402
@@ -179,8 +180,8 @@ def test_admission_backpressure_max_waiting():
 
 def test_streaming_rejections_keep_reference_messages():
     """pallas x per-instance Hyper, an unknown deposit and sparse
-    streaming raise as the reference does, with its messages; mesh= and
-    programs= name their ROADMAP items."""
+    streaming raise as the reference does, with its messages (over a mesh
+    too); programs= names its ROADMAP item."""
     tstream.StreamingSolverService(taco.ACOConfig(use_pallas=True),
                                    device="cpu")
     cases = (
@@ -204,11 +205,15 @@ def test_streaming_rejections_keep_reference_messages():
     with pytest.raises(NotImplementedError, match="item 4"):
         tstream.StreamingSolverService(taco.ACOConfig(deposit="onehot"),
                                        device="cpu")
-    for kw, item in ((dict(mesh=object()), "item 14"),
-                     (dict(programs=object()), "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
-            tstream.StreamingSolverService(taco.ACOConfig(), device="cpu",
-                                           **kw)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        tstream.StreamingSolverService(taco.ACOConfig(), device="cpu",
+                                       programs=object())
+    mesh = Mesh([torch.device("cpu")] * 3, ("data",))
+    assert tstream.StreamingSolverService(taco.ACOConfig(),
+                                          mesh=mesh).stats["devices"] == 3
+    with pytest.raises(tops.UnsupportedKernelRoute, match="streaming pool"):
+        tstream.StreamingSolverService(taco.ACOConfig(sparse=True),
+                                       mesh=mesh)
     svc = tstream.StreamingSolverService(taco.ACOConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
         svc.warm_programs(10, 100)

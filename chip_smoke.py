@@ -174,6 +174,20 @@ non-zero:
    per slot and timed beside it; ``SolverService`` and
    ``StreamingSolverService`` over four positions bitwise their
    unsharded runs;
+   programs  -- the program cache (``solver/programs.py``): the CLI's
+   ladders warmed at B = 4 (dense 512 / 1024, sparse 2048 / 4096: seconds,
+   graphs, pool bytes); warmed programs (CUDA graphs of one engine
+   iteration per active pattern) against the eager engine at [batched]'s
+   shapes, fused MMAS, AS, ACS over fp32 and int8 at bucket 1024 with
+   budgets (3, 5, 4, 5) and sparse MMAS at 2048: two calls each, bitwise
+   in every field, launches equal (sparse AS one iteration, tau at rtol
+   1e-5 / atol 1e-7); one all-active engine iteration eager and replayed
+   (wall, device busy, idle share); counter-draw MMAS, m = 64, n = 1002
+   routed into a warmed bucket 2048, bitwise its native run; the CLI's
+   ``--warmup --dry``, warmed dense and sparse drains and a stream warmed
+   in the background, each equal to [cli]'s run, and ``--warmup
+   --cache-dir`` in two fresh processes (the second loads the first's
+   kernel build); any ``warmup_error`` or ``aot_dispatch_fallback`` fails;
 6. profile -- device busy time and idle share of one AS iteration at
    n = 1002, and the kernels that take most of it; the split of one MMAS
    + 2-opt iteration over an int8 store into construction, local search
@@ -510,12 +524,27 @@ def phase_kernels(results: dict) -> None:
                     raise AssertionError(
                         f"pheromone_update_tours differs between two launches "
                         f"at n={n} n_actual={n_act} ants={n_ants} rho={rho}")
+            # tours that repeat a city (construction over an int8 store can
+            # emit them): the kernel's exact path, bitwise the plain version
+            rep = tours.clone()
+            at = torch.randint(1, real, (n_ants, 3), generator=gen,
+                               device=dev)
+            rep.scatter_(1, at.long(), rep[:, :1].expand(n_ants, 3))
+            got = pu.pheromone_update_tours(tau, rep, w, 0.1, n_act)
+            again = pu.pheromone_update_tours(tau, rep, w, 0.1, n_act)
+            want = pu.pheromone_update_tours_plain(tau.cpu(), rep.cpu(),
+                                                   w.cpu(), 0.1, n_act)
+            if not (torch.equal(got.cpu(), want) and torch.equal(got, again)):
+                raise AssertionError(
+                    f"pheromone_update_tours on tours with repeated cities "
+                    f"!= CPU plain in {int((got.cpu() != want).sum())} cells "
+                    f"at n={n} n_actual={n_act} ants={n_ants}")
         log(f"[kernels] n={n} n_actual={n_act}: choice_info, tour_select, "
             f"fused_select, fused_select_quant (int8, bf16) bitwise in "
             f"{', '.join(MODES)}; pheromone_update bitwise (1 ant), rtol "
             f"1e-5/atol 1e-7 ({m} ants); pheromone_update_tours bitwise "
             f"against the CPU and across launches ({m} ants and 1, rho 0.5 "
-            f"and 0.1)")
+            f"and 0.1; and on tours that repeat a city, the exact path)")
 
     # two_opt_best on the main path's operands: m = n = 1002, k = 30, from
     # tours the colony constructs (kernel route), unmasked and masked.
@@ -2697,6 +2726,8 @@ CLI_DENSE = ["--use-pallas", "--variant", "mmas", "--metrics",
              "--num-instances", "6", "--min-n", "500", "--max-n", "1002",
              "--iterations", "6", "--max-batch", "4"]
 CLI_STREAM = ["--stream", "--arrival-rate", "20", "--chunk", "2"]
+# [cli]'s reports by label, for [programs] to hold its warmed runs to
+CLI_REPORTS: dict = {}
 CLI_SPARSE = ["--sparse", "--use-pallas", "--ants", "64", "--sparse-k", "16",
               "--sparse-overflow", "4", "--variant", "mmas",
               "--num-instances", "6", "--min-n", "1500", "--max-n", "2392",
@@ -2719,10 +2750,10 @@ def _check_report(label, rep):
     return rep
 
 
-def _cli_main(label, argv):
+def _cli_json(argv):
     """``repro_torch.launch.solve_serve.main()`` in this process with
     ``argv`` and its stdout captured, the launch counts zeroed just before
-    the call and read just after -> (report, counts)."""
+    the call and read just after -> (stdout's JSON, counts, seconds)."""
     import contextlib
     import io
     from repro_torch.kernels import ops
@@ -2739,7 +2770,14 @@ def _cli_main(label, argv):
         secs, counts = time.perf_counter() - t0, ops.launch_counts()
     finally:
         sys.argv = argv0
-    rep = _check_report(label, json.loads(out.getvalue()))
+    return json.loads(out.getvalue()), counts, secs
+
+
+def _cli_main(label, argv):
+    """``_cli_json`` of a run that serves requests, its report checked ->
+    (report, counts)."""
+    rep, counts, secs = _cli_json(argv)
+    rep = _check_report(label, rep)
     st = rep["stats"]
     log(f"[cli] {label}: main() in {secs:.1f} s; {len(rep['results'])} "
         f"requests, buckets {sorted({r['bucket'] for r in rep['results']})}"
@@ -2808,6 +2846,7 @@ def phase_cli(launches: dict) -> None:
     # stream's requests
     its = _flag(CLI_DENSE, "--iterations")
     rep, counts = _cli_main("dense drain", CLI_DENSE)
+    CLI_REPORTS["dense drain"] = rep
     for kernel in ("fused_walk", "pheromone_update_tours"):
         count("dense drain", counts, kernel, engine_its(rep, its))
     # --shard over the card's one position: the same report per request,
@@ -2840,6 +2879,7 @@ def phase_cli(launches: dict) -> None:
         f"local-search rounds; best "
         + ", ".join(f"{r['best_len']:.1f}" for r in rep["results"]))
     rep, counts = _cli_main("dense stream", CLI_DENSE + CLI_STREAM)
+    CLI_REPORTS["dense stream"] = rep
     for kernel in ("fused_walk", "pheromone_update_tours"):
         if counts[kernel] == 0:
             raise AssertionError(f"cli dense stream: no {kernel} launch")
@@ -2866,6 +2906,7 @@ def phase_cli(launches: dict) -> None:
         sparse[label], counts = _cli_main(label, CLI_SPARSE + extra)
         count(label, counts, "sparse_walk", engine_its(sparse[label], sits),
               entry)
+    CLI_REPORTS["sparse drain"] = sparse["sparse drain"]
     # -- the command itself: exit 0, stdout only the JSON report
     t0 = time.perf_counter()
     p = subprocess.run(_cli_cmd(CLI_SPARSE), cwd=root, env=env,
@@ -2889,6 +2930,417 @@ def phase_cli(launches: dict) -> None:
             raise AssertionError(f"cli {label}: exit {proc.returncode}, "
                                  f"stderr {err[-2000:]!r}")
         log(f"[cli] {label}: exit 2, one line: {lines[0][:120]}")
+
+
+# [programs]: the program cache (solver/programs.py) on the card: warmed
+# bucket ladders, CUDA graphs of an engine iteration replayed against the
+# eager iteration, neighbour-bucket routing and the CLI's warmup flags.
+PROG_DENSE = dict(variant="mmas", use_pallas=True, metrics=True,
+                  iterations=6)                       # CLI_DENSE's config
+PROG_SPARSE = dict(variant="mmas", use_pallas=True, sparse=True,
+                   sparse_k=SPARSE_K, sparse_overflow=4, m=SPARSE_M,
+                   iterations=10)                     # CLI_SPARSE's config
+PROG_REPLAY = (("MMAS", dict(variant="mmas")), ("AS", dict(variant="as")),
+               ("ACS", dict(variant="acs")),
+               ("MMAS int8", dict(variant="mmas", tau_dtype="int8")),
+               ("AS int8", dict(variant="as", tau_dtype="int8")),
+               ("ACS int8", dict(variant="acs", tau_dtype="int8")))
+PROG_ROUTE_N, PROG_ROUTE_BUCKET = 1002, 2048
+# the fresh-process CLI runs: CLI_DENSE cut to two requests in bucket 1024
+PROG_CLI_PROC = CLI_DENSE + ["--num-instances", "2", "--min-n", "900",
+                             "--warmup"]
+
+
+def _mib(nbytes) -> str:
+    return f"{nbytes / 2**20:.1f} MiB"
+
+
+def _walk_entry(kind, cfg):
+    """The kernels line's entry of the walk a config launches."""
+    if kind == "sparse":
+        return "sparse_walk" if cfg.tau_dtype == "fp32" else \
+            f"sparse_walk_quant_{cfg.tau_dtype}"
+    return "fused_walk" if cfg.tau_dtype == "fp32" else \
+        f"fused_walk_quant_{cfg.tau_dtype}"
+
+
+def _add_path_launches(launches, counts, kind, cfg):
+    """Add a run's walk and update launches to the kernels line's."""
+    walk = "sparse_walk" if kind == "sparse" else (
+        "fused_walk" if cfg.tau_dtype == "fp32" else "fused_walk_quant")
+    entry = _walk_entry(kind, cfg)
+    launches[entry] = launches.get(entry, 0) + counts[walk]
+    if kind == "dense":
+        launches["pheromone_update_tours"] = launches.get(
+            "pheromone_update_tours", 0) + counts["pheromone_update_tours"]
+
+
+def _programs_ladders() -> None:
+    """(a) The CLI's two ladders warmed through ``SolverService.
+    warm_programs`` at B = 4: seconds per bucket, graphs, pool bytes."""
+    import torch
+    from repro_torch.core import aco
+    from repro_torch.solver import ProgramCache, SolverService
+    for label, kw, lo, hi in (("dense", PROG_DENSE, 500, 1002),
+                              ("sparse", PROG_SPARSE, 1500, 2392)):
+        pc = ProgramCache()
+        svc = SolverService(aco.ACOConfig(**kw), max_batch=4, programs=pc,
+                            device=DEV)
+        _sync()
+        base = torch.cuda.memory_allocated() if DEV == "cuda" else 0
+        summary = svc.warm_programs(lo, hi)
+        _sync()
+        held = (torch.cuda.memory_allocated() - base) if DEV == "cuda" \
+            else 0
+        if summary["errors"]:
+            raise AssertionError(f"programs: warm errors {summary['errors']}")
+        sigs = pc.stats()["signatures"]
+        parts = []
+        for sig in sigs:
+            if DEV == "cuda" and (sig["eager"] or sig["graphs"] != 1):
+                raise AssertionError(f"programs: {label} bucket "
+                                     f"{sig['bucket']} warmed without its "
+                                     f"graph: {sig}")
+            parts.append(f"bucket {sig['bucket']} "
+                         f"{summary['buckets'][str(sig['bucket'])]:.2f} s, "
+                         f"{sig['graphs']} graph, pool "
+                         f"{_mib(sig['pool_bytes'])}")
+        log(f"[programs] warm {label} ladder at B=4 ({kw}): "
+            + "; ".join(parts) + f"; ladder wall {summary['wall_s']:.2f} s, "
+            f"device memory held (static buffers and pools) {_mib(held)}")
+
+
+def _programs_replay(launches: dict) -> None:
+    """(b) A warmed program's run against the engine's eager run at
+    [batched]'s shapes: fused MMAS, AS, ACS over fp32 and int8 at bucket
+    1024, B = 4, budgets (3, 5, 4, 5) (the all-active graph in the first
+    call, the partly active patterns' graphs captured at their second
+    sight in the second), and sparse MMAS at bucket 2048: every field
+    bitwise, the launches of each call equal the eager run's.  Sparse AS,
+    one all-active iteration: tours, lengths, keys bitwise, tau at rtol
+    1e-5 / atol 1e-7 (the card's atomic deposit order)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import aco, tsp
+    from repro_torch.kernels import ops
+    from repro_torch.solver import ProgramCache, batch, engine
+    dense = [tsp.random_instance(n, seed=n) for n in BATCH_NS]
+    sparse = [tsp.random_instance(n, seed=n) for n in SPARSE_STACK_NS]
+    pb = batch.make_batch(dense, BATCH_PAD, 30, device=DEV)
+    sb = batch.make_sparse_batch(sparse, SPARSE_K, SPARSE_BATCH_PAD,
+                                 device=DEV)
+    budgets = list(BATCH_BUDGETS)
+    cases = [(label, "dense", aco.ACOConfig(use_pallas=True, **kw), budgets)
+             for label, kw in PROG_REPLAY]
+    cases.append(("sparse MMAS", "sparse", aco.ACOConfig(**{
+        **PROG_SPARSE, "metrics": True}), budgets))
+    cases.append(("sparse AS", "sparse", aco.ACOConfig(**{
+        **PROG_SPARSE, "variant": "as"}), [1] * 4))
+    for label, kind, cfg, bud in cases:
+        if kind == "sparse":
+            problem, ewt, pad = sb.problem, sb.ewt, SPARSE_BATCH_PAD
+            init = lambda: engine.init_sparse_states(    # noqa: E731
+                sparse, cfg, list(BATCH_SEEDS), pad, DEV)
+        else:
+            problem, ewt, pad = pb.problem, "EUC_2D", BATCH_PAD
+            init = lambda: engine.init_states(           # noqa: E731
+                dense, cfg, list(BATCH_SEEDS), pad, device=DEV)
+        _sync()
+        ops.reset_launch_counts()
+        want = engine.run_batch(problem, init(), bud, cfg, max(bud),
+                                kind=kind, ewt=ewt)
+        _sync()
+        eager_counts = ops.launch_counts()
+        pc = ProgramCache()
+        t0 = time.perf_counter()
+        pc.warm([pad], 4, cfg, max(bud), kind=kind, device=DEV)
+        warm_s = time.perf_counter() - t0
+        for call in (1, 2):
+            _sync()
+            ops.reset_launch_counts()
+            got = engine.run_batch(problem, init(), bud, cfg, max(bud),
+                                   kind=kind, ewt=ewt, programs=pc)
+            _sync()
+            counts = ops.launch_counts()
+            if counts != eager_counts:
+                raise AssertionError(f"programs {label} call {call}: "
+                                     f"launches {counts} != eager "
+                                     f"{eager_counts}")
+            _add_path_launches(launches, counts, kind, cfg)
+            if label == "sparse AS":
+                for f in ("best_tour", "best_len", "iteration", "key",
+                          "ovf_city"):
+                    if not torch.equal(getattr(got[0], f),
+                                       getattr(want[0], f)):
+                        raise AssertionError(f"programs {label}: {f} "
+                                             "differs from eager")
+                for f in ("tau", "tau_def", "ovf_tau"):
+                    torch.testing.assert_close(getattr(got[0], f),
+                                               getattr(want[0], f),
+                                               rtol=1e-5, atol=1e-7)
+            elif not _leaves_equal(want, got):
+                diff = [i for i, (x, y) in enumerate(zip(
+                    tree.flatten(want), tree.flatten(got)))
+                    if not torch.equal(x, y)]
+                raise AssertionError(f"programs {label} call {call}: leaves "
+                                     f"{diff} differ from the eager run")
+        st = pc.stats()
+        sig = st["signatures"][0]
+        want_pat = ["all"] if bud == [1] * 4 else ["all", "0111", "0101"]
+        if DEV == "cuda" and sig["patterns"] != want_pat:
+            raise AssertionError(f"programs {label}: graphs "
+                                 f"{sig['patterns']}, expected {want_pat}")
+        if st["hits"] != 2 or st["misses"] != 0:
+            raise AssertionError(f"programs {label}: {st['hits']} hits, "
+                                 f"{st['misses']} misses")
+        log(f"[programs] replay {label} bucket {pad} B=4 budgets {bud}: "
+            f"warm {warm_s:.2f} s, graphs {sig['patterns']} (pool "
+            f"{_mib(sig['pool_bytes'])}); two calls "
+            + ("bitwise the eager run" if label != "sparse AS" else
+               "tours/lengths/keys bitwise, tau within rtol 1e-5")
+            + f", launches per call equal the eager run's "
+            f"({ {k: v for k, v in eager_counts.items() if v} })")
+    _programs_iteration_profile("dense MMAS", "dense", pb.problem, "EUC_2D",
+                                BATCH_PAD, dense,
+                                aco.ACOConfig(variant="mmas",
+                                              use_pallas=True))
+    _programs_iteration_profile("sparse MMAS", "sparse", sb.problem, sb.ewt,
+                                SPARSE_BATCH_PAD, sparse,
+                                aco.ACOConfig(**PROG_SPARSE))
+
+
+def _programs_iteration_profile(label, kind, problem, ewt, pad, insts,
+                                cfg) -> None:
+    """One all-active engine iteration at B = 4, eager and replayed from
+    its warmed graph (the program's copies in and out included), in turns
+    eager, replay, replay, eager (best of two each): wall time, then a
+    ``torch.profiler`` pass of each: device busy time and idle share, and
+    the launches of one iteration, equal both ways."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.solver import ProgramCache, engine
+    if kind == "sparse":
+        states = engine.init_sparse_states(insts, cfg, [0, 1, 2, 3], pad,
+                                           DEV)
+    else:
+        states = engine.init_states(insts, cfg, [0, 1, 2, 3], pad,
+                                    device=DEV)
+    pc = ProgramCache()
+    pc.warm([pad], 4, cfg, 1, donate=True, kind=kind, device=DEV)
+    far = [10 ** 6] * 4                       # every slot stays active
+
+    def one(programs):
+        _sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        engine.run_batch(problem, states, far, cfg, 1, donate=True,
+                         kind=kind, ewt=ewt, programs=programs)
+        _sync()
+        return (time.perf_counter() - t0) * 1e3, ops.launch_counts()
+
+    one(None)
+    one(pc)
+    rows = {"eager": [], "replay": []}
+    counts = {}
+    for way in ("eager", "replay", "replay", "eager", "eager", "replay",
+                "replay", "eager"):
+        ms, counts[way] = one(pc if way == "replay" else None)
+        rows[way].append(ms)
+    if counts["eager"] != counts["replay"]:
+        raise AssertionError(f"programs {label}: one iteration launches "
+                             f"{counts['replay']} replayed, "
+                             f"{counts['eager']} eager")
+    acts = [ProfilerActivity.CUDA] if DEV == "cuda" else \
+        [ProfilerActivity.CPU]
+    busy = {}
+    for way in ("eager", "replay"):
+        with profile(activities=acts) as prof:
+            engine.run_batch(problem, states, far, cfg, 1, donate=True,
+                             kind=kind, ewt=ewt,
+                             programs=pc if way == "replay" else None)
+            _sync()
+        us = 0.0
+        for e in prof.key_averages():
+            t = (getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0) or 0)
+            if t > 0 and DEV == "cuda":
+                us += t
+        busy[way] = us / 1e3
+    parts = []
+    for way in ("eager", "replay"):
+        wall = min(rows[way])
+        idle = (f"{1 - busy[way] / wall:.3f}" if busy[way] > 0
+                else "not measured (no device time in the profile)")
+        parts.append(f"{way} wall {wall:.2f} ms (runs "
+                     f"{', '.join(f'{r:.2f}' for r in rows[way])}), device "
+                     f"busy {busy[way]:.2f} ms, idle share {idle}")
+    log(f"[programs] one {label} engine iteration, B=4, bucket {pad}: "
+        + "; ".join(parts) + f"; replay/eager wall "
+        f"{min(rows['replay']) / min(rows['eager']):.3f}; launches per "
+        f"iteration {({k: v for k, v in counts['eager'].items() if v})} "
+        "both ways")
+
+
+def _programs_routing() -> None:
+    """(c) Counter-draw MMAS, m = 64, only bucket 2048 warmed: a request of
+    n = 1002 (native bucket 1024) is routed to 2048 and is bitwise its
+    native run."""
+    from repro_torch.core import aco, tsp
+    from repro_torch.solver import ProgramCache, SolverService, batch
+    cfg = aco.ACOConfig(variant="mmas", use_pallas=True, draw_mode="counter",
+                        m=SPARSE_M, iterations=4)
+    inst = tsp.random_instance(PROG_ROUTE_N, seed=PROG_ROUTE_N)
+    plain = SolverService(cfg, max_batch=4, device=DEV)
+    plain.submit(inst, seed=7)
+    want = plain.run()
+    pc = ProgramCache()
+    svc = SolverService(cfg, max_batch=4, programs=pc, device=DEV)
+    svc.warm_programs(PROG_ROUTE_BUCKET, PROG_ROUTE_BUCKET)   # [2048] only
+    if svc._route_bucket(PROG_ROUTE_N) != PROG_ROUTE_BUCKET:
+        raise AssertionError("programs: n = 1002 was not routed to 2048")
+    svc.submit(inst, seed=7)
+    got = svc.run()
+    st = svc.stats["programs"]
+    native = batch.bucket_size(PROG_ROUTE_N)
+    if (got[0].bucket, want[0].bucket) != (PROG_ROUTE_BUCKET, native) or \
+            got[0].best_len != want[0].best_len or \
+            not _np_equal(got[0].best_tour, want[0].best_tour) or \
+            st["hits"] != 1 or st["misses"] != 0:
+        raise AssertionError(f"programs routing: bucket {got[0].bucket} len "
+                             f"{got[0].best_len} vs native bucket "
+                             f"{want[0].bucket} len {want[0].best_len}; "
+                             f"{st['hits']} hits {st['misses']} misses")
+    log(f"[programs] neighbour routing: counter-draw MMAS m={SPARSE_M}, n = "
+        f"{PROG_ROUTE_N} (native bucket {native}) routed to the warmed bucket "
+        f"{PROG_ROUTE_BUCKET}: best {got[0].best_len:.1f} and tour bitwise "
+        "the native run, one hit")
+
+
+def _np_equal(a, b) -> bool:
+    import numpy as np
+    return bool(np.array_equal(np.asarray(a), np.asarray(b)))
+
+
+def _programs_cli(launches: dict) -> None:
+    """(d) The CLI's warmup flags in this process: ``--warmup --dry``; a
+    warmed dense drain, sparse drain and a stream warmed in the
+    background, each equal request by request to [cli]'s unwarmed run,
+    every dispatch a hit and the walk launched once per engine iteration;
+    then ``python -m`` with ``--warmup --cache-dir`` twice in fresh
+    processes over one new directory: the first builds the kernels, the
+    second loads that build."""
+    import tempfile
+    from repro_torch.core import aco
+    from repro_torch.solver import batch
+    rep, _, secs = _cli_json(CLI_DENSE + ["--warmup", "--dry"])
+    st = rep["stats"]["programs"]
+    ladder = batch.bucket_ladder(_flag(CLI_DENSE, "--min-n"),
+                                 _flag(CLI_DENSE, "--max-n"))
+    if not rep.get("dry") or rep["warmup"]["errors"] or \
+            list(rep["warmup"]["buckets"]) != [str(b) for b in ladder]:
+        raise AssertionError(f"programs cli --dry: {rep}")
+    log(f"[programs] cli --warmup --dry: exit 0 in {secs:.1f} s; buckets "
+        f"{rep['warmup']['buckets']} s, {st['programs']} programs, graphs "
+        f"{[s['graphs'] for s in st['signatures']]}, pools "
+        f"{[_mib(s['pool_bytes']) for s in st['signatures']]}")
+    per = _flag(CLI_DENSE, "--max-batch")
+    for label, argv, want, kind, kw in (
+            ("dense drain --warmup", CLI_DENSE + ["--warmup"],
+             "dense drain", "dense", PROG_DENSE),
+            ("sparse drain --warmup", CLI_SPARSE + ["--warmup"],
+             "sparse drain", "sparse", PROG_SPARSE),
+            ("dense stream --warmup --warmup-async",
+             CLI_DENSE + CLI_STREAM + ["--warmup", "--warmup-async"],
+             "dense stream", "dense", PROG_DENSE)):
+        rep, counts = _cli_main(label, argv)
+        st = rep["stats"]["programs"]
+        if _rows(rep) != _rows(CLI_REPORTS[want]):
+            raise AssertionError(f"programs cli {label}: results differ "
+                                 f"from [cli]'s {want}")
+        if st["hits"] == 0 or st["warm_errors"]:
+            raise AssertionError(f"programs cli {label}: {st}")
+        cfg = aco.ACOConfig(**kw)
+        walk = "sparse_walk" if kind == "sparse" else "fused_walk"
+        if "stream" not in label:
+            jobs = {}
+            for r in rep["results"]:
+                jobs[r["bucket"]] = jobs.get(r["bucket"], 0) + 1
+            # one launch per engine iteration of the jobs, and one per
+            # warmed signature (its eager warm iteration)
+            its = sum(-(-c // per) for c in jobs.values()) * cfg.iterations
+            its += st["warmup_programs"]
+            if counts[walk] != its or st["misses"] != 0:
+                raise AssertionError(f"programs cli {label}: {walk} "
+                                     f"launched {counts[walk]} times for "
+                                     f"{its} engine iterations; {st}")
+        elif counts[walk] == 0:
+            raise AssertionError(f"programs cli {label}: no {walk} launch")
+        _add_path_launches(launches, counts, kind, cfg)
+        log(f"[programs] cli {label}: every request equal to [cli]'s "
+            f"{want}; {st['hits']} hits, {st['misses']} misses; {walk} "
+            f"{counts[walk]} launches; graphs "
+            f"{[s['patterns'] for s in st['signatures']]}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "kernels")
+        runs = []
+        for i in (1, 2):
+            t0 = time.perf_counter()
+            p = subprocess.run(_cli_cmd(PROG_CLI_PROC + ["--cache-dir",
+                                                         cache]),
+                               cwd=root, env=env, capture_output=True,
+                               text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            if p.returncode != 0:
+                raise AssertionError(f"programs cli process {i}: exit "
+                                     f"{p.returncode}\n{p.stderr[-4000:]}")
+            rep = _check_report(f"process {i}", json.loads(p.stdout))
+            m = re.search(r"warmup done in ([0-9.]+)s; kernel library "
+                          r"(\{.*\})", p.stderr)
+            if m is None or "build_s" not in m.group(2):
+                raise AssertionError(f"programs cli process {i}: no warmup "
+                                     f"line with the kernel build on "
+                                     f"stderr\n{p.stderr[-2000:]}")
+            lib = json.loads(m.group(2))       # kernels._build.LOADED
+            first = min(r["latency_s"] for r in rep["results"])
+            runs.append((wall, float(m.group(1)), lib["build_s"], first))
+            log(f"[programs] cli process {i} (--warmup --cache-dir, fresh "
+                f"process): kernel build {lib['build_s']:.2f} s, warmup "
+                f"{float(m.group(1)):.2f} s, first answer {first:.3f} s "
+                f"after its submit; {wall:.1f} s from spawn to the report "
+                f"(the first answer)")
+        if runs[0][2] <= 0 or runs[1][2] != 0:
+            raise AssertionError(f"programs cli: kernel builds {runs[0][2]} "
+                                 f"then {runs[1][2]} s: the second process "
+                                 "must load the first one's build")
+
+
+def phase_programs(launches: dict) -> None:
+    """The program cache on the card (ROADMAP item 15); fails on any warm
+    error or fallback event."""
+    from repro_torch import obs
+    t0 = time.perf_counter()
+    kinds = []
+    real_emit = obs.EventLog.emit
+
+    def emit(self, kind, **fields):
+        kinds.append(kind)
+        return real_emit(self, kind, **fields)
+    obs.EventLog.emit = emit
+    try:
+        _programs_ladders()
+        _programs_replay(launches)
+        _programs_routing()
+        _programs_cli(launches)
+    finally:
+        obs.EventLog.emit = real_emit
+    bad = [k for k in kinds if k in ("warmup_error", "aot_dispatch_fallback")]
+    if bad:
+        raise AssertionError(f"programs: events {bad}")
+    log(f"[programs] no warmup_error and no aot_dispatch_fallback in "
+        f"{kinds.count('warmup')} warmups; phase wall "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 # [mesh]: the island model, the city-sharded colony and the instance-sharded
@@ -3527,6 +3979,7 @@ def main() -> int:
     phase_service(launches)
     phase_streaming(launches)
     phase_cli(launches)
+    phase_programs(launches)
     phase_mesh(launches, results)
     phase_profile()
     phase_split()

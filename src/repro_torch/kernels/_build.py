@@ -10,16 +10,27 @@ is renamed into place, so concurrent first uses do not collide.
 
 Each C function launches on the stream it is given and returns a CUDA
 status code; ``check`` turns a non-zero code into an exception.
+
+The build root (``kernels/build`` by default) can be moved before the
+library is first loaded (``set_build_root``; the program cache's
+``enable_persistent_cache``), so processes that share a directory build
+once.  Loading and the per-pattern device caches are safe to use from
+several threads (a background warm beside the serving thread).
+
+Each launcher counts its launches through ``count``.  While this thread
+records a CUDA-graph capture (``recording_launches``) a launch is noted in
+the capture's record instead, since the kernel runs only when the graph is
+replayed; ``add_launches`` adds a record at each replay.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -124,18 +135,46 @@ def build() -> tuple[Path, float]:
     return out, time.perf_counter() - t0
 
 
-@functools.lru_cache(maxsize=None)
+_LOCK = threading.Lock()
+_LIB = None
+# the loaded library's path and the seconds its build took in this process
+# (0.0 when the build root already held it)
+LOADED: dict = {}
+
+
+def set_build_root(root) -> Path:
+    """Build and load the library under ``root`` from now on; raises once
+    the library is loaded from another root (a process holds one
+    library)."""
+    global BUILD_ROOT
+    root = Path(root).resolve()
+    with _LOCK:
+        if _LIB is not None and root != BUILD_ROOT:
+            raise RuntimeError(
+                f"the kernel library is already loaded from {BUILD_ROOT}; "
+                f"set the build root to {root} before the first launch")
+        BUILD_ROOT = root
+    return root
+
+
 def load() -> ctypes.CDLL:
     """Build if needed and load the kernel library (once per process)."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for name, args in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
-    lib.aco_error_string.argtypes = [ctypes.c_int]
-    lib.aco_error_string.restype = ctypes.c_char_p
-    return lib
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    with _LOCK:
+        if _LIB is None:
+            path, seconds = build()
+            lib = ctypes.CDLL(str(path))
+            for name, args in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            lib.aco_error_string.argtypes = [ctypes.c_int]
+            lib.aco_error_string.restype = ctypes.c_char_p
+            LOADED.update(path=str(path), build_s=seconds)
+            _LIB = lib
+    return _LIB
 
 
 def check(lib: ctypes.CDLL, code: int, name: str) -> None:
@@ -165,16 +204,71 @@ def require(name: str, t, dtype, shape=None, device=None) -> None:
         raise ValueError(f"{name}: tensor is not contiguous")
 
 
-@functools.lru_cache(maxsize=256)
+_CACHED: dict = {}
+
+
+def _cached(dtype_name: str, values: tuple, device: str):
+    """``values`` as a device tensor, copied once per (values, device) and
+    then served from the cache (which is never evicted: a CUDA graph may
+    hold its pointer)."""
+    key = (dtype_name, values, device)
+    t = _CACHED.get(key)
+    if t is None:
+        import torch
+        with _LOCK:
+            t = _CACHED.get(key)
+            if t is None:
+                t = torch.tensor(values, dtype=getattr(torch, dtype_name),
+                                 device=device)
+                _CACHED[key] = t
+    return t
+
+
 def _flags(values: tuple, device: str):
-    import torch
-    return torch.tensor(values, dtype=torch.uint8, device=device)
+    return _cached("uint8", values, device)
 
 
-@functools.lru_cache(maxsize=256)
 def _counts(values: tuple, device: str):
-    import torch
-    return torch.tensor(values, dtype=torch.int32, device=device)
+    return _cached("int32", values, device)
+
+
+_RECORDING = threading.local()
+_COUNT_LOCK = threading.Lock()
+
+
+def count(fn, slots=None) -> None:
+    """Add one launch of ``fn`` (and ``slots`` instances served) to its
+    counts, or to this thread's capture record while one is open."""
+    rec = getattr(_RECORDING, "record", None)
+    if rec is not None:
+        got = rec.setdefault(fn, [0, 0])
+        got[0] += 1
+        got[1] += slots or 0
+        return
+    add_launches({fn: (1, slots or 0)})
+
+
+def add_launches(record: dict) -> None:
+    """Add a record's launches (and instances served) to the launchers'
+    counts: a graph replay launches what its capture recorded."""
+    with _COUNT_LOCK:
+        for fn, (launches, slots) in record.items():
+            fn.launches += launches
+            if hasattr(fn, "slot_launches"):
+                fn.slot_launches += slots
+
+
+class recording_launches:
+    """Within the block, this thread's launches go to the yielded record
+    ({launcher: [launches, instances]}) and not to the counts."""
+
+    def __enter__(self) -> dict:
+        self.record: dict = {}
+        _RECORDING.record = self.record
+        return self.record
+
+    def __exit__(self, *exc) -> None:
+        _RECORDING.record = None
 
 
 def count_array(n_actual: int, batch: int, device):

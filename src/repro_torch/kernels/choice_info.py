@@ -86,8 +86,7 @@ def choice_info(tau: torch.Tensor, eta: torch.Tensor, alpha: float = 1.0,
     _build.launch("choice_info", tau.device, tau.data_ptr(), eta.data_ptr(),
                   out.data_ptr(), nb, n0, n1, float(alpha), float(beta),
                   n_act, n_ptr, None if flags is None else flags.data_ptr())
-    choice_info.launches += 1
-    choice_info.slot_launches += computed
+    _build.count(choice_info, computed)
     return out
 
 

@@ -46,8 +46,17 @@
 //           neighbour pairs are loaded 8 chunks ahead, and the
 //           previous-neighbour ids wait in shared memory for the reverse
 //           pass.
-// Precondition: every row of tours is a permutation of 0..n-1 (what tour
-// construction emits); out-of-range ids are skipped, never written.
+// Tours that are not permutations: construction can emit a city twice
+// (an int8 store whose payload is zero over every unvisited city of a
+// row), and then a city's (next, previous) pair is not one pair.  Pass 1
+// claims each city's entry with an atomicCAS and flags the instance when
+// a city comes twice or an id lies outside [0, n); pass 2 then runs the
+// exact path for that instance: the warp owning row i scans the edge
+// stream, forward edges then reverse ones, ants and positions in order,
+// and adds each edge that leaves city i, one after another.  That is the
+// CPU index_add_'s order again (bitwise the plain version), at O(m n) per
+// row instead of O(m); the flags live past the table in the scratch and
+// are cleared by a memset before pass 1.
 // The instance axis (the reference's pallas_call under vmap): blockIdx.y of
 // both passes is the instance b of a (B, n, n) stack; its tau, tours,
 // weights, table and out start b instance strides further on, its n_eff is
@@ -94,17 +103,20 @@ constexpr int kDepth = 8;          // 32-ant chunks loaded ahead per warp
 constexpr int kAnts = 8;           // tours inverted per block in pass 1
 constexpr int kBlock1 = 1024;      // pass 1's threads per block
 constexpr int kSmemCap = 232448;   // bytes of shared memory a block may use
+constexpr int kAbsent = INT_MIN;   // pass 1: a city not met yet in a tour
 
 // Pass 1: one block inverts the tours of `na` ants in shared memory, then
 // writes nbr[c][a] = (next, previous) tour neighbour of city c in tour a,
-// the ants of one city side by side (64 contiguous bytes per city).
+// the ants of one city side by side (64 contiguous bytes per city).  A
+// tour that is not a permutation sets bad[b].
 __global__ void tour_neighbours_kernel(const int* __restrict__ tours,
                                        int2* __restrict__ nbr, int m, int n,
                                        int n_eff,
                                        const int* __restrict__ n_eff_arr,
                                        const unsigned char* __restrict__ act,
-                                       int ants) {
+                                       int ants, int* __restrict__ bad) {
   extern __shared__ int2 s_nb[];  // [ants][n]
+  __shared__ int s_bad;
   const int b = blockIdx.y;
   if (act != nullptr && act[b] == 0) return;
   if (n_eff_arr != nullptr) n_eff = n_eff_arr[b];
@@ -114,20 +126,36 @@ __global__ void tour_neighbours_kernel(const int* __restrict__ tours,
   const int a0 = blockIdx.x * ants;
   const int na = min(ants, m - a0);
   const int total = na * n;
+  if (threadIdx.x == 0) s_bad = 0;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    s_nb[e] = make_int2(kAbsent, kAbsent);
+  }
+  __syncthreads();
 #pragma unroll 4
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
     const int ai = e / n, p = e - ai * n;
     const int* tour = tours + (long long)(a0 + ai) * n;
     const int c = tour[p];
-    if (c < 0 || c >= n) continue;
+    if (c < 0 || c >= n) {
+      s_bad = 1;
+      continue;
+    }
     int2 nb = make_int2(-1, -1);
     if (p < n_eff) {
       nb.x = tour[p == n_eff - 1 ? 0 : p + 1];
       nb.y = tour[p == 0 ? n_eff - 1 : p - 1];
     }
-    s_nb[ai * n + c] = nb;
+    // the first position to claim city c keeps its pair; a second one
+    // means the tour is not a permutation
+    int* slot = reinterpret_cast<int*>(s_nb + ai * n + c);
+    if (atomicCAS(slot, kAbsent, nb.x) != kAbsent) {
+      s_bad = 1;
+      continue;
+    }
+    slot[1] = nb.y;
   }
   __syncthreads();
+  if (threadIdx.x == 0 && s_bad != 0) bad[b] = 1;
   for (int e = threadIdx.x; e < n * ants; e += blockDim.x) {
     const int c = e / ants, ai = e - c * ants;
     if (ai < na) nbr[(long long)c * m + a0 + ai] = s_nb[ai * n + c];
@@ -187,23 +215,62 @@ __device__ __forceinline__ void add_chunk(float* row, int* tag,
   __syncwarp();
 }
 
+// The exact path of a row whose instance has a tour that is not a
+// permutation: every edge of the stream that leaves city i, forward edges
+// (tour[p] -> tour[p + 1], the closing one at n_eff - 1 back to position
+// 0) then reverse ones, ants and positions in order, added one after
+// another by lane 0; edges of positions >= n_eff weigh 0 and are skipped,
+// and an edge to an id outside [0, n) deposits nothing (the plain
+// version's mask).
+__device__ void stream_row(float* row, const int* __restrict__ tours,
+                           const float* ws, int i, int n, int m, int n_eff,
+                           int lane) {
+  for (int dir = 0; dir < 2; ++dir) {
+    for (int a = 0; a < m; ++a) {
+      const int* tour = tours + (long long)a * n;
+      const float wa = ws[a];
+      for (int p0 = 0; p0 < n_eff; p0 += 32) {
+        const int p = p0 + lane;
+        int src = -1, dst = -1;
+        if (p < n_eff) {
+          const int c = tour[p];
+          const int d = tour[p == n_eff - 1 ? 0 : p + 1];
+          src = dir == 0 ? c : d;
+          dst = dir == 0 ? d : c;
+        }
+        unsigned hit = __ballot_sync(kFull, src == i && dst >= 0 && dst < n);
+        while (hit != 0u) {  // uniform across the warp
+          const int j = __shfl_sync(kFull, dst, __ffs(hit) - 1);
+          if (lane == 0) row[j] = __fadd_rn(row[j], wa);
+          hit &= hit - 1u;
+        }
+      }
+    }
+  }
+  __syncwarp();
+}
+
 // Pass 2: one warp per row; shared memory holds the ants' weights (block)
 // and, per warp, the row, the row's previous-neighbour ids and the tags.
 __global__ void row_update_kernel(const float* __restrict__ tau,
                                   const int2* __restrict__ nbr,
+                                  const int* __restrict__ tours,
                                   const float* __restrict__ w,
                                   float* __restrict__ out, int n, int m,
                                   float decay, int n_eff,
                                   const int* __restrict__ n_eff_arr,
-                                  const unsigned char* __restrict__ active) {
+                                  const unsigned char* __restrict__ active,
+                                  const int* __restrict__ bad) {
   extern __shared__ float smem[];
   const int b = blockIdx.y;
   if (active != nullptr && active[b] == 0) return;
   if (n_eff_arr != nullptr) n_eff = n_eff_arr[b];
   if (n_eff < 1 || n_eff > n) return;
+  const bool exact = bad[b] != 0;
   tau += (long long)b * n * n;
   out += (long long)b * n * n;
   nbr += (long long)b * n * m;
+  tours += (long long)b * m * n;
   w += (long long)b * m;
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -218,6 +285,12 @@ __global__ void row_update_kernel(const float* __restrict__ tau,
     const long long r = (long long)i * n;
     for (int j = lane; j < n; j += 32) row[j] = __fmul_rn(decay, tau[r + j]);
     __syncwarp();
+    if (exact) {
+      stream_row(row, tours, ws, i, n, m, n_eff, lane);
+      for (int j = lane; j < n; j += 32) out[r + j] = row[j];
+      __syncwarp();
+      continue;
+    }
     // forward deposits, ants in order; the previous-neighbour ids are kept
     // for the reverse pass
     const int2* nb = nbr + (long long)i * m;
@@ -267,7 +340,8 @@ extern "C" int aco_pheromone_update(const float* tau, const int* frm,
 }
 
 // tau, out: (batch, n, n); tours: (batch, m, n); w: (batch, m); nbr:
-// scratch of 2 batch m n ints.  n_eff = n_actual (the closing edge leaves
+// scratch of 2 batch m n + batch ints (the table, then the instances' flags
+// of a tour that is not a permutation).  n_eff = n_actual (the closing edge leaves
 // position n_eff - 1; positions >= n_eff deposit nothing), n for an
 // unpadded instance; n_eff_arr (batch,), when given, holds each instance's.
 // active (batch,) bytes, or null: an inactive instance's out is left as it
@@ -292,6 +366,9 @@ extern "C" int aco_pheromone_update_tours(const float* tau, const int* tours,
   const long long smem1 = 8LL * ants * n;
   if (smem > kSmemCap || smem1 > kSmemCap) return (int)cudaErrorInvalidValue;
   int2* nb = reinterpret_cast<int2*>(nbr);
+  int* bad = nbr + 2LL * batch * n * m;
+  const cudaError_t cleared = cudaMemsetAsync(bad, 0, sizeof(int) * batch, s);
+  if (cleared != cudaSuccess) return (int)cleared;
   if (m > 0) {
     if (smem1 > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
@@ -301,7 +378,8 @@ extern "C" int aco_pheromone_update_tours(const float* tau, const int* tours,
     }
     tour_neighbours_kernel<<<dim3((m + ants - 1) / ants, batch), kBlock1,
                              (size_t)smem1, s>>>(tours, nb, m, n, n_eff,
-                                                 n_eff_arr, active, ants);
+                                                 n_eff_arr, active, ants,
+                                                 bad);
   }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -311,6 +389,6 @@ extern "C" int aco_pheromone_update_tours(const float* tau, const int* tours,
   }
   const int grid = (n + warps - 1) / warps;
   row_update_kernel<<<dim3(grid, batch), warps * 32, (size_t)smem, s>>>(
-      tau, nb, w, out, n, m, decay, n_eff, n_eff_arr, active);
+      tau, nb, tours, w, out, n, m, decay, n_eff, n_eff_arr, active, bad);
   return (int)cudaGetLastError();
 }

@@ -102,7 +102,7 @@ def fused_select(tau: torch.Tensor, eta: torch.Tensor, cur: torch.Tensor,
                   tau.shape[0], cur.data_ptr(), visited.data_ptr(),
                   rand.data_ptr(), out.data_ptr(), m, n, float(alpha),
                   float(beta), code, n_act)
-    fused_select.launches += 1
+    _build.count(fused_select)
     return out
 
 
@@ -139,7 +139,7 @@ def fused_select_quant(tau_q: torch.Tensor, tau_scale: Optional[torch.Tensor],
                   eta.data_ptr(), tau_q.shape[0], cur.data_ptr(),
                   visited.data_ptr(), rand.data_ptr(), out.data_ptr(), m, n,
                   float(alpha), float(beta), code, n_act)
-    fused_select_quant.launches += 1
+    _build.count(fused_select_quant)
     return out
 
 
@@ -307,8 +307,7 @@ def fused_walk(tau: torch.Tensor, eta: torch.Tensor, start: torch.Tensor,
     out, walked = _launch_walk("fused_walk", tau, None, eta, start, key,
                                alpha, beta, n_actual, mode, draw_mode,
                                visited, first_step, active)
-    fused_walk.launches += 1
-    fused_walk.slot_launches += walked
+    _build.count(fused_walk, walked)
     return out
 
 
@@ -341,8 +340,7 @@ def fused_walk_quant(tau_q: torch.Tensor, tau_scale: Optional[torch.Tensor],
     out, walked = _launch_walk("fused_walk_quant", tau_q, scale, eta, start,
                                key, alpha, beta, n_actual, mode, draw_mode,
                                visited, first_step, active)
-    fused_walk_quant.launches += 1
-    fused_walk_quant.slot_launches += walked
+    _build.count(fused_walk_quant, walked)
     return out
 
 

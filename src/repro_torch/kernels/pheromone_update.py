@@ -80,7 +80,7 @@ def pheromone_update(tau: torch.Tensor, frm: torch.Tensor, to: torch.Tensor,
     _build.launch("pheromone_update", dev, tau.data_ptr(), frm.data_ptr(),
                   to.data_ptr(), w.data_ptr(), out.data_ptr(), n0, n1, e,
                   _decay(rho))
-    pheromone_update.launches += 1
+    _build.count(pheromone_update)
     return out
 
 
@@ -124,8 +124,10 @@ def pheromone_update_tours(tau: torch.Tensor, tours: torch.Tensor,
                            active: Optional[Sequence[bool]] = None
                            ) -> torch.Tensor:
     """Launch the tours-driven kernel on CUDA tensors; raises on anything
-    else.  Every row of ``tours`` must be a permutation of 0..n-1, as tour
-    construction emits them.
+    else.  An instance whose tours are all permutations of 0..n-1 takes the
+    row-owner path; one with a tour that repeats a city (construction over
+    an int8 store can emit one) takes the kernel's exact path, slower and
+    as bitwise the plain version.
 
     The instance axis: a (B, n, n) tau updates B instances in one launch,
     tours (B, m, n) and w (B, m) with it, ``n_actual`` a host int or a (B,)
@@ -153,14 +155,14 @@ def pheromone_update_tours(tau: torch.Tensor, tours: torch.Tensor,
     n_eff, n_eff_ptr = _build.n_actual_arg("pheromone_update_tours",
                                            n_actual, nb, n, dev)
     flags, updated = _build.active_flags(active, nb, dev)
-    nbr = torch.empty(lead + (n, m, 2), dtype=torch.int32, device=dev)
+    # the neighbour table, then one flag per instance (the kernel clears)
+    nbr = torch.empty(nb * n * m * 2 + nb, dtype=torch.int32, device=dev)
     out = torch.empty_like(tau)
     _build.launch("pheromone_update_tours", dev, tau.data_ptr(),
                   tours.data_ptr(), w.data_ptr(), nbr.data_ptr(),
                   out.data_ptr(), nb, n, m, n_eff, n_eff_ptr,
                   None if flags is None else flags.data_ptr(), _decay(rho))
-    pheromone_update_tours.launches += 1
-    pheromone_update_tours.slot_launches += updated
+    _build.count(pheromone_update_tours, updated)
     return out
 
 

@@ -120,7 +120,7 @@ def sparse_select(tau_rows: torch.Tensor, eta_rows: torch.Tensor,
                   eta_rows.data_ptr(), cand.data_ptr(), visited.data_ptr(),
                   rand.data_ptr(), pos.data_ptr(), have.data_ptr(), m, k,
                   visited.shape[1], float(alpha), float(beta), code)
-    sparse_select.launches += 1
+    _build.count(sparse_select)
     return pos, have
 
 
@@ -157,7 +157,7 @@ def sparse_select_quant(tau_rows_q: torch.Tensor,
                   eta_rows.data_ptr(), cand.data_ptr(), visited.data_ptr(),
                   rand.data_ptr(), pos.data_ptr(), have.data_ptr(), m, k,
                   visited.shape[1], float(alpha), float(beta), code)
-    sparse_select_quant.launches += 1
+    _build.count(sparse_select_quant)
     return pos, have
 
 
@@ -321,8 +321,7 @@ def sparse_walk(problem, tau, ovf_city: torch.Tensor, ovf_tau,
                   None if flags is None else flags.data_ptr(),
                   code, DRAW_CODES[draw_mode], EWT_CODES[ewt], DRAW_MIN,
                   span, float(alpha), float(beta))
-    sparse_walk.launches += 1
-    sparse_walk.slot_launches += walked
+    _build.count(sparse_walk, walked)
     return out_city, out_dist, fallbacks
 
 

@@ -110,8 +110,7 @@ def tour_select(rows: torch.Tensor, visited: torch.Tensor,
     _build.launch("tour_select", dev, rows.data_ptr(), visited.data_ptr(),
                   rand.data_ptr(), out.data_ptr(), nb, m, n, code, n_act,
                   n_ptr, None if flags is None else flags.data_ptr())
-    tour_select.launches += 1
-    tour_select.slot_launches += served
+    _build.count(tour_select, served)
     return out
 
 

@@ -86,7 +86,7 @@ def two_opt_best(add1: torch.Tensor, add2: torch.Tensor, rem1: torch.Tensor,
                   rem1.data_ptr(), rem2.data_ptr(), valid.data_ptr(), m, M,
                   float(-np.float32(thr)), MODES[mode], val.data_ptr(),
                   idx.data_ptr())
-    two_opt_best.launches += 1
+    _build.count(two_opt_best)
     return val, idx
 
 

@@ -41,9 +41,16 @@ fails as the reference's ``data_mesh`` does), or, with ``--device``, that
 many positions of the one device given (``--device cpu --shard --devices
 4`` runs a 4-position mesh on the CPU; default one position).
 
-Not ported yet, and refused with exit code 2 and one line on stderr:
-``--warmup``/``--warmup-async``/``--cache-dir``/``--bucket-ladder``/
-``--dry`` (the program cache, ROADMAP queue 1 item 15).
+Program cache (``solver/programs.py``): ``--warmup`` warms the bucket
+ladder for the [min_n, max_n] range before traffic (on the card: one eager
+engine iteration and CUDA graphs of one engine iteration per bucket;
+``--warmup-async`` on a background thread; ``--bucket-ladder 16,32``
+overrides the rungs), ``--cache-dir`` builds and loads the kernel library
+in that directory, so a restart loads the build instead of compiling it,
+and ``--dry`` warms the ladder, prints the program and cache stats as JSON
+and exits.  With ``--draw-mode counter`` and ``--ants`` pinned, admission
+may route a request whose bucket is cold into the nearest larger warmed
+one, bitwise exactly.
 
 Usage, on the card and on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.solve_serve --use-pallas \\
@@ -55,6 +62,9 @@ Usage, on the card and on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.solve_serve --device cpu \\
         --stream --num-instances 4 --min-n 12 --max-n 28 --iterations 5 \\
         --max-batch 2 --arrival-rate 20 --chunk 2
+    PYTHONPATH=src python -m repro_torch.launch.solve_serve --use-pallas \\
+        --variant mmas --min-n 500 --max-n 1002 --max-batch 4 --warmup \\
+        --cache-dir /tmp/aco-kernels [--dry]
 """
 from __future__ import annotations
 
@@ -70,15 +80,10 @@ from .. import obs
 from ..core import aco, tsp
 from ..kernels.ops import UnsupportedKernelRoute
 from .mesh import make_data_mesh
-from ..solver import (SolverService, StreamingSolverService,
-                      make_poisson_trace, replay_trace)
-
-# flag -> the ROADMAP item that ports what it asks for
-NOT_PORTED = {
-    "warmup": 15, "warmup_async": 15, "cache_dir": 15, "bucket_ladder": 15,
-    "dry": 15,
-}
-_ITEM_WHAT = {15: "the program cache"}
+from ..kernels import _build
+from ..solver import (ProgramCache, SolverService, StreamingSolverService,
+                      enable_persistent_cache, make_poisson_trace,
+                      persistent_cache_stats, replay_trace)
 
 
 def make_workload(num: int, min_n: int, max_n: int, seed: int):
@@ -245,15 +250,29 @@ def _parser() -> argparse.ArgumentParser:
                          "a single label, or a comma-separated list "
                          "cycled across the workload")
     ap.add_argument("--warmup", action="store_true",
-                    help="not ported yet (ROADMAP queue 1 item 15)")
+                    help="warm the service's program for every bucket in "
+                         "[--min-n, --max-n] before admitting traffic (on "
+                         "the card: an eager engine iteration and CUDA "
+                         "graphs of one); warmed buckets also enable "
+                         "neighbour-bucket admission routing when the "
+                         "config's numerics are bucket-width invariant "
+                         "(--draw-mode counter with --ants pinned)")
     ap.add_argument("--warmup-async", action="store_true",
-                    help="not ported yet (ROADMAP queue 1 item 15)")
+                    help="--warmup on a background thread: traffic is "
+                         "admitted at once and takes the engine's own path "
+                         "until its bucket is warm")
     ap.add_argument("--cache-dir", default=None,
-                    help="not ported yet (ROADMAP queue 1 item 15)")
+                    help="build and load the CUDA kernel library in this "
+                         "directory: a second process over it loads the "
+                         "build instead of compiling it")
     ap.add_argument("--bucket-ladder", default=None,
-                    help="not ported yet (ROADMAP queue 1 item 15)")
+                    help="--warmup: explicit comma-separated bucket list "
+                         "(default: batch.bucket_ladder over "
+                         "[--min-n, --max-n])")
     ap.add_argument("--dry", action="store_true",
-                    help="not ported yet (ROADMAP queue 1 item 15)")
+                    help="--warmup: warm the ladder, report the program "
+                         "and cache stats as JSON and exit without running "
+                         "a workload")
     ap.add_argument("--draw-mode", default="packed",
                     choices=["packed", "counter"],
                     help="per-(ant, city) randomness derivation: "
@@ -264,22 +283,11 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_not_ported(args) -> None:
-    """Exit 2 with one line on stderr for a flag whose machinery is not
-    ported yet."""
-    for dest, item in NOT_PORTED.items():
-        if getattr(args, dest) not in (None, False):
-            flag = "--" + dest.replace("_", "-")
-            print(f"solve_serve: {flag} is not ported yet: "
-                  f"{_ITEM_WHAT[item]} is ROADMAP queue 1 item {item}",
-                  file=sys.stderr)
-            sys.exit(2)
-
-
 def main() -> None:
     ap = _parser()
     args = ap.parse_args()
-    _refuse_not_ported(args)
+    if args.dry and not args.warmup:
+        ap.error("--dry requires --warmup")
     dev = _device.resolve(args.device)
     cfg = aco.ACOConfig(iterations=args.iterations, variant=args.variant,
                         selection=args.selection,
@@ -298,6 +306,43 @@ def main() -> None:
                         profile_dir=args.profile_dir)
     tenants = (args.tenant.split(",") if args.tenant else None)
     server = None
+    if args.cache_dir:
+        enable_persistent_cache(args.cache_dir)
+    programs = ProgramCache(telemetry=tel) if args.warmup else None
+    ladder = ([int(x) for x in args.bucket_ladder.split(",")]
+              if args.bucket_ladder else None)
+
+    def _warm(svc) -> bool:
+        """Run the warmup ladder; with --dry, print the report and tell
+        the caller to skip the workload."""
+        if programs is None:
+            return False
+        t0 = time.perf_counter()
+        summary = svc.warm_programs(args.min_n, args.max_n, ladder=ladder,
+                                    background=args.warmup_async
+                                    and not args.dry)
+        warm_s = time.perf_counter() - t0
+        if not args.dry:
+            if args.warmup_async:
+                print("solve_serve: warmup started (background)",
+                      file=sys.stderr)
+            else:
+                print(f"solve_serve: warmup done in {warm_s:.2f}s; kernel "
+                      f"library {json.dumps(_build.LOADED)}",
+                      file=sys.stderr)
+            return False
+        report = {
+            "schema": "repro.solve_serve/v1",
+            "dry": True,
+            "warmup": summary,
+            "stats": {"programs": programs.stats()},
+        }
+        if args.cache_dir:
+            report["cache"] = persistent_cache_stats(args.cache_dir)
+        report["kernels"] = dict(_build.LOADED)
+        print(json.dumps(_round(report), indent=2), flush=True)
+        return True
+
     try:
         tel.profile_start()
         if args.stream:
@@ -309,8 +354,11 @@ def main() -> None:
                 chunk=args.chunk, patience=args.patience,
                 max_waiting=args.max_waiting,
                 per_instance_hyper=args.per_instance_hyper, mesh=mesh,
-                telemetry=tel, snapshot_every=args.stats_every, device=dev)
+                telemetry=tel, snapshot_every=args.stats_every,
+                programs=programs, device=dev)
             server = _start_metrics_server(args, tel, svc)
+            if _warm(svc):
+                return
             trace = make_poisson_trace(args.num_instances, args.arrival_rate,
                                        args.min_n, args.max_n,
                                        seed=args.seed,
@@ -325,8 +373,11 @@ def main() -> None:
                                 min_bucket=args.min_bucket,
                                 patience=args.patience,
                                 checkpoint_dir=args.checkpoint_dir,
-                                mesh=mesh, telemetry=tel, device=dev)
+                                mesh=mesh, telemetry=tel,
+                                programs=programs, device=dev)
             server = _start_metrics_server(args, tel, svc)
+            if _warm(svc):
+                return
             for i, inst in enumerate(make_workload(
                     args.num_instances, args.min_n, args.max_n, args.seed)):
                 svc.submit(inst, tenant=(tenants[i % len(tenants)]

@@ -16,15 +16,20 @@ The PyTorch port of ``repro.solver``, drain mode:
               eviction, backpressure and trace replay;
 - placement.py  the instance axis sharded over the positions of a
               ``launch.mesh.Mesh`` (``run_batch(mesh=)``), phantom-slot
-              padding, device labels.
-
-The program cache is not ported yet (ROADMAP queue 1 item 15).
+              padding, device labels;
+- programs.py  the program cache: a persistent kernel build directory,
+              bucket-ladder warmup (an eager engine iteration and CUDA
+              graphs of one engine iteration per signature) and
+              neighbour-bucket admission routing.
 """
 from .batch import (ProblemBatch, SparseBatch, bucket_ladder,  # noqa: F401
                     bucket_size, make_batch, make_sparse_batch,
                     padded_problem)
 from .engine import (collect, init_sparse_states, init_state,  # noqa: F401
                      init_states, run_batch, solve_instances)
+from .programs import (ProgramCache, ProgramKey,  # noqa: F401
+                       check_neighbour_route, enable_persistent_cache,
+                       persistent_cache_stats)
 from .service import SolveRequest, SolveResult, SolverService  # noqa: F401
 from .streaming import (AdmissionError, StreamingPool,  # noqa: F401
                         StreamingSolverService, StreamRequest, TraceItem,

@@ -18,9 +18,16 @@ The service runs on the card unless ``device="cpu"`` is passed.  With a
 ``mesh`` (``launch.mesh.Mesh``) every batch job's instance axis is
 sharded over the mesh's positions by the placement layer, and the
 results stay bitwise what the single-device service returns; the batches
-are built on the mesh's first position unless a device is given.  The
-program cache (``programs=``, ``warm_programs``) is not ported yet
-(ROADMAP queue 1 item 15).
+are built on the mesh's first position unless a device is given.
+
+Program cache (``programs=``, ``solver/programs.py``): jobs whose full
+signature was warmed (``warm_programs``) run the warmed program; jobs are
+padded with budget-0 phantom slots to ``max_batch`` and their loop bound
+rounded up to the cache's ``iters_cap``, so one program serves every job
+of a bucket (a phantom slot never steps, and a larger bound never changes
+a trajectory); admission may route a request whose bucket is cold into the
+nearest larger warmed one where that is bitwise exact
+(``programs.check_neighbour_route``).
 """
 from __future__ import annotations
 
@@ -87,10 +94,6 @@ class SolverService:
                  ckpt_chunk: int = 25, mesh=None,
                  telemetry: Optional[obs.Telemetry] = None,
                  programs=None, device: _device.DeviceLike = None):
-        if programs is not None:
-            raise NotImplementedError(
-                "SolverService(programs=...): the program cache is not "
-                "ported yet (ROADMAP queue 1 item 15)")
         if cfg is None:
             cfg = aco.ACOConfig()
         if cfg.deposit in pheromone.NOT_PORTED:
@@ -124,6 +127,7 @@ class SolverService:
         # default private bundle costs microseconds
         self.tel = telemetry if telemetry is not None else obs.Telemetry()
         self.slo = obs.SloTracker(self.tel.registry)
+        self.programs = programs
         self._t_started = time.perf_counter()
         self._queue: list[SolveRequest] = []
         self._next_id = 0
@@ -154,15 +158,37 @@ class SolverService:
         return rid
 
     def _route_bucket(self, n: int) -> int:
-        """Admission bucket for an ``n``-city instance: its power-of-two
-        bucket."""
-        return batch_mod.bucket_size(n, self.min_bucket)
+        """Admission bucket for an ``n``-city instance: the native
+        power-of-two bucket, possibly routed into the nearest larger warmed
+        bucket by an attached program cache (bitwise exact per
+        ``programs.check_neighbour_route``)."""
+        native = batch_mod.bucket_size(n, self.min_bucket)
+        if self.programs is None:
+            return native
+        from . import programs as programs_mod
+        return self.programs.route_bucket(
+            native, self.cfg,
+            kind="sparse" if self.cfg.sparse else "dense",
+            mesh=programs_mod.mesh_label(self.mesh))
 
     def warm_programs(self, min_n: int, max_n: int,
                       background: bool = False, ladder=None):
-        raise NotImplementedError(
-            "warm_programs: the program cache is not ported yet (ROADMAP "
-            "queue 1 item 15)")
+        """Warm the drain job's program for every bucket instances in
+        [min_n, max_n] can land in (``batch.bucket_ladder``; ``ladder``
+        overrides with an explicit bucket list).  Sets the program cache's
+        ``iters_cap`` (default: ``cfg.iterations``) so jobs with budgets
+        under the cap share the warmed loop bound."""
+        if self.programs is None:
+            raise ValueError("no ProgramCache attached (programs=)")
+        if self.programs.iters_cap is None:
+            self.programs.iters_cap = self.cfg.iterations
+        if ladder is None:
+            ladder = batch_mod.bucket_ladder(min_n, max_n, self.min_bucket)
+        return self.programs.warm(
+            ladder, batch=self.max_batch, cfg=self.cfg,
+            max_iters=self.programs.iters_cap, patience=self.patience,
+            donate=False, kind="sparse" if self.cfg.sparse else "dense",
+            mesh=self.mesh, background=background, device=self.device)
 
     @property
     def devices(self) -> int:
@@ -223,6 +249,8 @@ class SolverService:
             "uptime_s": time.perf_counter() - self._t_started,
             "tenants": self.slo.summary(),
         }
+        if self.programs is not None:
+            self.stats["programs"] = self.programs.stats()
         return sorted(results, key=lambda r: r.request_id)
 
     # --------------------------------------------------------------- job
@@ -232,6 +260,17 @@ class SolverService:
         seeds = [r.seed for r in reqs]
         budgets = [r.iterations for r in reqs]
         max_it = max(budgets)
+        if self.programs is not None:
+            # the warmed signature: the loop bound rounds up to the cache's
+            # iters_cap and the batch pads to max_batch with budget-0
+            # phantom slots, which never step (collect below zips against
+            # ``reqs`` only, so their rows never surface)
+            max_it = self.programs.effective_max_iters(max_it)
+            pad = self.max_batch - len(reqs)
+            if pad > 0:
+                instances = instances + [instances[0]] * pad
+                seeds = seeds + [0] * pad
+                budgets = budgets + [0] * pad
         job_id = self._jobs_run
         self._jobs_run += 1
         dev = self.device
@@ -276,11 +315,11 @@ class SolverService:
                     async_write=False)
 
                 def init_st():
-                    zeros = torch.zeros((len(reqs),), dtype=torch.int32,
+                    zeros = torch.zeros((len(budgets),), dtype=torch.int32,
                                         device=dev)
                     if metrics_on:
                         return (init(), zeros,
-                                obs_metrics.zeros_batch(len(reqs), dev))
+                                obs_metrics.zeros_batch(len(budgets), dev))
                     return (init(), zeros)
 
                 sup = Supervisor(
@@ -290,12 +329,14 @@ class SolverService:
                     lambda st, i: engine.run_batch(
                         b.problem, st[0], budgets, self.cfg, chunk,
                         self.patience, st[1], mesh=self.mesh, kind=kind,
-                        ewt=ewt, mets=st[2] if metrics_on else None))
+                        ewt=ewt, mets=st[2] if metrics_on else None,
+                        programs=self.programs))
                 out_st = sup.run()
             else:
                 out_st = engine.run_batch(b.problem, init(), budgets,
                                           self.cfg, max_it, self.patience,
-                                          mesh=self.mesh, kind=kind, ewt=ewt)
+                                          mesh=self.mesh, kind=kind, ewt=ewt,
+                                          programs=self.programs)
             states = out_st[0]
             mets = out_st[2] if metrics_on else None
             for d in {dev} if self.mesh is None else \

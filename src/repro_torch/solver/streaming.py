@@ -46,8 +46,14 @@ mesh position, on that position's device; admission goes to the
 least-occupied pool, and every step dispatches all pools' chunks before
 it harvests any.  Requests are prepped on the service's device (the
 mesh's first position unless a device is given) and copied to their
-pool's device by the refill surgery.  The program cache (``programs=``,
-``warm_programs``) is not ported yet (ROADMAP queue 1 item 15).
+pool's device by the refill surgery.
+
+Program cache (``programs=``, ``solver/programs.py``): a pool always steps
+full-width (slots = max_batch, loop bound = chunk, in place), so one
+warmed program per bucket (``warm_programs``) serves every chunk it
+dispatches; admission stamps each request's bucket once, at submit: the
+native one, or the nearest larger warmed one where routing there is
+bitwise exact (``programs.check_neighbour_route``).
 """
 from __future__ import annotations
 
@@ -130,10 +136,6 @@ class StreamingPool:
                  dev_label: str = "dev0",
                  slo: Optional[obs.SloTracker] = None,
                  programs=None):
-        if programs is not None:
-            raise NotImplementedError(
-                "StreamingPool(programs=...): the program cache is not "
-                "ported yet (ROADMAP queue 1 item 15)")
         self.bucket = bucket
         self.slots = slots
         self.cfg = cfg
@@ -146,6 +148,9 @@ class StreamingPool:
             self.tel.registry)
         self.device = _device.resolve(device)
         dev = self.device
+        # a warmed chunk program runs through the cache; None keeps the
+        # engine's own path
+        self.programs = programs
         # Dummy resident for empty slots: budget 0 keeps it frozen, so its
         # trajectory is never observed; it only has to be finite.
         dummy = tsp.random_instance(2, seed=0)
@@ -243,7 +248,8 @@ class StreamingPool:
                 self.tel.step_annotation("chunk_step", step_num=self.chunks):
             out = engine.run_batch(
                 self.problem, self.states, self.budgets, self.cfg, chunk,
-                self.patience, self.since, donate=True, mets=self.mets)
+                self.patience, self.since, donate=True, mets=self.mets,
+                programs=self.programs)
         if self.cfg.metrics:
             self.states, self.since, self.mets = out
         else:
@@ -362,10 +368,6 @@ class StreamingSolverService:
                  telemetry: Optional[obs.Telemetry] = None,
                  snapshot_every: float = 0.0, programs=None,
                  device: _device.DeviceLike = None):
-        if programs is not None:
-            raise NotImplementedError(
-                "StreamingSolverService(programs=...): the program cache "
-                "is not ported yet (ROADMAP queue 1 item 15)")
         if cfg is None:
             cfg = aco.ACOConfig()
         from ..kernels import ops as kops
@@ -417,6 +419,7 @@ class StreamingSolverService:
         self.tel = telemetry if telemetry is not None else obs.Telemetry()
         self.snapshot_every = snapshot_every
         self.slo = obs.SloTracker(self.tel.registry)
+        self.programs = programs
         self._t_started = time.perf_counter()
         self._c_submitted = self.tel.registry.counter("submitted")
         self._c_rejected = self.tel.registry.counter("rejected")
@@ -492,15 +495,31 @@ class StreamingSolverService:
         return rid
 
     def _route_bucket(self, n: int) -> int:
-        """Admission bucket for an ``n``-city instance: its power-of-two
-        bucket."""
-        return batch_mod.bucket_size(n, self.min_bucket)
+        """Admission bucket for an ``n``-city instance: the native
+        power-of-two bucket, possibly routed into the nearest larger warmed
+        bucket by an attached program cache (bitwise exact per
+        ``programs.check_neighbour_route``)."""
+        native = batch_mod.bucket_size(n, self.min_bucket)
+        if self.programs is None:
+            return native
+        return self.programs.route_bucket(native, self.cfg, kind="dense")
 
     def warm_programs(self, min_n: int, max_n: int,
                       background: bool = False, ladder=None):
-        raise NotImplementedError(
-            "warm_programs: the program cache is not ported yet (ROADMAP "
-            "queue 1 item 15)")
+        """Warm the chunk step's program for every bucket instances in
+        [min_n, max_n] can land in (``batch.bucket_ladder``; ``ladder``
+        overrides with an explicit bucket list): the signature the resident
+        pools dispatch, slots = max_batch, loop bound = chunk, in place,
+        metrics per ``cfg.metrics``."""
+        if self.programs is None:
+            raise ValueError("no ProgramCache attached (programs=)")
+        if ladder is None:
+            ladder = batch_mod.bucket_ladder(min_n, max_n, self.min_bucket)
+        return self.programs.warm(
+            ladder, batch=self.max_batch, cfg=self.cfg,
+            max_iters=self.chunk, patience=self.patience, donate=True,
+            kind="dense", hyper=self.per_instance_hyper,
+            background=background, device=self.device)
 
     @property
     def waiting(self) -> int:
@@ -524,7 +543,10 @@ class StreamingSolverService:
                               device=self.device if dev is None else dev,
                               telemetry=self.tel,
                               dev_label=placement.device_label(dev, j),
-                              slo=self.slo)
+                              slo=self.slo,
+                              # warmed on the service's device, which is
+                              # the first position's unless one is given
+                              programs=self.programs if j == 0 else None)
                 for j, dev in enumerate(self._devices)]
         return self._pools[bucket]
 
@@ -687,7 +709,10 @@ class StreamingSolverService:
         if self._t_first_submit is not None and \
                 self._t_last_harvest is not None:
             wall = self._t_last_harvest - self._t_first_submit
+        programs = ({"programs": self.programs.stats()}
+                    if self.programs is not None else {})
         return {
+            **programs,
             "submitted": self._c_submitted.value,
             "rejected": self._c_rejected.value,
             "completed": completed,

@@ -21,7 +21,10 @@ reduction over a stack's folded rows) bitwise single launches and the
 plain versions, and the batched engine one walk and one update launch
 per engine iteration, dense and sparse, one ``choice_info`` launch per
 engine iteration on the ``pallas`` construction and one ``two_opt_best``
-launch per local-search round of the stack.
+launch per local-search round of the stack.  The program cache's CUDA
+graphs of an engine iteration replay bitwise the eager iteration with the
+same launch counts, and a background warm leaves the capture to the
+serving thread.
 """
 import numpy as np
 import pytest
@@ -101,6 +104,40 @@ def test_pheromone_update_kernel(n, n_ants):
             assert torch.equal(again, got), (rho, n_actual)
     assert ops.launch_counts()["pheromone_update_tours"] == 8
     assert ops.launch_counts()["pheromone_update"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ants", [1, 64])
+def test_pheromone_update_kernel_repeated_cities(n_ants):
+    """Tours that repeat a city (construction over an int8 store can emit
+    them) take the kernel's exact path: bitwise the CPU plain composition
+    and the same from launch to launch, one instance alone or one slot of
+    a stack of three, the others' row-owner path unchanged."""
+    dev = cuda_device()
+    n, n_act = 501, 480
+    rng = np.random.default_rng(n_ants + 3)
+    tau = torch.tensor((rng.random((3, n, n)) * 1e-2).astype(np.float32),
+                       device=dev)
+    tours = np.stack([np.stack([np.concatenate([rng.permutation(n_act),
+                                                np.arange(n_act, n)])
+                                for _ in range(n_ants)])
+                      for _ in range(3)]).astype(np.int32)
+    for a in range(n_ants):
+        at = rng.choice(np.arange(1, n_act), size=5, replace=False)
+        tours[1, a, at] = tours[1, a, 0]
+    tours = torch.tensor(tours, device=dev)
+    w = torch.tensor((rng.random((3, n_ants)) * 1e-2).astype(np.float32),
+                     device=dev)
+    n_arr = torch.full((3,), n_act, dtype=torch.int32, device=dev)
+    got = ops.pheromone_update(tau, tours, w, 0.1, n_arr)
+    again = ops.pheromone_update(tau, tours, w, 0.1, n_arr)
+    assert torch.equal(got, again)
+    for b in range(3):
+        want = ops.pheromone_update(tau[b].cpu(), tours[b].cpu(),
+                                    w[b].cpu(), 0.1, n_act)
+        assert torch.equal(got[b].cpu(), want), b
+        solo = ops.pheromone_update(tau[b], tours[b], w[b], 0.1, n_act)
+        assert torch.equal(solo, got[b]), b
 
 
 @pytest.mark.cuda
@@ -714,3 +751,110 @@ def test_batched_pallas_and_local_search_step_the_stack(kw):
         for a, b in zip(tree.flatten(tree.index(got, i)),
                         tree.flatten(tree.index(solo, 0))):
             assert torch.equal(a, b)
+
+
+GRAPH_CASES = [
+    pytest.param(dict(variant="mmas", metrics=True), "dense", id="mmas"),
+    pytest.param(dict(variant="as", tau_dtype="int8"), "dense",
+                 id="as-int8"),
+    pytest.param(dict(variant="acs", tau_dtype="bf16"), "dense",
+                 id="acs-bf16"),
+    pytest.param(dict(variant="mmas", sparse=True, sparse_k=8, m=16),
+                 "sparse", id="sparse-mmas"),
+]
+
+
+def _graph_case(kw, kind, dev):
+    from repro_torch.solver import batch, engine
+    cfg = aco.ACOConfig(use_pallas=True, seed=0, **kw)
+    insts = [tsp.random_instance(n, seed=n) for n in (40, 64, 50, 33)]
+    if kind == "sparse":
+        b = batch.make_sparse_batch(insts, cfg.sparse_k, 64, device=dev)
+        init = lambda: engine.init_sparse_states(  # noqa: E731
+            insts, cfg, [0, 1, 2, 3], 64, dev)
+        return cfg, b.problem, b.ewt, init
+    b = batch.make_batch(insts, 64, cfg.nn_k, device=dev)
+    init = lambda: engine.init_states(  # noqa: E731
+        insts, cfg, [0, 1, 2, 3], 64, device=dev)
+    return cfg, b.problem, "EUC_2D", init
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,kind", GRAPH_CASES)
+def test_graph_replay_bitwise_eager(kw, kind):
+    """A warmed program on the card (static buffers, the all-active CUDA
+    graph from the warm, the partly active patterns' graphs captured at
+    their second sight) is bitwise the eager engine in every field, in
+    place and not."""
+    from repro_torch import tree
+    from repro_torch.solver import engine
+    from repro_torch.solver.programs import ProgramCache
+    cfg, problem, ewt, init = _graph_case(kw, kind, cuda_device())
+    budgets = [3, 5, 4, 5]
+    want = engine.run_batch(problem, init(), budgets, cfg, 5, kind=kind,
+                            ewt=ewt)
+    pc = ProgramCache()
+    for donate in (False, True):
+        pc.warm([64], 4, cfg, 5, donate=donate, kind=kind,
+                device=cuda_device())
+    for donate in (False, False, True, True):
+        got = engine.run_batch(problem, init(), budgets, cfg, 5, kind=kind,
+                               ewt=ewt, donate=donate, programs=pc)
+        for a, b in zip(tree.flatten(want), tree.flatten(got)):
+            assert torch.equal(a, b)
+    st = pc.stats()
+    assert st["hits"] == 4 and st["misses"] == 0 and not st["warm_errors"]
+    for sig in st["signatures"]:
+        assert not sig["eager"] and sig["pool_bytes"] >= 0
+        assert sig["patterns"] == ["all", "0111", "0101"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,kind", GRAPH_CASES[:1] + GRAPH_CASES[3:])
+def test_graph_replay_counts_its_launches(kw, kind):
+    """A capture records its launches instead of counting them, and each
+    replay adds them: a warmed call counts what the eager call counts."""
+    from repro_torch.solver import engine
+    from repro_torch.solver.programs import ProgramCache
+    cfg, problem, ewt, init = _graph_case(kw, kind, cuda_device())
+    budgets = [3, 5, 4, 5]
+    ops.reset_launch_counts()
+    engine.run_batch(problem, init(), budgets, cfg, 5, kind=kind, ewt=ewt)
+    want = ops.launch_counts()
+    pc = ProgramCache()
+    pc.warm([64], 4, cfg, 5, kind=kind, device=cuda_device())
+    prog = next(iter(pc._programs.values()))
+    assert sum(n for n, _ in prog.graphs[None].launches.values()) > 0
+    for _ in range(2):
+        ops.reset_launch_counts()
+        engine.run_batch(problem, init(), budgets, cfg, 5, kind=kind,
+                         ewt=ewt, programs=pc)
+        assert ops.launch_counts() == want
+    assert len(prog.graphs) == 3
+
+
+@pytest.mark.cuda
+def test_background_warm_beside_a_synchronising_thread():
+    """A warm on a background thread captures no graph (the serving
+    thread's device-wide synchronisations must not meet a capture): the
+    serving thread keeps running and synchronising meanwhile, then its
+    first warmed run captures the all-active graph, bitwise eager."""
+    from repro_torch import tree
+    from repro_torch.solver import engine
+    from repro_torch.solver.programs import ProgramCache
+    cfg, problem, ewt, init = _graph_case(dict(variant="mmas"), "dense",
+                                          cuda_device())
+    budgets = [2, 2, 2, 2]
+    want = engine.run_batch(problem, init(), budgets, cfg, 2)
+    pc = ProgramCache()
+    t = pc.warm([64], 4, cfg, 2, device=cuda_device(), background=True)
+    while t.is_alive():
+        engine.run_batch(problem, init(), budgets, cfg, 2)
+        torch.cuda.synchronize()
+    pc.wait()
+    prog = next(iter(pc._programs.values()))
+    assert prog.graphs == {} and not pc.stats()["warm_errors"]
+    got = engine.run_batch(problem, init(), budgets, cfg, 2, programs=pc)
+    assert list(prog.graphs) == [None]
+    for a, b in zip(tree.flatten(want), tree.flatten(got)):
+        assert torch.equal(a, b)

@@ -180,8 +180,12 @@ def test_health_and_slo():
 
 def test_service_rejections_name_their_items():
     cfg = taco.ACOConfig()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tsvc.SolverService(cfg, device="cpu", programs=object())
+    # warm_programs needs a cache, as in the reference
+    with pytest.raises(ValueError, match="no ProgramCache") as want:
+        jsvc.SolverService(jaco.ACOConfig()).warm_programs(10, 100)
+    with pytest.raises(ValueError, match="no ProgramCache") as got:
+        tsvc.SolverService(cfg, device="cpu").warm_programs(10, 100)
+    assert str(got.value) == str(want.value)
     # a mesh is served (tests/test_torch_mesh.py), a sparse one refused
     # with the reference's message
     mesh = Mesh([torch.device("cpu")] * 2, ("data",))
@@ -191,9 +195,6 @@ def test_service_rejections_name_their_items():
     with pytest.raises(tops.UnsupportedKernelRoute) as got:
         tsvc.SolverService(taco.ACOConfig(sparse=True), mesh=mesh)
     assert str(got.value) == str(want.value)
-    svc = tsvc.SolverService(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        svc.warm_programs(10, 100)
     with pytest.raises(ValueError, match="deposit"):
         tsvc.SolverService(taco.ACOConfig(deposit="nope"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 4"):
@@ -338,3 +339,28 @@ def test_supervisor_restart_budget_enforced(tmp_path):
     with pytest.raises(RuntimeError, match="exceeded 2 restarts"):
         sup.run()
     assert sup.restarts == 3
+
+
+@pytest.mark.parametrize("ckpt", [False, True])
+def test_warmed_service_equals_the_reference(ckpt, tmp_path):
+    """``SolverService(programs=)`` after ``warm_programs``: jobs padded
+    to ``max_batch`` with phantom slots, plain and checkpointed, equal the
+    reference's plain drain bitwise; the plain drain hits every job."""
+    from repro_torch.solver.programs import ProgramCache
+    kw = dict(iterations=6, variant="mmas", seed=0)
+    insts = [jtsp.circle_instance(n, seed=n) for n in SIZES]
+    ref = _drain(jsvc.SolverService(jaco.ACOConfig(**kw), max_batch=4),
+                 insts)
+    pc = ProgramCache()
+    svc = tsvc.SolverService(
+        taco.ACOConfig(**kw), max_batch=4, programs=pc, device="cpu",
+        checkpoint_dir=str(tmp_path) if ckpt else None, ckpt_chunk=2)
+    summary = svc.warm_programs(min(SIZES), max(SIZES))
+    assert sorted(summary["buckets"]) == ["16", "32"]
+    assert not summary["errors"]
+    got = _drain(svc, insts)
+    _assert_results(ref, got)
+    st = svc.stats["programs"]
+    assert st["hits"] + st["misses"] > 0
+    if not ckpt:
+        assert st["misses"] == 0 and st["hits"] == svc.stats["batches"]

@@ -166,84 +166,6 @@ def test_make_sparse_batch_equals_reference():
 
 
 # --------------------------------------------------- engine vs reference
-PURE = [(v, ls, 0.1) for v in ("as", "mmas", "acs")
-        for ls in ("none", "2opt", "2opt_oropt")] + \
-    [(v, "none", 0.5) for v in ("as", "mmas", "acs")]
-
-
-@pytest.mark.parametrize("variant,ls,rho", PURE)
-def test_engine_equals_reference_pure_route(variant, ls, rho):
-    """Masked bucket, mixed budgets, iroulette, with and without local
-    search."""
-    sj, st, _ = _both(dict(variant=variant, local_search=ls, ls_rounds=4,
-                           rho=rho, iterations=6))
-    assert_states(sj, st, tau_exact=variant != "acs")
-
-
-@pytest.mark.parametrize("variant", ["as", "mmas", "acs"])
-def test_engine_kernel_route_equals_reference_kernel_route(variant):
-    """The port's kernel route (plain versions on the CPU) against the
-    reference's ``use_pallas`` engine (Pallas in interpret mode), under
-    ``test_kernel_route_vs_jax_kernel_route``'s contract: tours and lengths
-    bitwise; tau bitwise for MMAS, at TOL for AS/ACS at rho 0.1."""
-    sj, st, _ = _both(dict(variant=variant, use_pallas=True, rho=0.1,
-                           iterations=6))
-    assert_states(sj, st, tau_exact=variant == "mmas")
-
-
-@pytest.mark.parametrize("kw", [
-    dict(use_pallas=True, construction="pallas"),
-    dict(use_pallas=True, local_search="2opt", ls_rounds=4),
-])
-def test_engine_stacked_kernel_routes_equal_reference(kw):
-    """The kernel routes whose whole bucket the port steps as one stack
-    (the ``pallas`` construction: one ``choice_info`` and one
-    ``tour_select`` call a step; local search: one ``two_opt_best`` call a
-    round) against the reference's vmapped engine (Pallas in interpret
-    mode), under ``test_kernel_route_vs_jax_kernel_route``'s contract:
-    tours, lengths, iterations and keys bitwise; AS tau (several ants'
-    deposits a cell) at TOL."""
-    sj, st, _ = _both(dict(iterations=6, **kw))
-    assert_states(sj, st, tau_exact=False)
-
-
-@pytest.mark.parametrize("kw", [dict(variant="mmas", tau_dtype="int8"),
-                                dict(variant="as", tau_dtype="bf16",
-                                     use_pallas=True)])
-def test_engine_quantised_store_equals_reference(kw):
-    """An int8 (pure route) or bf16 (kernel route, rho 0.5) store: the
-    payload, row scales and tours bitwise."""
-    sj, st, _ = _both(dict(iterations=6, **kw))
-    assert_states(sj, st)
-
-
-@pytest.mark.parametrize("variant", ["as", "mmas", "acs"])
-def test_engine_hyper_profiles_equal_reference(variant):
-    """The four profiles of test_per_instance_hyperparams_exactness: one
-    bucket mixes alpha/beta/rho/q; tau0 takes the profile's rho.  Tours
-    bitwise; tau bitwise but ACS's (TOL, the vmapped local rule)."""
-    profiles = [dict(), dict(alpha=2.0, rho=0.3), dict(beta=3.0, q=2.0),
-                dict(rho=0.8)]
-    kw = dict(variant=variant, selection="gumbel", iterations=6)
-    sj, st, _ = _both(kw, hypers=profiles)
-    assert_states(sj, st, tau_exact=variant != "acs")
-    # batched == solo in the port, bitwise
-    ct = taco.ACOConfig(**kw)
-    for i, inst in enumerate(INSTS):
-        s1, _ = teng.solve_instances(
-            [inst], ct, iterations=[BUDGETS[i]], seeds=[SEEDS[i]], n_pad=16,
-            hypers=[taco.Hyper.make(ct, device="cpu", **profiles[i])],
-            device="cpu")
-        for a, b in zip(tree.flatten(tree.index(st, i)),
-                        tree.flatten(tree.index(s1, 0))):
-            assert_bitwise(a, b, f"hyper slot {i}")
-
-
-def test_engine_patience_equals_reference():
-    sj, st, _ = _both(dict(variant="mmas", iterations=12),
-                      budgets=(12, 12, 12, 12), patience=2)
-    assert_states(sj, st)
-    assert int(st.iteration.min()) < 12          # patience stopped some
 
 
 def test_chunked_calls_compose_with_one_long_call():
@@ -411,8 +333,16 @@ def test_engine_rejections():
     assert str(got.value) == str(want.value)
     b = tbatch.make_batch(INSTS, 16, device="cpu")
     st = teng.init_states(INSTS, cfg, SEEDS, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        teng.run_batch(b.problem, st, BUDGETS, cfg, 2, programs=object())
+    # an attached cache without the call's signature: a miss, the
+    # engine's own path
+    from repro_torch.solver.programs import ProgramCache
+    pc = ProgramCache()
+    for x, y in zip(tree.flatten(teng.run_batch(b.problem, st, BUDGETS, cfg,
+                                                2, programs=pc)),
+                    tree.flatten(teng.run_batch(b.problem, st, BUDGETS, cfg,
+                                                2))):
+        assert_bitwise(x, y, "miss")
+    assert pc.stats()["misses"] == 1 and pc.stats()["hits"] == 0
     with pytest.raises(ValueError, match="no axis"):
         teng.run_batch(b.problem, st, BUDGETS, cfg, 2, mesh=mesh,
                        instance_spec="model")
@@ -450,3 +380,36 @@ def test_entry_points_need_an_explicit_cpu():
                  lambda: taco.Hyper.make(cfg)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+@pytest.mark.parametrize("kw", [dict(variant="mmas"),
+                                dict(variant="acs", use_pallas=True,
+                                     metrics=True)])
+def test_run_batch_through_a_warmed_program(kw):
+    """``run_batch(programs=)`` on a warmed signature (``aot_lower``'s
+    program) is a hit and bitwise the plain call and the reference's
+    ``run_batch``, in place and not."""
+    from repro_torch.solver.programs import ProgramCache
+    cfg = taco.ACOConfig(iterations=4, **kw)
+    b = tbatch.make_batch(INSTS, 16, device="cpu")
+    pc = ProgramCache()
+    for donate in (False, True):
+        pc.warm([16], len(INSTS), cfg, 4, donate=donate, device="cpu")
+    jb = jbatch.make_batch(INSTS, 16)
+    jst = jeng.init_states(INSTS, jaco.ACOConfig(iterations=4, **kw), SEEDS,
+                           16)
+    want = jeng.run_batch(jb.problem, jst, jnp.asarray(BUDGETS, jnp.int32),
+                          jaco.ACOConfig(iterations=4, **kw), 4)
+    for donate in (False, True):
+        st = teng.init_states(INSTS, cfg, SEEDS, 16, device="cpu")
+        got = teng.run_batch(b.problem, st, BUDGETS, cfg, 4, donate=donate,
+                             programs=pc)
+        plain = teng.run_batch(b.problem, teng.init_states(
+            INSTS, cfg, SEEDS, 16, device="cpu"), BUDGETS, cfg, 4)
+        for x, y in zip(tree.flatten(plain), tree.flatten(got)):
+            assert_bitwise(x, y, "program")
+        assert_bitwise(np.asarray(want[0].best_len), got[0].best_len,
+                       "best_len")
+        assert_bitwise(np.asarray(want[0].best_tour), got[0].best_tour,
+                       "best_tour")
+    assert pc.stats()["hits"] == 2 and pc.stats()["misses"] == 0

@@ -98,6 +98,57 @@ def test_row_owner_order_is_the_cpu_update(m, n_actual, rho):
                                    atol=1e-7)
 
 
+def exact_path_update(tau, tours, w, rho, n_actual=None):
+    """The kernel's exact path, for an instance whose tours are not all
+    permutations: row i adds the edge stream's edges that leave city i,
+    forward ones (tour[p] -> tour[p + 1], closing at n_actual - 1) then
+    reverse ones, ants and positions in order, one at a time; positions
+    >= n_actual weigh 0 and are skipped."""
+    n, m = tau.shape[0], tours.shape[0]
+    n_eff = n if n_actual is None else n_actual
+    out = (floatops.const(float(np.float32(1.0 - rho)), tau) * tau).clone()
+    t = tours.tolist()
+    for i in range(n):
+        for direction in (0, 1):
+            for a in range(m):
+                for p in range(n_eff):
+                    c, d = t[a][p], t[a][0 if p == n_eff - 1 else p + 1]
+                    src, dst = (c, d) if direction == 0 else (d, c)
+                    if src == i and 0 <= dst < n:
+                        out[i, dst] = out[i, dst] + w[a]
+    return out
+
+
+def _bad_tours(rng, m, n, n_actual):
+    """Tours as an int8 store can make construction emit them: some real
+    positions repeat an earlier city, so others never come."""
+    tours = _tours(rng, m, n, n_actual)
+    real = n if n_actual is None else n_actual
+    for a in range(m):
+        at = rng.choice(np.arange(1, real), size=3, replace=False)
+        tours[a, at] = tours[a, 0]
+    return tours
+
+
+@pytest.mark.parametrize("m,n_actual", [(9, None), (9, 19), (1, 19)])
+def test_exact_path_is_the_cpu_update_for_repeated_cities(m, n_actual):
+    """The kernel flags an instance whose tours repeat a city and updates
+    it by the exact path: bitwise the plain version, whose edge stream
+    deposits every repeated edge."""
+    n = 24
+    rng = np.random.default_rng(m * 10 + (n_actual or 0))
+    tau = torch.tensor((rng.random((n, n)) * 1e-2).astype(np.float32))
+    tours = torch.tensor(_bad_tours(rng, m, n, n_actual))
+    w = torch.tensor((rng.random(m) * 1e-2 + 1e-3).astype(np.float32))
+    want = ops.pheromone_update(tau, tours, w, 0.1, n_actual=n_actual)
+    assert_bitwise(exact_path_update(tau, tours, w, 0.1, n_actual), want,
+                   "exact path")
+    good = torch.tensor(_tours(rng, m, n, n_actual))
+    assert_bitwise(exact_path_update(tau, good, w, 0.1, n_actual),
+                   row_owner_update(tau, good, w, 0.1, n_actual),
+                   "both paths on permutations")
+
+
 def test_row_owner_order_at_the_paper_size():
     """n = m = 1002 AS (2 M deposits): the CPU index_add_ still sums in
     index order, so the kernel's order is its order there too."""

@@ -188,6 +188,24 @@ non-zero:
    in the background, each equal to [cli]'s run, and ``--warmup
    --cache-dir`` in two fresh processes (the second loads the first's
    kernel build); any ``warmup_error`` or ``aot_dispatch_fallback`` fails;
+   ladder    -- the paper's strategy ladder (ROADMAP items 4, 5) and the
+   layer-placement solver (item 16): Table II at n = m = 1002
+   (``random_instance(1002, seed=1002)``, nn_k 30, tau at AS tau0), one
+   timed construction per rung (``task_baseline``, ``task_choice``,
+   ``nn_list``, ``nn_list_eager``, ``data_parallel``, ``pallas``, the
+   fused walk), every tour valid, lengths equal to ``tsp.tour_length``,
+   ``nn_list`` bitwise ``nn_list_eager``; Table III at n = m = 442 and
+   1002 (AS weights 1/C on tours built at tau0), one timed update per
+   deposit strategy and the K2 launch, each within rtol 1e-5 / atol 1e-7
+   of ``scatter`` and a single (MMAS) deposit bitwise across all five;
+   the claims C1-C5 as ratios of those times (reported, not asserted);
+   AS x 2 at n = m = 1002 on the kernel route with ``task_choice``,
+   ``nn_list`` and ``task_baseline`` (one ``choice_info`` launch an
+   iteration, none for ``task_baseline``, one ``pheromone_update_tours``;
+   the first iteration bitwise the pure route's, tau within rtol 1e-5);
+   card == CPU at n = 100 for each new construction and deposit (AS x 3);
+   ``placement.solve`` at 32 layers x 4 stages and 61 x 8, card == CPU
+   and better than ``uniform_baseline``;
 6. profile -- device busy time and idle share of one AS iteration at
    n = 1002, and the kernels that take most of it; the split of one MMAS
    + 2-opt iteration over an int8 store into construction, local search
@@ -3711,6 +3729,274 @@ def phase_mesh(launches: dict, results: dict) -> None:
     log(f"[mesh] phase wall {time.perf_counter() - t0:.1f} s")
 
 
+LADDER_N = 1002               # pr1002's size, m = n ants (Table II)
+LADDER_DEPOSIT_NS = (442, 1002)    # Table III at pr442's and pr1002's sizes
+LADDER_SMALL_N = 100              # card == CPU
+LADDER_TOL = dict(rtol=1e-5, atol=1e-7)
+LADDER_METHODS = ("task_baseline", "task_choice", "nn_list", "nn_list_eager")
+LADDER_DEPOSITS = ("scatter", "reduction", "s2g", "s2g_tiled", "onehot")
+# A few AS iterations of the roulette constructions (exact sampling, far
+# less greedy than the independent roulette: at n = 1002 from tau0 their
+# tours average about 5 x the nearest-neighbour tour) stay well above it:
+# their best is held to this multiple of it.
+LADDER_SLACK = 6.0
+
+
+def _event_ms(fn):
+    """(result, ms) of one call between two CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _ladder_tables() -> dict:
+    """Table II at n = m = 1002 and Table III at n = m = 442 and 1002: one
+    timed construction per rung (a warm-up first only for the fused walk:
+    the others are host loops of 1001 steps of ops the earlier phases
+    ran), one timed update per
+    deposit strategy and the K2 launch; tours valid, lengths equal to
+    ``tsp.tour_length``, ``nn_list`` bitwise ``nn_list_eager``, every
+    deposit within rtol 1e-5 / atol 1e-7 of ``scatter`` and a single
+    (MMAS) deposit bitwise across all five.  Returns the times (ms)."""
+    import torch
+    from repro_torch.core import aco, pheromone, sampling, strategies, tsp
+    from repro_torch.kernels import ops
+    n = LADDER_N
+    inst = tsp.random_instance(n, seed=n)
+    prob = aco.make_problem(inst, 30, "cuda")
+    tau = torch.full((n, n), aco.initial_tau(inst, aco.ACOConfig()),
+                     device="cuda")
+    ci = strategies.choice_matrix(tau, prob.eta, 1.0, 2.0)
+    key = sampling.prng_key(7, "cuda")
+    times, tours = {}, {}
+    for rung, method, sel in (
+            ("v1 task_baseline", "task_baseline", "iroulette"),
+            ("v2 task_choice", "task_choice", "roulette"),
+            ("v4 nn_list", "nn_list", "iroulette"),
+            ("v4 nn_list_eager", "nn_list_eager", "iroulette"),
+            ("v7 data_parallel", "data_parallel", "iroulette"),
+            ("v8 pallas", "pallas", "iroulette"),
+            ("fused walk", "fused", "iroulette")):
+        def run():
+            return strategies.construct_tours(
+                key, prob.dist, ci, n, method=method, selection=sel,
+                nn=prob.nn, tau=tau, eta=prob.eta)
+        if method == "fused":
+            run()                                      # warm-up
+        res, ms = _event_ms(run)
+        t_np = res.tours.cpu().numpy()
+        if not all(tsp.is_valid_tour(t) for t in t_np):
+            raise AssertionError(f"ladder {rung}: a tour is not a "
+                                 "permutation")
+        if not torch.equal(res.lengths,
+                           tsp.tour_length(prob.dist, res.tours)):
+            raise AssertionError(f"ladder {rung}: lengths != tour_length")
+        times[rung], tours[method] = ms, res
+        log(f"[ladder] Table II n=m={n} {rung}: {ms:.3f} ms per "
+            f"construction, mean length {float(res.lengths.mean()):.1f}")
+    if not (torch.equal(tours["nn_list"].tours, tours["nn_list_eager"].tours)
+            and torch.equal(tours["nn_list"].lengths,
+                            tours["nn_list_eager"].lengths)):
+        raise AssertionError("ladder: nn_list != nn_list_eager")
+    log("[ladder] nn_list == nn_list_eager bitwise (tours, lengths)")
+    for n in LADDER_DEPOSIT_NS:
+        inst = tsp.random_instance(n, seed=n)
+        prob = aco.make_problem(inst, 8, "cuda")
+        tau = torch.full((n, n), aco.initial_tau(inst, aco.ACOConfig()),
+                         device="cuda")
+        ci = strategies.choice_matrix(tau, prob.eta, 1.0, 2.0)
+        res = strategies.construct_tours(sampling.prng_key(3, "cuda"),
+                                         prob.dist, ci, n)
+        w = 1.0 / res.lengths
+        ref = pheromone.update(tau, res.tours, w, 0.5, "scatter")
+        single = {}
+        for strat in LADDER_DEPOSITS:
+            def upd():
+                return pheromone.update(tau, res.tours, w, 0.5, strat)
+            upd()                                      # warm-up
+            got, ms = _event_ms(upd)
+            torch.testing.assert_close(got, ref, **LADDER_TOL)
+            single[strat] = pheromone.update(tau, res.tours[:1], w[:1], 0.5,
+                                             strat)
+            times[f"{strat} {n}"] = ms
+            log(f"[ladder] Table III n=m={n} {strat}: {ms:.3f} ms per "
+                f"update, max |d - scatter| "
+                f"{float((got - ref).abs().max()):.3g}")
+        for strat, d in single.items():
+            if not torch.equal(d, single["scatter"]):
+                raise AssertionError(f"ladder n={n}: single-tour {strat} "
+                                     "deposit != scatter")
+        def k2():
+            return ops.pheromone_update(tau[None], res.tours[None], w[None],
+                                        0.5)
+        k2()
+        got, ms = _event_ms(k2)
+        torch.testing.assert_close(got[0], ref, **LADDER_TOL)
+        times[f"K2 {n}"] = ms
+        log(f"[ladder] Table III n=m={n} K2 pheromone_update_tours: "
+            f"{ms:.3f} ms; single-tour (MMAS) deposit bitwise across "
+            f"{', '.join(LADDER_DEPOSITS)}")
+    return times
+
+
+def _ladder_claims(t: dict) -> None:
+    """The paper's claims C1-C5 as ratios of this run's times (reported,
+    not asserted)."""
+    lo, hi = LADDER_DEPOSIT_NS
+    c4 = [t[f"s2g {n}"] / t[f"scatter {n}"] for n in LADDER_DEPOSIT_NS]
+    log(f"[ladder] C1 v1/v7 task_baseline / data_parallel = "
+        f"{t['v1 task_baseline'] / t['v7 data_parallel']:.3f} "
+        f"(fused walk: v1 / fused = "
+        f"{t['v1 task_baseline'] / t['fused walk']:.1f})")
+    log(f"[ladder] C2 v1/v2 task_baseline / task_choice = "
+        f"{t['v1 task_baseline'] / t['v2 task_choice']:.3f}")
+    log(f"[ladder] C3 v4 vs v7 nn_list / data_parallel = "
+        f"{t['v4 nn_list'] / t['v7 data_parallel']:.3f} "
+        f"(nn_list_eager / data_parallel = "
+        f"{t['v4 nn_list_eager'] / t['v7 data_parallel']:.3f})")
+    log(f"[ladder] C4 s2g / scatter = {c4[0]:.1f} at n={lo}, {c4[1]:.1f} at "
+        f"n={hi}, growth x{c4[1] / c4[0]:.2f}")
+    log("[ladder] C5 vs s2g: " + "; ".join(
+        f"n={n} s2g_tiled {t[f's2g_tiled {n}'] / t[f's2g {n}']:.3f}, "
+        f"reduction {t[f'reduction {n}'] / t[f's2g {n}']:.5f}"
+        for n in LADDER_DEPOSIT_NS))
+
+
+def _ladder_kernel_route(launches: dict) -> None:
+    """AS x 2 iterations at n = m = 1002 on the kernel route with each of
+    task_choice, nn_list, task_baseline: one ``choice_info`` (none for
+    task_baseline) and one ``pheromone_update_tours`` launch an
+    iteration; the first iteration's best tour and length bitwise the
+    pure route's, tau within rtol 1e-5 / atol 1e-7."""
+    import torch
+    from repro_torch.core import aco, tsp
+    from repro_torch.kernels import ops
+    n = LADDER_N
+    inst = tsp.random_instance(n, seed=n)
+    prob = aco.make_problem(inst, 30, "cuda")
+    for method in ("task_choice", "nn_list", "task_baseline"):
+        cfg = aco.ACOConfig(variant="as", construction=method, seed=1,
+                            use_pallas=True)
+        st = aco.init_colony(inst, cfg, device="cuda")
+        ops.reset_launch_counts()
+        _sync()
+        t0 = time.perf_counter()
+        first = None
+        for _ in range(2):
+            st = aco.colony_step(prob, st, cfg)[0]
+            first = st if first is None else first
+        _sync()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = {"choice_info": 0 if method == "task_baseline" else 2,
+                "pheromone_update_tours": 2}
+        for k, v in counts.items():
+            if v != want.get(k, 0):
+                raise AssertionError(f"ladder kernel route {method}: {k} "
+                                     f"launched {v} times, expected "
+                                     f"{want.get(k, 0)}")
+            launches[k] = launches.get(k, 0) + v
+        pure = aco.colony_step(
+            prob, aco.init_colony(inst, cfg, device="cuda"),
+            dataclasses.replace(cfg, use_pallas=False))[0]
+        if not (torch.equal(first.best_tour, pure.best_tour)
+                and torch.equal(first.best_len, pure.best_len)):
+            raise AssertionError(f"ladder kernel route {method}: first "
+                                 "iteration != the pure route's")
+        torch.testing.assert_close(first.tau, pure.tau, **LADDER_TOL)
+        best, c_nn = _check_run(f"ladder {method}", st, inst, n,
+                                LADDER_SLACK)
+        log(f"[ladder] kernel route AS {method} n=m={n} x2: "
+            f"{2 / secs:.3f} it/s, best {best:.1f} ({best / c_nn:.3f} x NN "
+            f"tour), launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items() if v)
+            + "; iteration 1 == pure route (tours bitwise, tau rtol 1e-5)")
+
+
+def _ladder_small() -> None:
+    """Card == CPU at n = 100: AS x 3 with each new construction and each
+    new deposit (best tour and length bitwise, tau within rtol 1e-5 /
+    atol 1e-7: the card's deposit sums a cell's terms in another order)."""
+    import torch
+    from repro_torch.core import aco, tsp
+    inst = tsp.random_instance(LADDER_SMALL_N, seed=6)
+    cases = [dict(construction=m) for m in LADDER_METHODS] + \
+        [dict(deposit=d) for d in LADDER_DEPOSITS[2:]]
+    for kw in cases:
+        cfg = aco.ACOConfig(variant="as", iterations=3, seed=4, **kw)
+        gpu = aco.run(inst, cfg, device="cuda")
+        cpu = aco.run(inst, cfg, device="cpu")
+        if not (torch.equal(gpu.best_tour.cpu(), cpu.best_tour)
+                and torch.equal(gpu.best_len.cpu(), cpu.best_len)):
+            raise AssertionError(f"ladder small {kw}: card != CPU")
+        torch.testing.assert_close(gpu.tau.cpu(), cpu.tau, **LADDER_TOL)
+        _check_run(f"ladder small {kw}", gpu, inst, LADDER_SMALL_N,
+                   LADDER_SLACK)
+        log(f"[ladder] rand{LADDER_SMALL_N} AS {kw} x3: card == CPU (best "
+            "tour and length bitwise, tau rtol 1e-5)")
+
+
+def _ladder_placement() -> None:
+    """``placement.solve`` on the card and on the CPU: the 32-layer,
+    4-stage problem of tests/test_system.py and 61 layers over 8 stages
+    (log-normal costs): the same best assignment, the cost within rtol
+    1e-6, better than ``uniform_baseline``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import placement, sampling
+    for layers, stages, seed, cfg in (
+            (32, 4, 1, placement.PlacementConfig(ants=32, iterations=40)),
+            (61, 8, 7, placement.PlacementConfig())):
+        rng = np.random.RandomState(seed)
+        prob = placement.PlacementProblem(
+            layer_costs=tuple(np.exp(rng.normal(0, 1.0, size=layers)) * 10),
+            edge_traffic=(1.0,) * layers, n_stages=stages, comm_lambda=0.02)
+        (a_g, c_g), secs = _timed(lambda: placement.solve(prob, cfg,
+                                                          device="cuda"))
+        a_c, c_c = placement.solve(prob, cfg, device="cpu")
+        _, uni = placement.uniform_baseline(prob)
+        if not (np.array_equal(a_g, a_c)
+                and abs(c_g - c_c) <= 1e-6 * abs(c_c)):
+            tau = {d: torch.ones((layers, stages), device=d)
+                   for d in ("cuda", "cpu")}
+            for it in range(cfg.iterations):
+                out = {d: placement._step(
+                    tau[d], sampling.fold_in(sampling.prng_key(cfg.seed, d),
+                                             it), prob, cfg)
+                    for d in tau}
+                tau = {d: out[d][0] for d in tau}
+                if not torch.equal(out["cuda"][1].cpu(), out["cpu"][1]):
+                    log(f"[ladder] placement {layers}x{stages}: card and "
+                        f"CPU part at iteration {it}")
+                    break
+            raise AssertionError(f"placement {layers}x{stages}: card "
+                                 f"{c_g} != CPU {c_c}")
+        if not c_g < uni:
+            raise AssertionError(f"placement {layers}x{stages}: {c_g} does "
+                                 f"not beat the uniform split {uni}")
+        log(f"[ladder] placement {layers} layers x {stages} stages, "
+            f"{cfg.ants} ants x {cfg.iterations}: cost {c_g:.4f} "
+            f"(uniform {uni:.4f}, x{c_g / uni:.3f}); card == CPU "
+            f"(assignment, cost {'bitwise' if c_g == c_c else 'rtol 1e-6'}); "
+            f"{secs:.2f} s on the card")
+
+
+def phase_ladder(launches: dict) -> None:
+    """The paper's strategy ladder (ROADMAP items 4, 5) and the layer-
+    placement solver (item 16)."""
+    t0 = time.perf_counter()
+    _ladder_claims(_ladder_tables())
+    _ladder_kernel_route(launches)
+    _ladder_small()
+    _ladder_placement()
+    log(f"[ladder] phase took {time.perf_counter() - t0:.1f} s")
+
+
 def phase_sparse_split() -> None:
     """Where one sparse MMAS iteration over an int8 store goes at
     n = 2392, k = 16, m = 64 (host clock between synchronisations, median
@@ -3981,6 +4267,7 @@ def main() -> int:
     phase_cli(launches)
     phase_programs(launches)
     phase_mesh(launches, results)
+    phase_ladder(launches)
     phase_profile()
     phase_split()
     phase_sparse_split()

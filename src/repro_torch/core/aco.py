@@ -14,8 +14,11 @@ the ``choice_info`` kernel, and the update is the fused
 ``pheromone_update`` kernel.  Local search (``local_search``) reduces its
 2-opt moves with the ``two_opt_best`` kernel.  A quantised pheromone store
 (``tau_dtype`` bf16/int8, ``core/quant.py``) reaches the fused walk as its
-payload, dequantised inside the kernel.  On CPU tensors the kernels'
-plain versions run instead (``kernels/ops.py``).
+payload, dequantised inside the kernel.  The paper's slower ladder
+constructions (``task_choice``, ``nn_list``, ``nn_list_eager``) read their
+choice matrix from one ``choice_info`` launch on the kernel route;
+``task_baseline`` recomputes its rows and reads none.  On CPU tensors the
+kernels' plain versions run instead (``kernels/ops.py``).
 
 Entry points (``make_problem``, ``init_colony``, ``run``, ``Hyper.make``)
 take a ``device`` and run on CUDA when none is given
@@ -24,9 +27,7 @@ route of ``repro_torch.sparse``.  ``metrics=True`` makes ``colony_step``
 return an ``obs.StepMetrics`` as well, read from intermediates the step
 computes anyway, so the state is bitwise the same either way.  A
 ``Problem.hyper`` (per-instance alpha/beta/rho/q as float32 scalar
-tensors) overrides the config's fields on the pure route.  Combinations
-not ported yet raise ``NotImplementedError`` naming the ROADMAP item that
-will port them.
+tensors) overrides the config's fields on the pure route.
 """
 from __future__ import annotations
 
@@ -424,11 +425,18 @@ def colony_step_batch(problem: Problem, states: ColonyState,
         h0 = p0.hyper
         a0 = cfg.alpha if h0 is None else h0.alpha
         b0 = cfg.beta if h0 is None else h0.beta
-        choice = strategies.choice_matrix(tau_full[0], p0.eta, a0, b0)
+        choice = None                     # task_baseline recomputes rows
+        if cfg.construction in strategies.READS_CHOICE and cfg.use_pallas:
+            # the reference's _choice: one choice_info launch over the slot
+            from ..kernels import ops as kops
+            choice = kops.choice_info(tau_full, problem.eta, alpha, beta,
+                                      n_act)[0]
+        elif cfg.construction in strategies.READS_CHOICE:
+            choice = strategies.choice_matrix(tau_full[0], p0.eta, a0, b0)
         r = strategies.construct_tours(
             k_tour[0], p0.dist, choice, m, method=cfg.construction,
-            selection=cfg.selection, eta=p0.eta, alpha=a0, beta=b0,
-            n_actual=p0.n_actual, draw_mode=cfg.draw_mode)
+            selection=cfg.selection, nn=p0.nn, tau=tau_full[0], eta=p0.eta,
+            alpha=a0, beta=b0, n_actual=p0.n_actual, draw_mode=cfg.draw_mode)
         res = strategies.TourResult(r.tours[None], r.lengths[None])
 
     pre_ls_lengths = None

@@ -23,9 +23,21 @@ once to float32, which is the correctly rounded float32 root.
 A plain ``x.sum(-1)`` in the reference's jitted programs is rewritten by
 XLA's CPU tree-reduction pass: over more than 32 elements it sums windows
 of 32 in order (zero-padded, the padding split about the row), then the
-window sums the same way.  ``xla_sum`` reproduces that order.
+window sums the same way.  ``xla_sum`` reproduces that order.  A
+``jnp.cumsum`` becomes a windowed scan there: blocks of 16 summed in
+sequence, the blocks' totals scanned the same way and added to each
+block (``xla_cumsum``; PyTorch's CPU ``cumsum`` accumulates float32 in
+double precision, its CUDA one in a parallel order).
+
+A traced ``x ** p`` compiles to the C library's ``powf`` on the CPU,
+which is neither PyTorch's vectorised power nor the correctly rounded
+one; ``powf`` calls the same function there.
 """
 from __future__ import annotations
+
+import ctypes
+import ctypes.util
+import functools
 
 import numpy as np
 import torch
@@ -60,3 +72,49 @@ def xla_sum(x: torch.Tensor, window: int = 32) -> torch.Tensor:
         x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
         x = _seq_sum(x.reshape(*x.shape[:-1], -1, window))
     return _seq_sum(x)
+
+
+def _seq_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 scan over the last axis, one add after another."""
+    cols = [x[..., 0]]
+    for i in range(1, x.shape[-1]):
+        cols.append(cols[-1] + x[..., i])
+    return torch.stack(cols, dim=-1)
+
+
+def xla_cumsum(x: torch.Tensor, block: int = 16) -> torch.Tensor:
+    """Inclusive sum over the last axis in the order of XLA's CPU
+    ``cumsum`` (its reduce-window rewrite): the row zero-padded to blocks
+    of ``block``, each block scanned in sequence, the blocks' totals
+    scanned the same way (recursively), and the total of the blocks
+    before each block added to it."""
+    n = x.shape[-1]
+    if n <= block:
+        return _seq_cumsum(x)
+    nb = -(-n // block)
+    x = torch.nn.functional.pad(x, (0, nb * block - n))
+    within = _seq_cumsum(x.reshape(*x.shape[:-1], nb, block))
+    inc = xla_cumsum(within[..., -1], block)
+    before = torch.nn.functional.pad(inc[..., :-1], (1, 0))
+    out = within + before[..., None]
+    return out.reshape(*x.shape[:-1], nb * block)[..., :n]
+
+
+@functools.lru_cache(maxsize=None)
+def _libm_powf():
+    fn = ctypes.CDLL(ctypes.util.find_library("m")).powf
+    fn.restype = ctypes.c_float
+    fn.argtypes = [ctypes.c_float, ctypes.c_float]
+    return np.frompyfunc(fn, 2, 1)
+
+
+def powf(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``x ** p`` for a float32 ``x`` and a float32 scalar tensor ``p``, as
+    the reference's traced power computes it: on the CPU the C library's
+    ``powf`` element by element (slow, exact to the reference), on CUDA
+    the card's ``pow``."""
+    if x.device.type != "cpu":
+        return torch.pow(x, p)
+    out = _libm_powf()(x.numpy(), np.float32(p.item()))
+    return torch.from_numpy(np.asarray(out, dtype=np.float32).reshape(
+        tuple(x.shape)))

@@ -1,21 +1,30 @@
-"""Pheromone update (paper §IV.B), the PyTorch port of ``repro.core.pheromone``.
+"""Pheromone update (paper §IV.B, Tables III/IV), the PyTorch port of
+``repro.core.pheromone``.
 
-Two deposit strategies of the reference's ladder are ported:
+The reference's deposit ladder, mirroring the paper's kernel versions:
 
 - ``scatter``     the paper's winning atomic version: a scatter-add of
                   ``1/C^k`` along each ant's tour edges, then ``d + d.T``;
 - ``reduction``   the paper's Reduction version: each edge canonicalised to
-                  (lo, hi), half the scatters, then mirrored.
+                  (lo, hi), half the scatters, then mirrored;
+- ``s2g``         scatter-to-gather (paper Fig. 3): every cell gathers over
+                  every tour edge, O(n^2 * m * n) work on purpose (claim C4);
+- ``s2g_tiled``   the same in the paper's tiles (row x column blocks);
+- ``onehot``      the reference's TPU deposit, a one-hot matmul per chunk of
+                  ants.  Its result is ported, not its idiom: each chunk is
+                  scattered with ``index_add_`` and added to the running sum
+                  in the reference's chunk order.
 
-Both scatter with ``index_add_`` over flat indices, which on the CPU sums
-in index order exactly as XLA's CPU scatter-add does (``index_put_`` with
-``accumulate=True`` does not).  On CUDA ``index_add_`` uses atomics, so a
-cell with several deposits sums in another order there: ulp-close.
+``scatter``, ``reduction`` and ``onehot`` scatter with ``index_add_`` over
+flat indices, which on the CPU sums in index order exactly as XLA's CPU
+scatter-add does (``index_put_`` with ``accumulate=True`` does not).  On
+CUDA ``index_add_`` uses atomics, so a cell with several deposits sums in
+another order there: ulp-close.  A single deposit (one tour) is bitwise
+in every strategy: each cell then receives at most one term.
 
 ``update`` rounds ``(1 - rho) * tau + deposit`` once, as the reference's
 fused multiply-add does.  The kernel route's fused update lives in
-``kernels/pheromone_update.py``.  The ``s2g``, ``s2g_tiled`` and ``onehot``
-strategies are not ported yet (ROADMAP queue 1 item 4).
+``kernels/pheromone_update.py``.
 """
 from __future__ import annotations
 
@@ -27,8 +36,7 @@ from . import floatops, tsp
 
 NActual = Union[int, None]
 
-STRATEGIES = ("scatter", "reduction")
-NOT_PORTED = ("s2g", "s2g_tiled", "onehot")     # ROADMAP queue 1 item 4
+STRATEGIES = ("scatter", "reduction", "s2g", "s2g_tiled", "onehot")
 
 
 def evaporate(tau: torch.Tensor, rho: float) -> torch.Tensor:
@@ -88,18 +96,81 @@ def deposit_reduction(n: int, tours: torch.Tensor, w: torch.Tensor,
     return upper + upper.T
 
 
+def _check_full_fp32(dev: torch.device) -> None:
+    """A float32 matmul must not round its inputs to TF32 on the card."""
+    if dev.type == "cuda" and (torch.backends.cuda.matmul.allow_tf32 or
+                               torch.get_float32_matmul_precision()
+                               != "highest"):
+        raise RuntimeError(
+            "deposit_s2g needs full float32 matmuls: TF32 is enabled "
+            "(torch.backends.cuda.matmul.allow_tf32 or "
+            "torch.set_float32_matmul_precision); disable it")
+
+
+def deposit_s2g(n: int, tours: torch.Tensor, w: torch.Tensor,
+                row_tile: int = 0, col_tile: int = 0,
+                n_actual: NActual = None) -> torch.Tensor:
+    """Scatter-to-gather: cell (i, j) gathers over all m*n edges (paper
+    Fig. 3), in the reference's row x column blocks (``row_tile`` /
+    ``col_tile`` 0: 64, or n when smaller).  A block is the product of its
+    rows' weighted membership masks (bi, E) and its columns' masks
+    (bj, E), a ``torch.matmul`` in full float32: on the card it raises if
+    TF32 is enabled rather than change the precision (the default is
+    full float32).  Work is O(n^2 * m * n) whatever the tiles.  Phantom
+    edges of a padded tour carry weight 0; the closing edge wraps at
+    ``n_actual - 1``."""
+    _check_full_fp32(tours.device)
+    f, t = tour_edges(tours, n_actual)
+    bi = row_tile or min(n, 64)
+    bj = col_tile or min(n, 64)
+    ni = -(-n // bi) * bi
+    nj = -(-n // bj) * bj
+    fr = f.reshape(-1)
+    tr = t.reshape(-1)
+    we = edge_weights(tours, w, n_actual)
+    dev = tours.device
+    d = torch.empty((ni, nj), dtype=torch.float32, device=dev)
+    for i0 in range(0, ni, bi):
+        rows = torch.arange(i0, i0 + bi, device=dev)
+        mi = (fr[None, :] == rows[:, None]).to(torch.float32) * we  # (bi, E)
+        for j0 in range(0, nj, bj):
+            cols = torch.arange(j0, j0 + bj, device=dev)
+            mj = (tr[None, :] == cols[:, None]).to(torch.float32)   # (bj, E)
+            d[i0:i0 + bi, j0:j0 + bj] = mi @ mj.T
+    d = d[:n, :n]
+    return d + d.T
+
+
+def deposit_onehot(n: int, tours: torch.Tensor, w: torch.Tensor,
+                   chunk: int = 8, n_actual: NActual = None) -> torch.Tensor:
+    """The reference's one-hot deposit's result: ants in chunks of
+    ``chunk`` (the last chunk zero-padded), each chunk's deposit scattered
+    with ``index_add_`` and added to the running sum in chunk order, then
+    ``d + d.T``."""
+    f, t = tour_edges(tours, n_actual)
+    m, ns = f.shape
+    we = edge_weights(tours, w, n_actual).reshape(m, ns)
+    c = min(chunk, m)
+    acc = torch.zeros((n, n), dtype=torch.float32, device=tours.device)
+    for a0 in range(0, m, c):
+        acc = acc + _scatter_add(n, f[a0:a0 + c], t[a0:a0 + c],
+                                 we[a0:a0 + c])
+    return acc + acc.T
+
+
 def deposit(n: int, tours: torch.Tensor, w: torch.Tensor,
             strategy: str = "scatter", tile: int = 64,
             n_actual: NActual = None) -> torch.Tensor:
-    del tile                      # used by the s2g strategies only
     if strategy == "scatter":
         return deposit_scatter(n, tours, w, n_actual=n_actual)
     if strategy == "reduction":
         return deposit_reduction(n, tours, w, n_actual=n_actual)
-    if strategy in NOT_PORTED:
-        raise NotImplementedError(
-            f"deposit strategy {strategy!r} is not ported yet "
-            "(ROADMAP queue 1 item 4); use 'scatter' or 'reduction'")
+    if strategy == "s2g":
+        return deposit_s2g(n, tours, w, 0, 0, n_actual)
+    if strategy == "s2g_tiled":
+        return deposit_s2g(n, tours, w, tile, tile, n_actual)
+    if strategy == "onehot":
+        return deposit_onehot(n, tours, w, n_actual=n_actual)
     raise ValueError(f"unknown deposit strategy {strategy}")
 
 

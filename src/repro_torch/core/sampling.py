@@ -2,7 +2,8 @@
 
 The selection semantics are the reference's (``repro.core.sampling``):
 
-- ``roulette``   exact inverse-CDF sampling (cumsum + count below the draw);
+- ``roulette``   exact inverse-CDF sampling (cumsum + count below the draw,
+                 the cumsum in the order of XLA's CPU scan);
 - ``iroulette``  the paper's independent roulette, argmax(w * U);
 - ``gumbel``     exact categorical sampling via Gumbel-max;
 - ``greedy``     deterministic argmax.
@@ -219,8 +220,9 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
 
 
 def roulette(key: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Exact inverse-CDF sampling; weights (..., n) >= 0, not normalised."""
-    cdf = torch.cumsum(weights, dim=-1)
+    """Exact inverse-CDF sampling; weights (..., n) >= 0, not normalised.
+    The CDF sums in the reference's order (``floatops.xla_cumsum``)."""
+    cdf = floatops.xla_cumsum(weights)
     total = cdf[..., -1:]
     u = uniform(key, weights.shape[:-1] + (1,))
     r = u * total

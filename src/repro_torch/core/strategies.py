@@ -1,10 +1,23 @@
 """Tour construction (paper §IV.A), the PyTorch port of ``repro.core.strategies``.
 
-Three construction methods of the reference's ladder are ported:
+The reference's construction ladder (Table II of the paper) and its two
+kernel routes:
 
-- ``data_parallel``  the paper's contribution: the colony's step is one
-                     (m, n) tensor op -- gather choice rows, mask tabu,
-                     select (``sampling`` selectors);
+- ``task_baseline``  one logical thread per ant, ``tau^alpha * eta^beta``
+                     recomputed for the current row at every step (the
+                     paper's version 1), with ``roulette`` selection;
+- ``task_choice``    the same over a precomputed choice matrix (version
+                     2): the dense step with ``roulette`` in place of
+                     ``iroulette``;
+- ``nn_list``        sampling over each ant's nearest-neighbour candidates,
+                     with the best unvisited city of the full choice row as
+                     the fallback when every candidate is visited (version
+                     4).  The fallback is computed only on steps where some
+                     ant needs it (one flag read a step); ``nn_list_eager``
+                     computes it every step.  The two are bitwise equal;
+- ``data_parallel``  the paper's contribution (versions 7/8): the colony's
+                     step is one (m, n) tensor op -- gather choice rows,
+                     mask tabu, select (``sampling`` selectors);
 - ``pallas``         the paper's unfused kernel pair: rows of a
                      precomputed choice matrix go through the ``tour_select``
                      kernel (``kernels/tour_select.py``);
@@ -18,14 +31,12 @@ Three construction methods of the reference's ladder are ported:
 (B, n, n) operands, a (B,) ``n_actual`` tensor, host ``active`` flags):
 one walk launch for the batch (``fused``), or one ``tour_select`` launch
 per step for the batch (``pallas``), each instance bitwise its own
-construction.
+construction.  The other methods take one instance.
 
-For the other methods the reference's ``lax.scan`` over the n-1 steps is a
-Python loop here, over a stack of one instance or more.  Step ``t`` draws
-from ``fold_in(key, t)``.  Padded instances (``n_actual``) emit the
-phantom tail in fixed index order, as the reference does.  The other
-methods (``task_baseline``, ``task_choice``, ``nn_list``) are not ported
-yet (ROADMAP queue 1 item 5).
+For every method but ``fused`` the reference's ``lax.scan`` over the n-1
+steps is a Python loop here, over a stack of one instance or more.  Step
+``t`` draws from ``fold_in(key, t)``.  Padded instances (``n_actual``)
+emit the phantom tail in fixed index order, as the reference does.
 """
 from __future__ import annotations
 
@@ -34,7 +45,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Union
 import torch
 
 from ..kernels.choice_info import ipow
-from . import sampling, tsp
+from . import floatops, sampling, tsp
 
 NActual = Union[int, torch.Tensor, None]
 
@@ -49,7 +60,11 @@ class TourResult(NamedTuple):
     lengths: torch.Tensor  # (m,) float32 closed-tour lengths
 
 
-METHODS = ("data_parallel", "pallas", "fused")
+METHODS = ("data_parallel", "task_choice", "task_baseline", "nn_list",
+           "nn_list_eager", "pallas", "fused")
+# methods that read a precomputed choice matrix
+READS_CHOICE = ("data_parallel", "task_choice", "nn_list", "nn_list_eager",
+                "pallas")
 
 
 def place_ants(key: torch.Tensor, m: int, n: int,
@@ -88,6 +103,52 @@ def _make_dense_step(selector: str, draw_mode: str = "packed") -> StepImpl:
     return step
 
 
+def _make_recompute_step(draw_mode: str = "packed") -> StepImpl:
+    """The paper's baseline: ``tau[cur] ** alpha * eta[cur] ** beta``
+    recomputed each step, with float32 scalar exponents (the reference's
+    are traced, so the general power runs: ``floatops.powf``), then
+    ``roulette``."""
+    sel = sampling.get_selector("roulette", draw_mode)
+
+    def step(key, choice_info, st, extras):
+        del choice_info
+        cur = st.cur[0].long()
+        w = floatops.powf(extras["tau"][cur], extras["alpha"]) * \
+            floatops.powf(extras["eta"][cur], extras["beta"])
+        return sel(key[0], w * (~st.visited[0]))[None]
+
+    return step
+
+
+def _make_nn_step(selector: str, lazy: bool = True,
+                  draw_mode: str = "packed") -> StepImpl:
+    """NN-list construction: sample among the unvisited candidates of the
+    current city's list; where every candidate is visited, the best
+    unvisited city by choice value (the full row's first arg-max).
+    ``lazy`` computes that fallback only on steps where some ant needs it
+    (one flag read a step); otherwise every step.  The fallback is used
+    only where ``have`` is false, so both give the same cities."""
+    sel = sampling.get_selector(selector, draw_mode)
+
+    def step(key, choice_info, st, extras):
+        ci, visited = choice_info[0], st.visited[0]
+        cur = st.cur[0].long()
+        cand = extras["nn"][cur].long()                     # (m, k)
+        cw = ci[cur[:, None], cand]                         # (m, k)
+        seen = torch.gather(visited, 1, cand)
+        wc = cw * (~seen)
+        have = wc.sum(-1) > 0
+        local = sel(key[0], wc)                             # (m,) in [0, k)
+        nxt = torch.gather(cand, 1, local.long()[:, None])[:, 0].to(
+            torch.int32)
+        if lazy and bool(have.all()):
+            return nxt[None]
+        fb = torch.argmax(ci[cur] * (~visited), dim=-1).to(torch.int32)
+        return torch.where(have, nxt, fb)[None]
+
+    return step
+
+
 def _draw_step_uniform(key: torch.Tensor, shape: tuple,
                        draw_mode: str) -> torch.Tensor:
     """The per-(ant, city) U(1e-6, 1) tensor the kernel steps consume; a
@@ -119,6 +180,7 @@ def construct_tours(
     m: int,
     method: str = "data_parallel",
     selection: str = "iroulette",
+    nn: Optional[torch.Tensor] = None,
     tau: Optional[torch.Tensor] = None,
     eta: Optional[torch.Tensor] = None,
     alpha: float = 1.0,
@@ -132,7 +194,10 @@ def construct_tours(
     """Build m complete tours under the given method.
 
     choice_info: (n, n) precomputed tau^alpha * eta^beta (ignored by
-    ``fused``, which needs ``tau``/``eta`` and host-float ``alpha``/``beta``).
+    ``task_baseline``, which needs ``tau``/``eta`` and recomputes its rows
+    each step, and by ``fused``, which needs ``tau``/``eta`` and host-float
+    ``alpha``/``beta``).  ``nn``: the (n, k) candidate lists of
+    ``nn_list``/``nn_list_eager``.
     ``fused`` also takes a quantised ``tau`` payload (int8 or bfloat16,
     ``core/quant.py``); ``tau_scale`` is the int8 per-row scale.
     ``n_actual``: real-city count of a padded instance (host int), or None.
@@ -145,16 +210,11 @@ def construct_tours(
     instance's tours unspecified (``fused``: all zero).
     """
     if method not in METHODS:
-        if method in ("task_choice", "task_baseline", "nn_list",
-                      "nn_list_eager"):
-            raise NotImplementedError(
-                f"construction {method!r} is not ported yet (ROADMAP queue 1 "
-                f"item 5); ported: {', '.join(METHODS)}")
         raise ValueError(f"unknown construction method {method}")
     if draw_mode not in sampling.DRAW_MODES:
         raise ValueError(f"unknown draw_mode {draw_mode!r}; "
                          f"supported: {', '.join(sampling.DRAW_MODES)}")
-    if key.dim() == 2 and method == "data_parallel":
+    if key.dim() == 2 and method not in ("fused", "pallas"):
         raise ValueError(f"construction {method!r} takes one instance; only "
                          "'fused' and 'pallas' take a stack")
     n = dist.shape[-1]
@@ -170,10 +230,24 @@ def construct_tours(
                                 float(beta), n_actual, selection, draw_mode,
                                 tau_scale=scale, active=active)
         return _finish(start, steps, dist, n_actual)
+    extras = {"n_actual": n_actual, "active": active}
     if method == "pallas":
         step_impl = _make_pallas_step(selection, draw_mode)
+    elif method == "task_baseline":
+        assert tau is not None and eta is not None
+        step_impl = _make_recompute_step(draw_mode)
+        # the reference's exponents are traced float32 scalars
+        extras.update(tau=tau, eta=eta, alpha=_scalar(alpha, dist),
+                      beta=_scalar(beta, dist))
+        choice_info = dist                # unread
+    elif method in ("nn_list", "nn_list_eager"):
+        assert nn is not None
+        step_impl = _make_nn_step(selection, method == "nn_list", draw_mode)
+        extras["nn"] = nn
     else:
-        step_impl = _make_dense_step(selection, draw_mode)
+        step_impl = _make_dense_step(
+            "roulette" if method == "task_choice" and
+            selection == "iroulette" else selection, draw_mode)
     one = key.dim() == 1
     if one:                              # one instance is a stack of one
         kc, start = kc[None], start[None]
@@ -182,8 +256,7 @@ def construct_tours(
             n_host = (int(n_actual),)
     elif n_actual is not None and n_host is None:
         n_host = tuple(int(v) for v in n_actual.tolist())
-    steps = _walk_steps(step_impl, kc, choice_info, start, n,
-                        {"n_actual": n_actual, "active": active},
+    steps = _walk_steps(step_impl, kc, choice_info, start, n, extras,
                         None if n_actual is None else n_host)
     if one:
         start, steps = start[0], steps[0]
@@ -228,6 +301,14 @@ def _walk_steps(step_impl: StepImpl, kc: torch.Tensor,
         st = TourState(nxt, st.visited)
         steps[:, t - 1] = nxt
     return steps
+
+
+def _scalar(value: Union[float, torch.Tensor],
+            like: torch.Tensor) -> torch.Tensor:
+    """A float32 scalar tensor on ``like``'s device."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=like.device, dtype=torch.float32)
+    return floatops.const(value, like)
 
 
 def choice_matrix(tau: torch.Tensor, eta: torch.Tensor,

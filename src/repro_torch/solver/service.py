@@ -96,10 +96,6 @@ class SolverService:
                  programs=None, device: _device.DeviceLike = None):
         if cfg is None:
             cfg = aco.ACOConfig()
-        if cfg.deposit in pheromone.NOT_PORTED:
-            raise NotImplementedError(
-                f"deposit strategy {cfg.deposit!r} is not ported yet "
-                "(ROADMAP queue 1 item 4)")
         if cfg.deposit not in pheromone.STRATEGIES:
             raise ValueError(f"unknown deposit strategy {cfg.deposit!r}; "
                              f"supported: {', '.join(pheromone.STRATEGIES)}")

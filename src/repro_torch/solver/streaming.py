@@ -383,15 +383,9 @@ class StreamingSolverService:
                                     selection=cfg.selection,
                                     local_search=cfg.local_search,
                                     construction=cfg.construction)
-        if cfg.deposit in pheromone.NOT_PORTED:
-            raise NotImplementedError(
-                f"deposit strategy {cfg.deposit!r} is not ported yet "
-                "(ROADMAP queue 1 item 4)")
         if cfg.deposit not in pheromone.STRATEGIES:
-            # the reference's message names its whole ladder
-            known = pheromone.STRATEGIES + pheromone.NOT_PORTED
             raise ValueError(f"unknown deposit strategy {cfg.deposit!r}; "
-                             f"supported: {', '.join(known)}")
+                             f"supported: {', '.join(pheromone.STRATEGIES)}")
         if chunk < 1:
             raise ValueError(f"chunk {chunk} < 1")
         if max_waiting is not None and max_waiting < 1:

@@ -858,3 +858,87 @@ def test_background_warm_beside_a_synchronising_thread():
     assert list(prog.graphs) == [None]
     for a, b in zip(tree.flatten(want), tree.flatten(got)):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------ the paper's strategy ladder
+
+LADDER = ("task_baseline", "task_choice", "nn_list", "nn_list_eager")
+TOL = dict(rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("method", LADDER)
+def test_ladder_construction_on_card_equals_cpu(method, use_pallas):
+    """Each ladder construction, AS over 3 iterations at n = 100: best tour
+    and length bitwise card == CPU, tau within rtol 1e-5 / atol 1e-7 (the
+    card's update sums a cell's deposits in another order); on the kernel
+    route one ``choice_info`` and one update launch an iteration, no
+    ``choice_info`` for ``task_baseline``."""
+    dev = cuda_device()
+    inst = tsp.random_instance(100, seed=4)
+    cfg = aco.ACOConfig(iterations=3, seed=2, construction=method,
+                        use_pallas=use_pallas)
+    ops.reset_launch_counts()
+    gpu = aco.run(inst, cfg, device=dev)
+    counts = ops.launch_counts()
+    reads_choice = method != "task_baseline"
+    assert counts["choice_info"] == (3 if use_pallas and reads_choice
+                                     else 0)
+    assert counts["pheromone_update_tours"] == (3 if use_pallas else 0)
+    cpu = aco.run(inst, cfg, device="cpu")
+    assert torch.equal(gpu.best_tour.cpu(), cpu.best_tour)
+    assert torch.equal(gpu.best_len.cpu(), cpu.best_len)
+    np.testing.assert_allclose(gpu.tau.cpu().numpy(), cpu.tau.numpy(),
+                               **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["scatter", "reduction", "s2g",
+                                      "s2g_tiled", "onehot"])
+def test_ladder_deposits_on_card(strategy):
+    """n = 100: one tour's deposit bitwise card == CPU; 100 ants' within
+    rtol 1e-5 / atol 1e-7 of the CPU and of the card's ``scatter`` (so no
+    TF32 product slipped into the s2g blocks); a 3-iteration MMAS colony
+    with the strategy bitwise card == CPU."""
+    from repro_torch.core import pheromone
+    dev = cuda_device()
+    gen = torch.Generator().manual_seed(3)
+    tours = torch.stack([torch.randperm(100, generator=gen)
+                         for _ in range(100)]).to(torch.int32)
+    w = 1.0 / (torch.rand(100, generator=gen) * 4e3 + 1e3)
+    one = pheromone.deposit(100, tours[:1].to(dev), w[:1].to(dev), strategy,
+                            32)
+    assert torch.equal(one.cpu(), pheromone.deposit(100, tours[:1], w[:1],
+                                                    strategy, 32))
+    many = pheromone.deposit(100, tours.to(dev), w.to(dev), strategy, 32)
+    ref = pheromone.deposit(100, tours.to(dev), w.to(dev), "scatter")
+    np.testing.assert_allclose(many.cpu().numpy(), ref.cpu().numpy(), **TOL)
+    np.testing.assert_allclose(
+        many.cpu().numpy(),
+        pheromone.deposit(100, tours, w, strategy, 32).numpy(), **TOL)
+    inst = tsp.random_instance(100, seed=5)
+    cfg = aco.ACOConfig(variant="mmas", iterations=3, seed=1,
+                        deposit=strategy, deposit_tile=32)
+    gpu = aco.run(inst, cfg, device=dev)
+    cpu = aco.run(inst, cfg, device="cpu")
+    for a, b in zip(gpu, cpu):
+        assert torch.equal(a.cpu(), b), strategy
+
+
+@pytest.mark.cuda
+def test_placement_on_card_equals_cpu():
+    """``placement.solve`` on the card: the CPU's best assignment and the
+    cost within rtol 1e-6 (the loads are the same float32 adds on both,
+    so they are expected to be equal)."""
+    from repro_torch.core import placement
+    rng = np.random.RandomState(1)
+    prob = placement.PlacementProblem(
+        layer_costs=tuple(np.exp(rng.normal(0, 1.0, size=32)) * 10),
+        edge_traffic=(1.0,) * 32, n_stages=4, comm_lambda=0.02)
+    cfg = placement.PlacementConfig(ants=32, iterations=40, seed=0)
+    a_g, c_g = placement.solve(prob, cfg, device=cuda_device())
+    a_c, c_c = placement.solve(prob, cfg, device="cpu")
+    assert (a_g == a_c).all()
+    np.testing.assert_allclose(c_g, c_c, rtol=1e-6)
+    assert c_g < placement.uniform_baseline(prob)[1]

@@ -252,6 +252,43 @@ def test_kernel_step_emulation_all_zero_weights(mode, tau_dtype):
     assert int(want[0, 0]) == (1 if mode == "greedy" else 0)
 
 
+@pytest.mark.parametrize("mode", MODES)
+def test_int8_zero_row_step_is_the_reference_kernel(mode):
+    """An int8 store whose payload is zero over every unvisited city of
+    the current rows (the state that makes a walk emit a city twice):
+    the reference's ``fused_select`` (Pallas, interpret mode) and the
+    port's plain walk pick the same cities.  Every unvisited weight is
+    0, so iroulette picks the first column, which is visited here: the
+    reference repeats the city as the port does."""
+    from repro.kernels import ops as jops
+    n, m, t = 32, 5, 9
+    (_, j_eta, j_tau, j_scale), (_, eta, _, _) = _operands(n, None, "int8",
+                                                          4)
+    rng = np.random.default_rng(4)
+    visited = np.zeros((m, n), bool)
+    for a in range(m):
+        visited[a, rng.choice(np.arange(1, n), t - 1, replace=False)] = True
+    visited[:, 0] = True
+    cur = np.array([np.nonzero(v)[0][-1] for v in visited], np.int32)
+    q = np.asarray(j_tau).copy()
+    for a in range(m):
+        q[cur[a], ~visited[a]] = 0          # the row is zero where it counts
+    kc = sampling.split(sampling.prng_key(4))[1]
+    u = strategies._draw_step_uniform(sampling.fold_in(kc, t), (m, n),
+                                      "packed")
+    want = jops.fused_select(jnp.asarray(q), j_eta, jnp.asarray(cur),
+                             jnp.asarray(visited), jnp.asarray(u.numpy()),
+                             1.0, 2.0, None, mode, tau_scale=j_scale)
+    got = fs.fused_walk_plain(torch.from_numpy(q), eta, torch.from_numpy(cur),
+                              kc, 1.0, 2.0, None, mode, "packed",
+                              torch.tensor(np.asarray(j_scale)),
+                              visited=torch.from_numpy(visited),
+                              first_step=t)[0]
+    assert_bitwise(want, got, f"{mode} pick")
+    if mode == "iroulette":
+        assert (got.numpy() == 0).all()     # city 0 again, on both sides
+
+
 # ------------------------------------------------- the dispatch on the CPU
 
 @pytest.mark.parametrize("tau_dtype", PAYLOADS)

@@ -197,8 +197,20 @@ def test_service_rejections_name_their_items():
     assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="deposit"):
         tsvc.SolverService(taco.ACOConfig(deposit="nope"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tsvc.SolverService(taco.ACOConfig(deposit="onehot"), device="cpu")
+    # the whole deposit ladder is served; an unknown name lists it as the
+    # reference does
+    with pytest.raises(ValueError) as want:
+        jsvc.SolverService(jaco.ACOConfig(deposit="nope"))
+    with pytest.raises(ValueError) as got:
+        tsvc.SolverService(taco.ACOConfig(deposit="nope"), device="cpu")
+    assert str(got.value) == str(want.value)
+    for dep in ("s2g", "s2g_tiled", "onehot"):
+        kw = dict(deposit=dep, variant="mmas", m=6)
+        insts = [jtsp.circle_instance(12, seed=1)]
+        _assert_results(_drain(jsvc.SolverService(jaco.ACOConfig(**kw)),
+                               insts),
+                        _drain(tsvc.SolverService(taco.ACOConfig(**kw),
+                                                  device="cpu"), insts))
     tsvc.SolverService(taco.ACOConfig(use_pallas=True), device="cpu")
     # the sparse check at construction keeps the reference's message
     for kw in (dict(selection="roulette"), dict(local_search="2opt"),

@@ -175,9 +175,20 @@ def test_streaming_rejections_keep_reference_messages():
     with pytest.raises(tops.UnsupportedKernelRoute, match="streaming pool"):
         tstream.StreamingSolverService(taco.ACOConfig(sparse=True),
                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tstream.StreamingSolverService(taco.ACOConfig(deposit="onehot"),
+    # the whole deposit ladder is served; an unknown name lists it as the
+    # reference does
+    with pytest.raises(ValueError) as want:
+        jstream.StreamingSolverService(jaco.ACOConfig(deposit="nope"))
+    with pytest.raises(ValueError) as got:
+        tstream.StreamingSolverService(taco.ACOConfig(deposit="nope"),
                                        device="cpu")
+    assert str(got.value) == str(want.value)
+    for dep in ("s2g", "s2g_tiled", "onehot"):
+        svc_j, svc_t = _services(dict(deposit=dep, variant="mmas", m=6),
+                                 max_batch=2)
+        for svc, inst in ((svc_j, J_INSTS[0]), (svc_t, T_INSTS[0])):
+            svc.submit(inst, iterations=3, seed=1)
+        _assert_same(svc_j.run_until_drained(), svc_t.run_until_drained())
     mesh = Mesh([torch.device("cpu")] * 3, ("data",))
     assert tstream.StreamingSolverService(taco.ACOConfig(),
                                           mesh=mesh).stats["devices"] == 3

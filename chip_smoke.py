@@ -10,6 +10,9 @@ CUDA toolkit:
 paths' timing phases ([main], [profile], [split], [sparse-split]) of each
 checkout's own chip_smoke.py, one process per ROOT in the order given: an
 A/B of two commits on one card reads parent, change, change, parent.
+``python3 chip_smoke.py --edge-stream ROOT [ROOT ...]`` does the same for
+the edge-stream K2: this script's [edge-stream] timing of each checkout's
+package, per call from a CUDA graph, beside ``mul`` + ``index_add_``.
 
 Phases, each printing its own lines; any failure raises and exits
 non-zero:
@@ -25,9 +28,15 @@ non-zero:
    and its bound;
    K2 from tours (the colony step's update) bitwise against the CPU plain
    composition and across two launches, AS (m = n) and MMAS (m = 1), rho
-   0.5 and 0.1, at every n above; timed beside the edge-stream K2, the
-   ``mul`` + ``index_add_`` yardstick and that yardstick with the stream
-   built from tours.
+   0.5 and 0.1, at every n above; timed beside the ``mul`` +
+   ``index_add_`` yardstick and that yardstick with the stream built from
+   tours.  The edge-stream K2 (an evaporation, then an atomic deposit)
+   bitwise its plain version with one ant, within rtol 1e-5 / atol 1e-7
+   with m ants and on a converged stream, at every n above and on a
+   column half; timed per call (a CUDA graph of 20 calls) with each pass's
+   device time, on random, constructed and converged streams at n = m =
+   1002 and a random one at 2392, beside ``mul`` + ``index_add_`` of the
+   same stream.
    The sparse route's K7 (fp32, int8, bf16 pages) in all three modes at
    (m, K) = (64, 20), n = 1002 and 2392, and (2392, 36), on pages gathered
    from a real sparse problem with overflow columns, fully visited pages
@@ -167,9 +176,10 @@ non-zero:
    n = m = 1002 over S = 3 column slabs (two iterations) and over a
    (2, 3) mesh with the ants split over ``data`` (one), the edge-stream
    ``pheromone_update`` launched once per slab and iteration, one
-   iteration beside S = 1; the edge-stream kernel on a (1002, 334) slab
-   against its plain version, timed with its bound and the library
-   call; the sharded colony at n = 96, S = 4 card == CPU; ``run_batch``
+   iteration beside S = 1; the edge-stream kernel on the (1002, 334) slab
+   and a (2392, 598) slab (S = 4) against its plain version (and on a
+   converged stream), timed per call with its bound and the library call
+   on the slab's edges alone; the sharded colony at n = 96, S = 4 card == CPU; ``run_batch``
    over four positions on the [batched] bucket bitwise the unsharded run
    per slot and timed beside it; ``SolverService`` and
    ``StreamingSolverService`` over four positions bitwise their
@@ -371,6 +381,25 @@ def device_split(fn, reps: int = 10) -> dict:
     return out
 
 
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device time per call (ms) of ``calls`` calls captured in one CUDA
+    graph and replayed between CUDA events: no host time between the calls,
+    and kernels that overlap (a programmatic dependent launch) counted
+    once.  ``fn`` has been called before, so nothing is set up in the
+    capture."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps=5) / calls
+
+
 def bound(nbytes: float, ops: float, int_ops: float = 0.0
           ) -> tuple[float, str]:
     """Least time for the work on the card (ms) and what bounds it: bytes
@@ -425,6 +454,28 @@ def _selection_inputs(torch, gen, m, n, dev):
     cur = torch.randint(0, n, (m,), generator=gen, device=dev,
                         dtype=torch.int32)
     return visited, rand, cur
+
+
+def _edge_stream(tours, w_ant):
+    """The symmetric deposit stream of (m, n) closed tours with per-ant
+    weights (m,): frm, to, w of E = 2 m n directed edges, forward edges
+    first (core.pheromone.tour_edges / edge_weights at n_actual = n)."""
+    import torch
+    m, n = tours.shape
+    frm = tours.reshape(-1)
+    to = torch.roll(tours, -1, dims=-1).reshape(-1)
+    w = w_ant[:, None].expand(m, n).reshape(-1).repeat(2)
+    return (torch.cat([frm, to]).contiguous(),
+            torch.cat([to, frm]).contiguous(), w.contiguous())
+
+
+def _kernel_split(fn) -> str:
+    """The profiler's device time per call of each kernel ``fn`` launches."""
+    parts = []
+    for name, us in device_split(fn).items():
+        kernel = re.findall(r"(\w+_kernel)", name)
+        parts.append(f"{kernel[0] if kernel else name[:40]} {us:.2f}")
+    return ", ".join(parts)
 
 
 def phase_kernels(results: dict) -> None:
@@ -496,11 +547,8 @@ def phase_kernels(results: dict) -> None:
         for n_ants, exact in ((1, True), (m, False)):
             tours = torch.stack([torch.randperm(n, generator=gen, device=dev)
                                  for _ in range(n_ants)]).to(torch.int32)
-            frm = tours.reshape(-1)
-            to = torch.roll(tours, -1, dims=-1).reshape(-1)
-            f2, t2 = torch.cat([frm, to]), torch.cat([to, frm])
             w = torch.rand(n_ants, generator=gen, device=dev) * 1e-3
-            w2 = w[:, None].expand(n_ants, n).reshape(-1).repeat(2)
+            f2, t2, w2 = _edge_stream(tours, w)
             for rho in (0.5, 0.1):
                 got = pu.pheromone_update(tau, f2, t2, w2, rho)
                 want = pu.pheromone_update_plain(tau, f2, t2, w2, rho)
@@ -510,6 +558,13 @@ def phase_kernels(results: dict) -> None:
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
                 err["pheromone_update"] = max(
                     err["pheromone_update"], float((got - want).abs().max()))
+        # a converged stream: every ant on one tour, m deposits a cell
+        cf, ct, cw = _edge_stream(tours[:1].expand(m, n), w)
+        got = pu.pheromone_update(tau, cf, ct, cw, 0.1)
+        want = pu.pheromone_update_plain(tau, cf, ct, cw, 0.1)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+        err["pheromone_update"] = max(err["pheromone_update"],
+                                      float((got - want).abs().max()))
         # rectangular column shard, `to` shifted into the shard's frame
         half = n // 2
         got = pu.pheromone_update(tau[:, :half].contiguous(), f2, t2 - half,
@@ -560,7 +615,8 @@ def phase_kernels(results: dict) -> None:
         log(f"[kernels] n={n} n_actual={n_act}: choice_info, tour_select, "
             f"fused_select, fused_select_quant (int8, bf16) bitwise in "
             f"{', '.join(MODES)}; pheromone_update bitwise (1 ant), rtol "
-            f"1e-5/atol 1e-7 ({m} ants); pheromone_update_tours bitwise "
+            f"1e-5/atol 1e-7 ({m} ants, and converged); "
+            f"pheromone_update_tours bitwise "
             f"against the CPU and across launches ({m} ants and 1, rho 0.5 "
             f"and 0.1; and on tours that repeat a city, the exact path)")
 
@@ -600,12 +656,8 @@ def phase_kernels(results: dict) -> None:
     rows = ci.choice_info_plain(tau, prob.eta, 1.0, 2.0)[cur.long()]
     tours = torch.stack([torch.randperm(n, generator=gen, device=dev)
                          for _ in range(m)]).to(torch.int32)
-    frm = tours.reshape(-1)
-    to = torch.roll(tours, -1, dims=-1).reshape(-1)
-    f2, t2 = torch.cat([frm, to]), torch.cat([to, frm])
-    w2 = (torch.rand(m, generator=gen, device=dev) * 1e-3)[:, None] \
-        .expand(m, n).reshape(-1).repeat(2)
-    e = f2.numel()
+    w_ant = torch.rand(m, generator=gen, device=dev) * 1e-3
+    f2, t2, w2 = _edge_stream(tours, w_ant)
     distinct_rows = int(torch.unique(cur).numel())
     flat = f2.long() * n + t2.long()
 
@@ -615,7 +667,6 @@ def phase_kernels(results: dict) -> None:
 
     # the same deposit from tours: w per ant, the stream the yardstick
     # reads built from the tours first (what the kernel saves)
-    w_ant = w2[::n][:m].contiguous()
 
     def stream_then_index_add():
         f, t = torch.roll(tours, -1, dims=-1), tours
@@ -630,11 +681,6 @@ def phase_kernels(results: dict) -> None:
             lambda: fs.fused_select_plain(tau, prob.eta, cur, visited, rand),
             None,
             distinct_rows * n * 8 + m * n * 5 + m * 8, m * n * 6),
-        "pheromone_update": (
-            lambda: pu.pheromone_update(tau, f2, t2, w2, 0.5),
-            lambda: pu.pheromone_update_plain(tau, f2, t2, w2, 0.5),
-            evap_index_add,
-            n * n * 8 + e * 12, n * n + e),
         "pheromone_update_tours": (
             lambda: pu.pheromone_update_tours(tau, tours, w_ant, 0.5),
             lambda: pu.pheromone_update_tours_plain(tau, tours, w_ant, 0.5),
@@ -739,12 +785,53 @@ def phase_kernels(results: dict) -> None:
                                                            0.5)),
             ("n=m=2392", lambda: pu.pheromone_update_tours(tau2, tours2, w_2,
                                                            0.5))):
-        parts = []
-        for name, us in device_split(fn).items():
-            kernel = re.findall(r"(\w+_kernel)", name)
-            parts.append(f"{kernel[0] if kernel else name[:40]} {us:.2f} us")
-        log(f"[kernels] pheromone_update_tours {label} by pass: "
-            + ", ".join(parts))
+        log(f"[kernels] pheromone_update_tours {label} by pass (us): "
+            + _kernel_split(fn))
+
+    # The edge-stream update (the city-sharded colony's) on a whole matrix:
+    # n = m = 1002 on random, constructed and converged tours' streams, and
+    # n = m = 2392, beside mul + index_add_ of the same stream.  "graph" is
+    # the device time per call of 20 calls replayed from a CUDA graph: the
+    # deposit starts while the evaporation runs, so the profiler's
+    # per-kernel durations may add up to more than a call takes.  Bound:
+    # tau in, out, 12 bytes per edge; one multiply a cell and one add per
+    # edge.
+    for label, tt, tau_e, w_e in (
+            ("random n=m=1002", tours, tau, w_ant),
+            ("constructed n=m=1002", built, tau, w_ant),
+            ("converged n=m=1002", tours[:1].expand(m, n).contiguous(), tau,
+             w_ant),
+            ("random n=m=2392", tours2, tau2, w_2)):
+        ef, et, ew = _edge_stream(tt, w_e)
+        ne = tau_e.shape[0]
+        fl = ef.long() * ne + et.long()
+
+        def kern():
+            return pu.pheromone_update(tau_e, ef, et, ew, 0.5)
+
+        def library():
+            return (tau_e * 0.5).view(-1).index_add_(0, fl, ew)
+        nbytes = ne * ne * 8 + ef.numel() * 12
+        b_ms, b_by = bound(nbytes, ne * ne + ef.numel())
+        k_dev = device_ms(kern)
+        k_graph, k_wall = graph_ms(kern), cuda_ms(kern)
+        l_dev = device_ms(library)
+        l_graph = graph_ms(library)
+        log(f"[kernels] pheromone_update (edge stream) {label}, "
+            f"E={ef.numel()}: graph per call {k_graph * 1e3:.2f} us, "
+            f"kernels ({_kernel_split(kern)}) us, events per call "
+            f"{k_wall * 1e3:.1f} us | library (mul + index_add_) graph per "
+            f"call {l_graph * 1e3:.2f} us, device {l_dev * 1e3:.2f} us | "
+            f"bound {b_ms * 1e3:.2f} us by {b_by} ({nbytes / 1e6:.1f} MB)"
+            + ("" if k_dev is None else
+               f" | kernels' durations summed {k_dev * 1e3:.2f} us"))
+        if label == "random n=m=1002":
+            plain_ms = device_ms(
+                lambda: pu.pheromone_update_plain(tau, ef, et, ew, 0.5))
+            results["pheromone_update"] = {
+                "max_abs_err": err["pheromone_update"], "ms": k_graph,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": l_graph}
 
     # The per-step draw (plain PyTorch, the reference's jax.random outside
     # any kernel) that feeds fused_select / tour_select on the main path.
@@ -3366,6 +3453,9 @@ def phase_programs(launches: dict) -> None:
 MESH_N = 1002                  # pr1002's size, m = n ants
 MESH_ISLANDS, MESH_EVERY, MESH_ROUNDS = 4, 2, 2
 MESH_SLABS = 3                 # 1002 % 3 == 0: (1002, 334) column slabs
+# the edge-stream kernel's second slab: pr2392's size over S = 4 (2392
+# does not split in three), a (2392, 598) slab
+MESH_SLAB_N2, MESH_SLABS2 = 2392, 4
 MESH_SMALL_ISL_N = 100         # card == CPU, 4 islands
 MESH_SMALL_SC_N, MESH_SMALL_SC_S = 96, 4   # card == CPU, sharded colony
 MESH_SERVICE_NS = (613, 801, 1002, 700, 900)
@@ -3562,46 +3652,67 @@ def _mesh_sharded_colony(launches: dict, results: dict) -> None:
         f"| S=1 {s1:.2f} s | ratio {iters['S=3'] / s1:.3f}")
 
     # the edge-stream kernel on the slab shape the S = 3 step launches it
-    # at, against its plain version (atomic order: rtol 1e-5 / atol 1e-7)
-    n, nl = MESH_N, MESH_N // MESH_SLABS
-    tau, f2, t2, w2 = _slab_stream(n, MESH_SLABS, n, 5)
-    got = pu.pheromone_update(tau, f2, t2, w2, 0.5)
-    want = pu.pheromone_update_plain(tau, f2, t2, w2, 0.5)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
-    err = float((got - want).abs().max())
-    valid = t2 >= 0
-    flat = (f2[valid].long() * nl + t2[valid].long())
-    wv = w2[valid]
-    n_valid = int(valid.sum())
+    # at, and on the (2392, 598) slab of S = 4 at pr2392's size, against
+    # its plain version (atomic order: rtol 1e-5 / atol 1e-7; a converged
+    # stream too), timed beside mul + index_add_ of the slab's edges alone
+    # (the stream filtered outside the timing).  "graph": the device time
+    # per call of 20 calls replayed from a CUDA graph (the deposit overlaps
+    # the evaporation, so the kernels' durations may add up to more than a
+    # call).
+    for n, slabs in ((MESH_N, MESH_SLABS), (MESH_SLAB_N2, MESH_SLABS2)):
+        nl = n // slabs
+        tau, f2, t2, w2 = _slab_stream(n, slabs, n, 5)
+        got = pu.pheromone_update(tau, f2, t2, w2, 0.5)
+        want = pu.pheromone_update_plain(tau, f2, t2, w2, 0.5)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+        err = float((got - want).abs().max())
+        # converged: ant 0's tour for all m = n ants, both directions
+        cf = torch.cat([f2[:n].repeat(n), f2[n * n:n * n + n].repeat(n)])
+        ct = torch.cat([t2[:n].repeat(n), t2[n * n:n * n + n].repeat(n)])
+        got = pu.pheromone_update(tau, cf, ct, w2, 0.5)
+        want = pu.pheromone_update_plain(tau, cf, ct, w2, 0.5)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+        err = max(err, float((got - want).abs().max()))
+        valid = t2 >= 0
+        flat = (f2[valid].long() * nl + t2[valid].long())
+        wv = w2[valid]
+        n_valid = int(valid.sum())
 
-    def library():
-        return (tau * 0.5).view(-1).index_add_(0, flat, wv)
-    ms = device_ms(lambda: pu.pheromone_update(tau, f2, t2, w2, 0.5))
-    wall = cuda_ms(lambda: pu.pheromone_update(tau, f2, t2, w2, 0.5))
-    plain_ms = device_ms(lambda: pu.pheromone_update_plain(tau, f2, t2, w2,
-                                                           0.5))
-    lib_split = device_split(library)
-    lib_ms = sum(lib_split.values()) / 1e3 or device_ms(library)
-    lib_wall = cuda_ms(library)
-    # each input read once, the slab written once: tau and out, the whole
-    # stream (frm, to, w); the work this data needs: one multiply a cell
-    # and one add per edge that lands in the slab
-    nbytes = n * nl * 8 + f2.numel() * 12
-    b_ms, b_by = bound(nbytes, n * nl + n_valid)
-    results["pheromone_update"] = {
-        "max_abs_err": err, "ms": wall if ms is None else ms,
-        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms}
-    log(f"[mesh] pheromone_update (edge stream) on a ({n}, {nl}) slab, "
-        f"E={f2.numel()} edges ({n_valid} in the slab): device "
-        f"{(wall if ms is None else ms) * 1e3:.2f} us, per call "
-        f"{wall * 1e3:.1f} us | plain device {plain_ms * 1e3:.1f} us | "
-        f"library (mul + index_add_ of the slab's edges) device "
-        f"{lib_ms * 1e3:.1f} us ("
-        + ", ".join(f"{k[:40]} {v:.1f}" for k, v in lib_split.items())
-        + f"), per call {lib_wall * 1e3:.1f} us | bound {b_ms * 1e3:.2f} "
-        f"us by {b_by} "
-        f"({nbytes / 1e6:.1f} MB) | max abs err {err:.3e}")
+        def kern():
+            return pu.pheromone_update(tau, f2, t2, w2, 0.5)
+
+        def library():
+            return (tau * 0.5).view(-1).index_add_(0, flat, wv)
+        ms = graph_ms(kern)
+        wall = cuda_ms(kern)
+        summed = device_ms(kern)
+        plain_ms = device_ms(lambda: pu.pheromone_update_plain(tau, f2, t2,
+                                                               w2, 0.5))
+        lib_split = device_split(library)
+        lib_dev = sum(lib_split.values()) / 1e3 or device_ms(library)
+        lib_ms = graph_ms(library)
+        # each input read once, the slab written once: tau and out, the
+        # whole stream (frm, to, w); the work this data needs: one multiply
+        # a cell and one add per edge that lands in the slab
+        nbytes = n * nl * 8 + f2.numel() * 12
+        b_ms, b_by = bound(nbytes, n * nl + n_valid)
+        if n == MESH_N:
+            results["pheromone_update"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        log(f"[mesh] pheromone_update (edge stream) on a ({n}, {nl}) slab, "
+            f"E={f2.numel()} edges ({n_valid} in the slab): graph per call "
+            f"{ms * 1e3:.2f} us, kernels ({_kernel_split(kern)}) us, "
+            f"events per call {wall * 1e3:.1f} us"
+            + ("" if summed is None else
+               f", kernels' durations summed {summed * 1e3:.2f} us")
+            + f" | plain device {plain_ms * 1e3:.1f} us | library (mul + "
+            f"index_add_ of the slab's edges) graph per call "
+            f"{lib_ms * 1e3:.2f} us, device {lib_dev * 1e3:.2f} us ("
+            + ", ".join(f"{k[:40]} {v:.1f}" for k, v in lib_split.items())
+            + f") | bound {b_ms * 1e3:.2f} us by {b_by} "
+            f"({nbytes / 1e6:.1f} MB) | max abs err {err:.3e} (and on a "
+            f"converged stream)")
 
     # card == CPU at n = 96 over S = 4 slabs: the kernel route on the card
     # against the plain versions on the CPU, two iterations
@@ -4243,10 +4354,76 @@ def solo(roots) -> int:
     return 0
 
 
+def phase_edge_stream() -> None:
+    """The edge-stream K2 of the ``repro_torch`` first on ``sys.path``,
+    per call (``graph_ms``) at the shapes [kernels] and [mesh] time it:
+    random and converged streams at n = m = 1002, a random one at 2392,
+    and the (1002, 334) and (2392, 598) slabs; each against its plain
+    version, beside ``mul`` + ``index_add_`` of the edges that land."""
+    import torch
+    from repro_torch.kernels import pheromone_update as pu
+    gen = torch.Generator(device=DEV).manual_seed(23)
+
+    def full(n, converged):
+        tours = torch.stack([torch.randperm(n, generator=gen, device=DEV)
+                             for _ in range(n)]).to(torch.int32)
+        if converged:
+            tours = tours[:1].expand(n, n).contiguous()
+        w = torch.rand(n, generator=gen, device=DEV) * 1e-3
+        tau = torch.rand((n, n), generator=gen, device=DEV) * 1e-3 + 1e-4
+        return (tau, *_edge_stream(tours, w))
+
+    for label, (tau, f, t, w) in (
+            ("random n=m=1002", full(1002, False)),
+            ("converged n=m=1002", full(1002, True)),
+            ("random n=m=2392", full(2392, False)),
+            ("(1002, 334) slab", _slab_stream(1002, 3, 1002, 5)),
+            ("(2392, 598) slab", _slab_stream(2392, 4, 2392, 5))):
+        torch.testing.assert_close(pu.pheromone_update(tau, f, t, w, 0.5),
+                                   pu.pheromone_update_plain(tau, f, t, w,
+                                                             0.5),
+                                   rtol=1e-5, atol=1e-7)
+        n0, n1 = tau.shape
+        lands = (f >= 0) & (f < n0) & (t >= 0) & (t < n1)
+        flat, wl = f[lands].long() * n1 + t[lands].long(), w[lands]
+        k_ms = graph_ms(lambda: pu.pheromone_update(tau, f, t, w, 0.5))
+        l_ms = graph_ms(
+            lambda: (tau * 0.5).view(-1).index_add_(0, flat, wl))
+        log(f"[edge-stream] {label}, E={f.numel()} ({int(lands.sum())} "
+            f"land): graph per call {k_ms * 1e3:.2f} us | mul + index_add_ "
+            f"of the edges that land {l_ms * 1e3:.2f} us")
+
+
+_EDGE_STREAM = """
+import importlib.util, os, sys
+root = os.path.abspath(sys.argv[1])
+sys.path.insert(0, os.path.join(root, "src"))
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[2])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+smoke.phase_device()
+smoke.phase_build()
+smoke.phase_edge_stream()
+"""
+
+
+def edge_stream(roots) -> int:
+    """This script's ``phase_edge_stream`` on each checkout in ``roots``,
+    each in its own process (its own ``repro_torch`` and kernel build)."""
+    for root in roots:
+        log(f"[edge-stream] {os.path.abspath(root)}")
+        subprocess.run([sys.executable, "-c", _EDGE_STREAM,
+                        os.path.abspath(root), os.path.abspath(__file__)],
+                       check=True, cwd=root, timeout=600)
+    return 0
+
+
 def main() -> int:
     import torch   # noqa: F401  (fails here when torch is absent)
     if sys.argv[1:2] == ["--solo"]:
         return solo(sys.argv[2:])
+    if sys.argv[1:2] == ["--edge-stream"]:
+        return edge_stream(sys.argv[2:])
     root = os.path.dirname(os.path.abspath(__file__))
     smi = phase_device()
     sys.path.insert(0, os.path.join(root, "src"))

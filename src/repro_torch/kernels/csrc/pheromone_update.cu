@@ -5,10 +5,17 @@
 // Replaces repro/kernels/pheromone_update.py::pheromone_update
 // (_update_kernel).  The Pallas kernel builds one-hot slabs per output tile
 // and reduces them on the MXU (scatter-to-gather); on Hopper the paper's own
-// winning version is native: evaporate every cell, then one thread per edge
-// does an atomicAdd.
+// winning version is native: evaporate every cell, then one thread per four
+// edges (16-byte loads where aligned) does an atomicAdd per edge that lands.
+// The deposit grid is the evaporation's programmatic dependent: it loads
+// its edges while the evaporation runs and waits for it only to add.
 // Bound: bytes -- 8 bytes per cell (read tau, write out) + 12 per edge
 // (frm, to, w); at n = m = 1002 (E = 2 m n) about 32 MB, ~9.6 us at 3.35 TB/s.
+// What holds it above that on the H100 is the rate of the L2's float
+// atomics on scattered cells, about 70 G/s, which index_add_ shares: 2 M
+// edges take about 28 us (PERF.md).  Sorting the stream by row tile and
+// adding in shared memory instead was slower on the column slabs that the
+// city-sharded colony updates (PERF.md).
 // Numerics: the evaporation product is rounded on its own (__fmul_rn, no
 // FMA with the deposit), as the Pallas kernel and the plain version do.  A
 // cell that gets at most one deposit (MMAS, the ACS deposit, AS with one
@@ -72,26 +79,71 @@
 namespace {
 
 constexpr int kBlock = 256;
+constexpr int kEdgesPerThread = 4;  // one 16-byte load of each array
 
+// Programmatic dependent launch: the evaporation lets the deposit grid
+// start at once, and the deposit grid waits for the evaporation's results
+// before it adds to them.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_primary() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// vec: tau and out are 16-byte aligned.
 __global__ void evaporate_kernel(const float* __restrict__ tau,
                                  float* __restrict__ out, long long total,
-                                 float decay) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
+                                 float decay, bool vec) {
+  launch_dependents();
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long i0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long n4 = vec ? total / 4 : 0;
+  for (long long i = i0; i < n4; i += stride) {
+    float4 v = __ldcs(reinterpret_cast<const float4*>(tau) + i);
+    v.x = __fmul_rn(decay, v.x);
+    v.y = __fmul_rn(decay, v.y);
+    v.z = __fmul_rn(decay, v.z);
+    v.w = __fmul_rn(decay, v.w);
+    reinterpret_cast<float4*>(out)[i] = v;
+  }
+  for (long long i = 4 * n4 + i0; i < total; i += stride) {
     out[i] = __fmul_rn(decay, tau[i]);
   }
 }
 
+// Thread k deposits edges [4 k, 4 k + 4).  vec: frm, to and w are 16-byte
+// aligned.
 __global__ void deposit_kernel(const int* __restrict__ frm,
                                const int* __restrict__ to,
                                const float* __restrict__ w,
                                float* __restrict__ out, long long n_edges,
-                               int n0, int n1) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < n_edges; e += (long long)gridDim.x * blockDim.x) {
-    const int f = frm[e], t = to[e];
-    if (f >= 0 && f < n0 && t >= 0 && t < n1) {
-      atomicAdd(out + (long long)f * n1 + t, w[e]);
+                               int n0, int n1, bool vec) {
+  const long long e0 =
+      kEdgesPerThread * (blockIdx.x * (long long)blockDim.x + threadIdx.x);
+  int f[kEdgesPerThread], t[kEdgesPerThread];
+  float x[kEdgesPerThread];
+  if (vec && e0 + kEdgesPerThread <= n_edges) {
+    const int4 fv = __ldcs(reinterpret_cast<const int4*>(frm + e0));
+    const int4 tv = __ldcs(reinterpret_cast<const int4*>(to + e0));
+    const float4 xv = __ldcs(reinterpret_cast<const float4*>(w + e0));
+    f[0] = fv.x; f[1] = fv.y; f[2] = fv.z; f[3] = fv.w;
+    t[0] = tv.x; t[1] = tv.y; t[2] = tv.z; t[3] = tv.w;
+    x[0] = xv.x; x[1] = xv.y; x[2] = xv.z; x[3] = xv.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kEdgesPerThread; ++k) {
+      const bool in = e0 + k < n_edges;
+      f[k] = in ? __ldcs(frm + e0 + k) : -1;
+      t[k] = in ? __ldcs(to + e0 + k) : -1;
+      x[k] = in ? __ldcs(w + e0 + k) : 0.0f;
+    }
+  }
+  wait_for_primary();
+#pragma unroll
+  for (int k = 0; k < kEdgesPerThread; ++k) {
+    if (f[k] >= 0 && f[k] < n0 && t[k] >= 0 && t[k] < n1) {
+      atomicAdd(out + (long long)f[k] * n1 + t[k], x[k]);
     }
   }
 }
@@ -328,14 +380,28 @@ extern "C" int aco_pheromone_update(const float* tau, const int* frm,
                                     float decay, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long total = (long long)n0 * n1;
-  if (total > 0) {
-    evaporate_kernel<<<aco::grid_for(total, kBlock), kBlock, 0, s>>>(
-        tau, out, total, decay);
-  }
-  if (n_edges > 0 && total > 0) {
-    deposit_kernel<<<aco::grid_for(n_edges, kBlock), kBlock, 0, s>>>(
-        frm, to, w, out, n_edges, n0, n1);
-  }
+  if (total <= 0) return 0;
+  const bool vec_tau = ((reinterpret_cast<uintptr_t>(tau) |
+                         reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+  evaporate_kernel<<<aco::grid_for(vec_tau ? total / 4 + 1 : total, kBlock),
+                     kBlock, 0, s>>>(tau, out, total, decay, vec_tau);
+  if (n_edges <= 0) return (int)cudaGetLastError();
+  const bool vec_edges = ((reinterpret_cast<uintptr_t>(frm) |
+                           reinterpret_cast<uintptr_t>(to) |
+                           reinterpret_cast<uintptr_t>(w)) & 15u) == 0;
+  const long long threads = (n_edges + kEdgesPerThread - 1) / kEdgesPerThread;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((threads + kBlock - 1) / kBlock));
+  cfg.blockDim = dim3(kBlock);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, deposit_kernel, frm, to, w,
+                                           out, n_edges, n0, n1, vec_edges);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

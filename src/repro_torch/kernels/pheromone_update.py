@@ -9,13 +9,15 @@ a directed-edge stream; endpoints outside the (n0, n1) matrix (the -1
 padding) deposit nothing, and tau may be rectangular (an island's column
 shard).  The Pallas kernel reduces one-hot slabs on the MXU per output
 tile; on the H100 the paper's own winning version is native: pass 1
-evaporates every cell, pass 2 runs one thread per edge doing an
-``atomicAdd``.
+evaporates every cell, pass 2 runs one thread per four edges (16-byte
+loads) doing an ``atomicAdd`` per edge that lands.  Pass 2 is launched as
+pass 1's programmatic dependent, so it loads its edges while pass 1 runs.
 
 Bound on the H100: bytes.  8 per cell (read tau, write out) plus 12 per
 edge (frm, to, w): with E = 2 m n at n = m = 1002, about 32 MB, 9.6 us at
-3.35 TB/s.  The atomics land on n^2 distinct addresses with few
-collisions, so they do not serialise.
+3.35 TB/s.  The float atomics on scattered cells, which the L2 performs,
+hold it above that bound, as they hold ``index_add_``; PERF.md gives the
+times.
 
 Numerics: the evaporation product is rounded on its own, as in the Pallas
 kernel; the plain version does the same and then adds the deposits with

@@ -11,7 +11,9 @@ every operation as the plain versions do, with accurate ``logf``), with a
 float32 or a quantised (int8, bf16) tau, dense or on sparse candidate
 pages; 2-opt move deltas and indices bitwise; the edge-stream update
 bitwise where each cell gets at most one deposit, rtol 1e-5 / atol 1e-7
-where atomics sum several deposits in another order; the tours-driven
+where atomics sum several deposits in another order, over full matrices,
+a column slab, a converged stream, E = 0, one row, bad endpoints and
+unaligned streams; the tours-driven
 update (the colony step's) bitwise for any number of ants, and the same
 from launch to launch; the dense and the sparse walk kernels bitwise
 against their plain walks on the card (and, for iroulette and greedy, on
@@ -104,6 +106,99 @@ def test_pheromone_update_kernel(n, n_ants):
             assert torch.equal(again, got), (rho, n_actual)
     assert ops.launch_counts()["pheromone_update_tours"] == 8
     assert ops.launch_counts()["pheromone_update"] == 0
+
+
+def _edge_stream(rng, n, n_ants, converged=False, slab=None):
+    """The symmetric deposit stream of ``n_ants`` closed tours (one tour
+    repeated when ``converged``); ``slab`` = (c0, cols) shifts ``to`` into
+    a column slab's frame, -1 outside it."""
+    if converged:
+        tours = np.repeat(rng.permutation(n)[None], n_ants, axis=0)
+    else:
+        tours = np.stack([rng.permutation(n) for _ in range(n_ants)])
+    frm = tours.ravel()
+    to = np.roll(tours, -1, axis=-1).ravel()
+    wrep = np.repeat((rng.random(n_ants) * 1e-2).astype(np.float32), n)
+    f2, t2 = np.concatenate([frm, to]), np.concatenate([to, frm])
+    if slab is not None:
+        t2 = t2 - slab[0]
+        t2 = np.where((t2 >= 0) & (t2 < slab[1]), t2, -1)
+    return (f2.astype(np.int32), t2.astype(np.int32),
+            np.concatenate([wrep, wrep]).astype(np.float32))
+
+
+# case -> (n0, n1, slab, converged, ant counts)
+EDGE_CASES = {
+    "501": (501, 501, None, False, (1, 64, 501)),
+    "1002": (1002, 1002, None, False, (1, 64, 1002)),
+    "slab": (1002, 334, (334, 334), False, (1, 64, 1002)),
+    "converged": (1002, 1002, None, True, (1002,)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_pheromone_update_edges_kernel(case):
+    """The edge-stream kernel (the city-sharded colony's update) against
+    its plain version on the card: one ant bitwise, 64 and m ants and a
+    converged stream within rtol 1e-5 / atol 1e-7 (atomics sum a cell's
+    deposits in another order).  One call is one launch."""
+    n0, n1, slab, conv, ants = EDGE_CASES[case]
+    dev = cuda_device()
+    rng = np.random.default_rng(n0 + n1 + len(case))
+    tau = torch.tensor((rng.random((n0, n1)) * 1e-2 + 1e-3)
+                       .astype(np.float32), device=dev)
+    ops.reset_launch_counts()
+    calls = 0
+    for n_ants in ants:
+        f, t, w = (torch.tensor(a, device=dev)
+                   for a in _edge_stream(rng, n0, n_ants, conv, slab))
+        for rho in (0.5, 0.1):
+            got = ops.pheromone_update_edges(tau, f, t, w, rho)
+            want = pu.pheromone_update_plain(tau, f, t, w, rho)
+            calls += 1
+            if n_ants == 1:
+                assert torch.equal(got, want), (n_ants, rho)
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+    assert ops.launch_counts()["pheromone_update"] == calls
+
+
+@pytest.mark.cuda
+def test_pheromone_update_edges_kernel_edge_cases():
+    """E = 0 (pure evaporation), n0 = 1, endpoints -1 and past the matrix
+    on both sides, and streams that are not 16-byte aligned: each bitwise
+    the plain version where a cell gets at most one deposit."""
+    dev = cuda_device()
+    rng = np.random.default_rng(11)
+    tau = torch.tensor((rng.random((1002, 1002)) * 1e-2).astype(np.float32),
+                       device=dev)
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    empty_w = torch.zeros(0, device=dev)
+    assert torch.equal(pu.pheromone_update(tau, none, none, empty_w, 0.5),
+                       pu.pheromone_update_plain(tau, none, none, empty_w,
+                                                 0.5))
+    row = torch.tensor((rng.random((1, 777)) * 1e-2).astype(np.float32),
+                       device=dev)
+    cols = torch.tensor(rng.permutation(777)[:500].astype(np.int32),
+                        device=dev)
+    zeros = torch.zeros_like(cols)
+    wr = torch.tensor(rng.random(500).astype(np.float32), device=dev)
+    assert torch.equal(pu.pheromone_update(row, zeros, cols, wr, 0.1),
+                       pu.pheromone_update_plain(row, zeros, cols, wr, 0.1))
+    f, t, w = (torch.tensor(a, device=dev)
+               for a in _edge_stream(rng, 1002, 1))
+    bad_f, bad_t = f.clone(), t.clone()
+    bad_f[::7] = -1
+    bad_f[3::11] = 1002
+    bad_t[5::13] = -1
+    bad_t[6::17] = 5000
+    assert torch.equal(pu.pheromone_update(tau, bad_f, bad_t, w, 0.5),
+                       pu.pheromone_update_plain(tau, bad_f, bad_t, w, 0.5))
+    for lo in (1, 2, 3):  # views whose data is not 16-byte aligned
+        assert torch.equal(
+            pu.pheromone_update(tau, f[lo:], t[lo:], w[lo:], 0.5),
+            pu.pheromone_update_plain(tau, f[lo:], t[lo:], w[lo:], 0.5))
 
 
 @pytest.mark.cuda

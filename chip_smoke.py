@@ -216,6 +216,19 @@ non-zero:
    card == CPU at n = 100 for each new construction and deposit (AS x 3);
    ``placement.solve`` at 32 layers x 4 stages and 61 x 8, card == CPU
    and better than ``uniform_baseline``;
+   lm        -- the LM substrate's serving path (ROADMAP item 18, no
+   kernel of its own): ``launch.serve.serve("olmo_1b", batch=4,
+   prompt_len=16, gen=16, reduced=False)``, OLMo-1B at full width and
+   depth in bf16 (tokens' shape and range; the step-loop prefill against
+   ``forward`` over the same prompt within 16 bf16 ulps of the logit
+   scale); prints prefill s, ms a token, tokens/s, peak memory, one
+   decode step's device time and its weight-read bound; the other four
+   dense configs (deepseek_7b, h2o_danube_3_4b, minitron_4b,
+   qwen2_vl_2b) at full width and 2 layers, batch 2, prompt 8, gen 4,
+   each held to the same rule; the five reduced configs at float32 (TF32
+   off) on the card against the CPU on the same converted weights within
+   16 float32 ulps of the scale, greedy tokens equal, h2o's ring buffer
+   wrapping;
 6. profile -- device busy time and idle share of one AS iteration at
    n = 1002, and the kernels that take most of it; the split of one MMAS
    + 2-opt iteration over an int8 store into construction, local search
@@ -4108,6 +4121,193 @@ def phase_ladder(launches: dict) -> None:
     log(f"[ladder] phase took {time.perf_counter() - t0:.1f} s")
 
 
+LM_DENSE = ("olmo_1b", "deepseek_7b", "h2o_danube_3_4b", "minitron_4b",
+            "qwen2_vl_2b")
+# decode against forward on the card at bf16: cuBLAS picks other kernels
+# for one row than for 16, so the two round differently and the difference
+# grows over the layers; 16 bf16 ulps of the logit scale is 6% of it
+LM_BF16_ULPS = 16
+# card against CPU at float32 (the CPU tests hold the CPU against the
+# reference within the same)
+LM_F32_ULPS = 16
+
+
+def _ulps_of_scale(want, got, bits: int) -> float:
+    """max |want - got| in ulps (``bits`` mantissa bits) of max |want|."""
+    import torch
+    a, b = want.detach().float().cpu(), got.detach().float().cpu()
+    scale = float(a.abs().max())
+    return float((a - b).abs().max()) / 2.0 ** (
+        torch.floor(torch.log2(torch.tensor(scale))).item() - bits)
+
+
+def _lm_prefill_check(label, params, prompts, cfg, gen) -> dict:
+    """The step-loop prefill against ``forward`` over the same prompt
+    (bf16, the card against itself); the report of ``generate``."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    pre, _, _ = model.prefill(params, prompts, cfg,
+                              prompts.shape[1] + gen + 1)
+    full, _ = model.forward(params, prompts, cfg)
+    err = _ulps_of_scale(full, pre, 7)
+    if not (torch.isfinite(pre).all() and err <= LM_BF16_ULPS):
+        raise AssertionError(f"[lm] {label}: prefill {err:.3g} bf16 ulps of "
+                             f"the scale from forward (> {LM_BF16_ULPS})")
+    rep = serve.generate(params, prompts, cfg, gen)
+    toks = torch.tensor(rep["tokens"])
+    if toks.shape != (prompts.shape[0], gen) or not (
+            (toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"[lm] {label}: tokens {tuple(toks.shape)} "
+                             f"out of shape or range")
+    first = torch.argmax(pre[:, -1], -1).cpu()
+    if not torch.equal(first, toks[:, 0]):
+        raise AssertionError(f"[lm] {label}: the first token is not the "
+                             "prefill's argmax")
+    rep["prefill_err_ulps"] = err
+    return rep
+
+
+def _lm_olmo(smi: str) -> None:
+    """OLMo-1B at full width and depth through the entry point a user
+    calls, then its prefill against its forward on the same weights."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    cfg = configs.get("olmo_1b")
+    batch, prompt_len, gen = 4, 16, 16
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rep = serve.serve("olmo_1b", batch=batch, prompt_len=prompt_len,
+                      gen=gen, reduced=False)
+    peak = torch.cuda.max_memory_allocated() - base
+    with torch.inference_mode():
+        params, prompts = serve.load(cfg, batch, prompt_len, 0,
+                                     torch.device(DEV))
+        check = _lm_prefill_check("olmo_1b", params, prompts, cfg, gen)
+        if check["tokens"] != rep["tokens"]:
+            raise AssertionError("[lm] olmo_1b: serve() and the same weights "
+                                 "and prompts generate different tokens")
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in params.parameters())
+        caches = model.init_cache(cfg, batch, prompt_len + gen + 1, DEV)
+        kv_bytes = sum(c["attn"][k].numel() * c["attn"][k].element_size()
+                       for c in caches["layers"] for k in ("k", "v"))
+        tok = prompts[:, :1]
+        step = lambda: model.decode_step(params, tok, caches, cfg)  # noqa
+        step_ms = cuda_ms(step, reps=10, trials=3)
+        split = device_split(step)
+        fwd_ms = cuda_ms(lambda: model.forward(params, prompts, cfg),
+                         reps=5, trials=3)
+    # a decode step reads every weight once and the KV cache once
+    bound_ms = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    ms = rep["decode_s_per_token"] * 1e3
+    log(f"[lm] olmo_1b full ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"vocab {cfg.vocab}, {cfg.param_count() / 1e9:.3f}e9 params, bf16), "
+        f"batch {batch}, prompt {prompt_len}, gen {gen}: prefill "
+        f"{rep['prefill_s']:.4f} s ({prompt_len} steps), decode {ms:.3f} ms "
+        f"a token, {rep['throughput_tok_s']:.1f} tokens/s, peak "
+        f"{peak / 2**30:.3f} GiB; prefill vs forward "
+        f"{check['prefill_err_ulps']:.3g} bf16 ulps of the scale")
+    busy_ms = sum(split.values()) / 1e3
+    log(f"[lm] olmo_1b decode step: {step_ms:.3f} ms (CUDA events, 10 "
+        f"steps queued), device busy "
+        f"{f'{busy_ms:.3f} ms' if busy_ms else 'not measured'}; "
+        f"weight-read bound {bound_ms:.3f} ms ({weight_bytes / 1e9:.3f} GB "
+        f"weights + {kv_bytes / 1e6:.2f} MB KV at {HBM_BYTES_PER_S:.3g} "
+        f"B/s); forward over the {prompt_len}-token prompt {fwd_ms:.3f} ms "
+        f"| {smi}")
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
+    log("[lm] olmo_1b decode step, device us by kernel: " + "; ".join(
+        f"{name[:60]} {us:.1f}" for name, us in top))
+    del params, caches
+    torch.cuda.empty_cache()
+
+
+def _lm_full_width() -> None:
+    """The other dense configs at full width, depth cut to 2 layers."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    for arch in LM_DENSE[1:]:
+        cfg = dataclasses.replace(configs.get(arch), n_layers=2)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.inference_mode():
+            params, prompts = serve.load(cfg, 2, 8, 0, torch.device(DEV))
+            rep = _lm_prefill_check(arch, params, prompts, cfg, 4)
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"[lm] {arch} full width, 2 of {configs.get(arch).n_layers} "
+            f"layers (d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv} x "
+            f"{cfg.d_head}, vocab {cfg.vocab}, {cfg.mlp_kind}/{cfg.act}, "
+            f"{cfg.norm}, {cfg.rope}, tied {cfg.tie_embeddings}): prefill "
+            f"{rep['prefill_s']:.4f} s, decode "
+            f"{rep['decode_s_per_token'] * 1e3:.3f} ms a token, prefill vs "
+            f"forward {rep['prefill_err_ulps']:.3g} bf16 ulps, peak "
+            f"{peak / 2**30:.3f} GiB")
+        del params
+        torch.cuda.empty_cache()
+
+
+def _lm_card_vs_cpu() -> None:
+    """The reduced configs at float32 on the card against the CPU, on the
+    same weights carried across by ``convert``."""
+    import torch
+    from repro_torch import configs, convert
+    from repro_torch.core import sampling
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("[lm] TF32 is enabled: the float32 comparison "
+                             "needs full float32 matmuls")
+    prompt_len, gen = 20, 4      # h2o's window 16: the ring buffer wraps
+    for arch in LM_DENSE:
+        cfg = dataclasses.replace(configs.get_reduced(arch),
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        cpu = model.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+        card = convert.lm_params_from_numpy(
+            cfg, convert.lm_params_to_numpy(cpu), DEV)
+        prompts = sampling.randint(sampling.prng_key(4), (2, prompt_len), 0,
+                                   cfg.vocab)
+        out = {}
+        for dev, params in (("cpu", cpu), (DEV, card)):
+            toks = prompts.to(dev)
+            full, _ = model.forward(params, toks, cfg)
+            pre, caches, _ = model.prefill(params, toks, cfg,
+                                           prompt_len + gen + 1)
+            rep = serve.generate(params, toks, cfg, gen)
+            out[dev] = (full, pre, convert.lm_cache_to_numpy(cfg, caches),
+                        rep["tokens"])
+        (f_c, p_c, c_c, t_c), (f_g, p_g, c_g, t_g) = out["cpu"], out[DEV]
+        errs = [_ulps_of_scale(f_c, f_g, 23), _ulps_of_scale(p_c, p_g, 23)]
+        for want, got in zip(c_c["blocks"], c_g["blocks"]):
+            for leaf in ("k", "v"):
+                errs.append(_ulps_of_scale(
+                    torch.from_numpy(want["attn"][leaf]),
+                    torch.from_numpy(got["attn"][leaf]), 23))
+        ring = c_c["blocks"][0]["attn"]["k"].shape[2] < prompt_len + gen + 1
+        if max(errs) > LM_F32_ULPS or t_c != t_g:
+            raise AssertionError(f"[lm] {arch} reduced f32: card vs CPU "
+                                 f"{max(errs):.3g} ulps, tokens "
+                                 f"{'equal' if t_c == t_g else 'differ'}")
+        log(f"[lm] {arch} reduced f32: card == CPU within "
+            f"{max(errs):.3g} f32 ulps of the scale (forward, prefill, "
+            f"caches{', ring buffer' if ring else ''}), {gen} greedy tokens "
+            f"equal")
+
+
+def phase_lm(smi: str) -> None:
+    """The LM substrate's serving path (ROADMAP item 18)."""
+    t0 = time.perf_counter()
+    _lm_olmo(smi)
+    _lm_full_width()
+    _lm_card_vs_cpu()
+    log(f"[lm] phase took {time.perf_counter() - t0:.1f} s")
+
+
 def phase_sparse_split() -> None:
     """Where one sparse MMAS iteration over an int8 store goes at
     n = 2392, k = 16, m = 64 (host clock between synchronisations, median
@@ -4445,6 +4645,7 @@ def main() -> int:
     phase_programs(launches)
     phase_mesh(launches, results)
     phase_ladder(launches)
+    phase_lm(smi)
     phase_profile()
     phase_split()
     phase_sparse_split()

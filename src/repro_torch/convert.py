@@ -22,6 +22,13 @@ island axis) cross as any other stack.  The city-sharded colony's state
 crosses with its full (n, n) tau: ``sharded_state_from_numpy`` splits it
 into the mesh positions' column slabs, ``sharded_state_to_numpy`` joins
 them back.
+
+The LM substrate's weights cross as the reference's parameter tree
+(``lm_params_from_numpy`` / ``lm_params_to_numpy``): its ``blocks``
+leaves, stacked over periods, are unstacked into the port's unrolled
+layers and stacked again on the way back.  A bf16 leaf goes through
+float32 and back, which is exact.  ``lm_cache_to_numpy`` gives a decode
+cache back in the reference's layout.
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ import torch
 
 from . import device as _device
 from .core import aco, islands, quant
+from .models import model as lm_model
+from .models.config import ModelConfig
 from .obs import metrics as obs_metrics
 from .sparse import store
 
@@ -234,3 +243,99 @@ def metrics_to_numpy(mets) -> dict:
     of NumPy arrays by field."""
     return {f: v.cpu().numpy()
             for f, v in zip(obs_metrics.StepMetrics._fields, mets)}
+
+
+def _flat_items(tree: dict, prefix: str = ""):
+    """(dotted name, leaf) of a nested dict, in key order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _flat_items(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
+                         device: _device.DeviceLike = None) -> lm_model.Model:
+    """The reference's LM parameter tree (NumPy leaves) -> the port's
+    ``Model``: every leaf placed, none left over."""
+    dev = _device.resolve(device)
+    flat = {}
+    for key in ("embed", "lm_head", "final_norm"):
+        if key in tree:
+            flat.update(_flat_items({key: tree[key]}))
+    for i, layer in enumerate(tree.get("prefix", [])):
+        flat.update(_flat_items(layer, f"prefix.{i}."))
+    period = len(cfg.period)
+    for j, pos in enumerate(tree["blocks"]):
+        for name, leaf in _flat_items(pos):
+            for r in range(cfg.n_periods):
+                flat[f"blocks.{r * period + j}.{name}"] = np.asarray(leaf)[r]
+    params = lm_model.Model(cfg, None, dev)
+    names = dict(params.named_parameters())
+    if set(names) != set(flat):
+        raise KeyError(f"parameter trees differ: only in the model "
+                       f"{sorted(set(names) - set(flat))}, only in the tree "
+                       f"{sorted(set(flat) - set(names))}")
+    with torch.no_grad():
+        for name, param in names.items():
+            param.copy_(torch.from_numpy(np.array(flat[name], np.float32)))
+    return params
+
+
+def _f32_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to(torch.float32).cpu().numpy()
+
+
+def _module_tree(module: torch.nn.Module) -> dict:
+    """A module's parameters as the reference's nested dict (float32
+    NumPy), empty dicts for modules without parameters."""
+    out = {name: _f32_numpy(p)
+           for name, p in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        out[name] = _module_tree(child)
+    return out
+
+
+def _stack_periods(cfg: ModelConfig, per_layer: list) -> list:
+    """Unrolled body entries -> the reference's ``blocks``: one entry per
+    period position, leaves stacked over periods."""
+    period = len(cfg.period)
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return np.stack(xs)
+
+    return [stack(*per_layer[j::period]) for j in range(period)]
+
+
+def lm_params_to_numpy(params: lm_model.Model) -> dict:
+    """The port's ``Model`` -> the reference's parameter tree (float32
+    NumPy leaves)."""
+    cfg = params.cfg
+    tree = {"embed": _f32_numpy(params.embed),
+            "final_norm": _module_tree(params.final_norm)}
+    if params.lm_head is not None:
+        tree["lm_head"] = _f32_numpy(params.lm_head)
+    if cfg.prefix:
+        tree["prefix"] = [_module_tree(m) for m in params.prefix]
+    tree["blocks"] = _stack_periods(
+        cfg, [_module_tree(m) for m in params.blocks])
+    return tree
+
+
+def lm_cache_to_numpy(cfg: ModelConfig, caches: dict) -> dict:
+    """The port's decode cache -> the reference's layout ({"prefix",
+    "blocks" stacked over periods, "step"}; float32 / int32 NumPy)."""
+    def leaves(c):
+        if isinstance(c, dict):
+            return {k: leaves(v) for k, v in c.items()}
+        return (c.cpu().numpy() if c.dtype == torch.int32
+                else _f32_numpy(c))
+
+    per_layer = [leaves(c) for c in caches["layers"]]
+    n_prefix = len(cfg.prefix)
+    return {"prefix": per_layer[:n_prefix],
+            "blocks": _stack_periods(cfg, per_layer[n_prefix:]),
+            "step": leaves(caches["step"])}

@@ -32,6 +32,7 @@ from typing import Optional, Union
 
 import torch
 
+from .. import device as _device
 from . import floatops, tsp
 
 NActual = Union[int, None]
@@ -96,17 +97,6 @@ def deposit_reduction(n: int, tours: torch.Tensor, w: torch.Tensor,
     return upper + upper.T
 
 
-def _check_full_fp32(dev: torch.device) -> None:
-    """A float32 matmul must not round its inputs to TF32 on the card."""
-    if dev.type == "cuda" and (torch.backends.cuda.matmul.allow_tf32 or
-                               torch.get_float32_matmul_precision()
-                               != "highest"):
-        raise RuntimeError(
-            "deposit_s2g needs full float32 matmuls: TF32 is enabled "
-            "(torch.backends.cuda.matmul.allow_tf32 or "
-            "torch.set_float32_matmul_precision); disable it")
-
-
 def deposit_s2g(n: int, tours: torch.Tensor, w: torch.Tensor,
                 row_tile: int = 0, col_tile: int = 0,
                 n_actual: NActual = None) -> torch.Tensor:
@@ -119,7 +109,7 @@ def deposit_s2g(n: int, tours: torch.Tensor, w: torch.Tensor,
     full float32).  Work is O(n^2 * m * n) whatever the tiles.  Phantom
     edges of a padded tour carry weight 0; the closing edge wraps at
     ``n_actual - 1``."""
-    _check_full_fp32(tours.device)
+    _device.check_full_fp32(tours.device, "deposit_s2g")
     f, t = tour_edges(tours, n_actual)
     bi = row_tile or min(n, 64)
     bj = col_tile or min(n, 64)

@@ -13,10 +13,11 @@ quartile deposit.
 The reference's arithmetic is XLA's, and the port follows it where it
 decides a bit:
 
-- its one-hot ``einsum``s are sums of the selected terms; XLA's CPU dot
-  adds them in index order for contractions of up to about 40 terms
-  (``_onehot_sum``), and vectorises longer ones in an order the port does
-  not reproduce: a cost or a tau cell may then be an ulp off;
+- its one-hot ``einsum``s are sums of the selected terms, which XLA's CPU
+  dot adds in index order up to 42 terms and in a vectorised order past
+  that (``_onehot_sum`` over ``floatops.xla_dot_sum``; measured below 80
+  terms, index order beyond, where a cost or a tau cell may be an ulp
+  off);
 - ``jnp.quantile(costs, 0.25)`` sorts and interpolates linearly between
   the two neighbouring order statistics (``_quantile``);
 - ``(1 - rho) * tau + dep`` and ``bottleneck + lambda * comm`` are fused
@@ -68,31 +69,32 @@ def _f32(values, dev) -> torch.Tensor:
     return torch.tensor(np.asarray(values, np.float32), device=dev)
 
 
-def _onehot_sum(onehot: torch.Tensor, vals: torch.Tensor,
-                dim: int) -> torch.Tensor:
+def _onehot_sum(onehot: torch.Tensor, vals: torch.Tensor, dim: int,
+                in_step: bool) -> torch.Tensor:
     """``sum_k onehot[.., k, ..] * vals[k]`` over axis ``dim`` of
-    ``onehot``, the terms added one after another in index order as XLA's
-    CPU dot adds them (no matmul: a float32 product here could run in
-    TF32 on the card, and a library matmul sums in blocks)."""
+    ``onehot``, the terms added in the order of XLA's CPU dot
+    (``floatops.xla_dot_sum``; no matmul: a float32 product here could run
+    in TF32 on the card, and a library matmul sums in blocks).
+    ``in_step``: inside the reference's jitted step, whose fusions
+    transpose the picks into the one-hot operand."""
     shape = [1] * onehot.dim()
     shape[dim] = -1
     terms = onehot * vals.reshape(shape)
-    acc = terms.select(dim, 0)
-    for k in range(1, terms.shape[dim]):
-        acc = acc + terms.select(dim, k)
-    return acc
+    return floatops.xla_dot_sum(torch.movedim(terms, dim, -1),
+                                2 if in_step else None)
 
 
 def _cost(prob: PlacementProblem, assign: torch.Tensor,
           fused: bool) -> torch.Tensor:
-    """``assignment_cost``; ``fused``: the last multiply-add rounded once,
-    as it is inside the reference's jitted step."""
+    """``assignment_cost``; ``fused``: as inside the reference's jitted
+    step (the last multiply-add rounded once, the loads summed in that
+    step's order)."""
     dev = assign.device
     c = _f32(prob.layer_costs, dev)
     t = _f32(prob.edge_traffic, dev)
     onehot = torch.nn.functional.one_hot(
         assign.long(), prob.n_stages).to(torch.float32)    # (..., L, S)
-    loads = _onehot_sum(onehot, c, onehot.dim() - 2)        # (..., S)
+    loads = _onehot_sum(onehot, c, onehot.dim() - 2, fused)  # (..., S)
     bottleneck = loads.amax(-1)
     cuts = (assign[..., 1:] != assign[..., :-1]).to(torch.float32)
     comm = floatops.xla_sum(cuts * t[:-1])
@@ -162,7 +164,7 @@ def _step(tau: torch.Tensor, key: torch.Tensor, prob: PlacementProblem,
                     wq / torch.clamp_min(costs, 1e-9),
                     torch.zeros_like(costs))
     onehot = torch.nn.functional.one_hot(assign.long(), s).to(torch.float32)
-    dep = _onehot_sum(onehot, w, 0)                         # (L, S)
+    dep = _onehot_sum(onehot, w, 0, True)                   # (L, S)
     tau = torch.addcmul(dep, floatops.const(1.0 - cfg.rho, tau), tau)
     best = torch.argmin(costs)
     return tau, assign[best], costs[best]

@@ -22,3 +22,16 @@ def resolve(device: DeviceLike = None) -> torch.device:
                 "default; pass device='cpu' to run on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def check_full_fp32(dev: torch.device, what: str) -> None:
+    """A float32 matmul on the card must not round its inputs to TF32:
+    raise if TF32 is enabled rather than change the precision (the
+    default is full float32)."""
+    if dev.type == "cuda" and (torch.backends.cuda.matmul.allow_tf32 or
+                               torch.get_float32_matmul_precision()
+                               != "highest"):
+        raise RuntimeError(
+            f"{what} needs full float32 matmuls: TF32 is enabled "
+            "(torch.backends.cuda.matmul.allow_tf32 or "
+            "torch.set_float32_matmul_precision); disable it")

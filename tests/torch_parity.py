@@ -121,3 +121,36 @@ def per_slot_steps(problem, states, budgets, cfg, max_iters, patience=0):
         since_out.append(since)
         rows.append(row)
     return tree.stack(out), torch.stack(since_out), obs_metrics.stack(rows)
+
+
+# mantissa bits: one ulp of a value in [2^e, 2^(e+1)) is 2^(e - bits)
+F32_BITS, BF16_BITS = 23, 7
+
+
+def _f32(x) -> np.ndarray:
+    """A JAX array, torch tensor (bf16 too) or NumPy array as float32."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def ulp_of_scale(x, bits: int) -> float:
+    """One ulp, in a float format with ``bits`` mantissa bits, of the
+    largest magnitude in ``x``."""
+    scale = float(np.abs(_f32(x)).max())
+    return 2.0 ** (np.floor(np.log2(scale)) - bits) if scale > 0 else 0.0
+
+
+def assert_ulps_of_scale(want, got, bits: int, ulps: float,
+                         what: str = "") -> float:
+    """``max |want - got|`` within ``ulps`` ulps (``bits`` mantissa bits)
+    of ``want``'s largest magnitude; returns the error in those ulps."""
+    a, b = _f32(want), _f32(got)
+    assert a.shape == b.shape, (what, a.shape, b.shape)
+    unit = ulp_of_scale(a, bits)
+    if not unit:
+        assert (a == b).all(), f"{what}: want all zero"
+        return 0.0
+    err = float(np.abs(a - b).max()) / unit
+    assert err <= ulps, f"{what}: {err:.3g} ulps of the scale > {ulps}"
+    return err

@@ -225,9 +225,19 @@ non-zero:
    decode step's device time and its weight-read bound; the other four
    dense configs (deepseek_7b, h2o_danube_3_4b, minitron_4b,
    qwen2_vl_2b) at full width and 2 layers, batch 2, prompt 8, gen 4,
-   each held to the same rule; the five reduced configs at float32 (TF32
-   off) on the card against the CPU on the same converted weights within
-   16 float32 ulps of the scale, greedy tokens equal, h2o's ring buffer
+   each held to the same rule; grok-1 and deepseek-v3 (MoE, MLA) at
+   full width and 4 layers (deepseek-v3's three dense prefix layers and
+   one MoE layer), batch 4, prompt 16, gen 16 through ``serve.load`` +
+   ``serve.generate``, each built, run and freed in turn: the prefill
+   against a ``forward`` whose capacity drops nothing (capacity factor
+   E / K), held per row up to its first token the two runs route to
+   other experts (a near-tie of the router), prefill s, ms a token,
+   tokens/s, peak memory, a decode step's device time and two
+   weight-read bounds (the experts routed to; every expert, as the
+   capacity formulation reads them); the seven reduced configs at
+   float32 (TF32 off) on the card against the CPU on the same converted
+   weights within 16 float32 ulps of the scale (forward, MoE aux,
+   prefill, GQA and MLA caches), greedy tokens equal, h2o's ring buffer
    wrapping;
 6. profile -- device busy time and idle share of one AS iteration at
    n = 1002, and the kernels that take most of it; the split of one MMAS
@@ -4132,25 +4142,82 @@ LM_BF16_ULPS = 16
 LM_F32_ULPS = 16
 
 
-def _ulps_of_scale(want, got, bits: int) -> float:
-    """max |want - got| in ulps (``bits`` mantissa bits) of max |want|."""
+def _ulps_of_scale(want, got, bits: int, scale=None) -> float:
+    """max |want - got| in ulps (``bits`` mantissa bits) of max |want|
+    (or of ``scale``)."""
     import torch
     a, b = want.detach().float().cpu(), got.detach().float().cpu()
-    scale = float(a.abs().max())
+    scale = float(a.abs().max() if scale is None else scale)
     return float((a - b).abs().max()) / 2.0 ** (
         torch.floor(torch.log2(torch.tensor(scale))).item() - bits)
 
 
+LM_MOE = ("grok_1_314b", "deepseek_v3_671b")
+# a routing difference between two runs is a near-tie when the router's
+# log-probability gap between its k-th and (k+1)-th expert is under this
+LM_ROUTER_TIE = 1.0 / 16
+
+
+def _lm_routing_split(fwd, steps, cfg, b: int, s: int):
+    """Where the step loop (``steps``: one record a MoE layer and step)
+    first routes a token of each row to other experts than ``forward``
+    (``fwd``: one record a layer) -> (B,) that position (S if none), and
+    the largest log-probability gap between the k-th and (k+1)-th expert
+    of the step loop's router at those first tokens (past one, a row's
+    hidden states differ by more than rounding)."""
+    import torch
+    first = torch.full((b,), s, dtype=torch.long)
+    gap = 0.0
+    for t in range(s):
+        for li, (_, idx_f) in enumerate(fwd):
+            probs, idx_s = steps[t * len(fwd) + li]
+            differ = (torch.sort(idx_f[:, t], -1).values
+                      != torch.sort(idx_s[:, 0], -1).values).any(-1).cpu()
+            new = differ & (first == s)
+            if new.any():
+                top = torch.topk(probs[:, 0].float(), cfg.top_k + 1,
+                                 -1).values.log()
+                gap = max(gap, float((top[:, -2] - top[:, -1]).cpu()[new]
+                                     .max()))
+                first[new] = t
+    return first, gap
+
+
 def _lm_prefill_check(label, params, prompts, cfg, gen) -> dict:
     """The step-loop prefill against ``forward`` over the same prompt
-    (bf16, the card against itself); the report of ``generate``."""
+    (bf16, the card against itself); the report of ``generate``.
+
+    A MoE model's ``forward`` runs with capacity_factor E / K, which
+    makes the capacity the prompt's length: nothing drops there, as
+    nothing drops in a decode step.  Its two runs read hidden states
+    that differ by bf16 roundings (other GEMM shapes), so a router may
+    break a near-tie differently: each row is held up to its first token
+    routed differently (which must be a near-tie, ``LM_ROUTER_TIE``)."""
     import torch
     from repro_torch.launch import serve
-    from repro_torch.models import model
-    pre, _, _ = model.prefill(params, prompts, cfg,
-                              prompts.shape[1] + gen + 1)
-    full, _ = model.forward(params, prompts, cfg)
-    err = _ulps_of_scale(full, pre, 7)
+    from repro_torch.models import model, moe
+    fcfg = (dataclasses.replace(cfg,
+                                capacity_factor=cfg.n_experts / cfg.top_k)
+            if cfg.n_experts else cfg)
+    with moe.recording() as steps:
+        pre, _, _ = model.prefill(params, prompts, cfg,
+                                  prompts.shape[1] + gen + 1)
+    with moe.recording() as fwd:
+        full, aux = model.forward(params, prompts, fcfg)
+    b, s = prompts.shape
+    first, gap = _lm_routing_split(fwd, steps, cfg, b, s)
+    if gap > LM_ROUTER_TIE:
+        raise AssertionError(f"[lm] {label}: prefill and forward route a "
+                             f"token differently off a near-tie (log-prob "
+                             f"gap {gap:.3g} > {LM_ROUTER_TIE})")
+    # one scale for all rows: that of the whole forward
+    scale = full.detach().float().abs().max()
+    err = 0.0
+    for r in range(b):
+        f = int(first[r])
+        if f:
+            err = max(err, _ulps_of_scale(full[r, :f], pre[r, :f], 7,
+                                          scale))
     if not (torch.isfinite(pre).all() and err <= LM_BF16_ULPS):
         raise AssertionError(f"[lm] {label}: prefill {err:.3g} bf16 ulps of "
                              f"the scale from forward (> {LM_BF16_ULPS})")
@@ -4160,11 +4227,16 @@ def _lm_prefill_check(label, params, prompts, cfg, gen) -> dict:
             (toks >= 0) & (toks < cfg.vocab)).all():
         raise AssertionError(f"[lm] {label}: tokens {tuple(toks.shape)} "
                              f"out of shape or range")
-    first = torch.argmax(pre[:, -1], -1).cpu()
-    if not torch.equal(first, toks[:, 0]):
+    first_tok = torch.argmax(pre[:, -1], -1).cpu()
+    if not torch.equal(first_tok, toks[:, 0]):
         raise AssertionError(f"[lm] {label}: the first token is not the "
                              "prefill's argmax")
+    if cfg.n_experts and not (torch.isfinite(aux) and float(aux) > 0):
+        raise AssertionError(f"[lm] {label}: aux loss {float(aux)}")
     rep["prefill_err_ulps"] = err
+    rep["held_positions"] = int(first.sum())
+    rep["positions"] = b * s
+    rep["router_gap"] = gap
     return rep
 
 
@@ -4251,9 +4323,113 @@ def _lm_full_width() -> None:
         torch.cuda.empty_cache()
 
 
+LM_MOE_LAYERS = 4    # of grok-1's 64; of deepseek-v3's 61, its 3 dense + 1
+
+
+def _lm_weight_bytes(params, used_experts) -> tuple[int, int]:
+    """The weight bytes a decode step reads: (with only the experts it
+    routes to, ``used_experts`` a count per MoE layer; with every expert,
+    as the capacity formulation's batched product reads them).  The
+    embedding gives one row a token (counted by the caller), the MTP
+    head does not run."""
+    from repro_torch.models import moe
+    other = experts = active = 0
+    moe_layers = [m for m in params.modules() if isinstance(m, moe.MoE)]
+    for name, p in params.named_parameters():
+        if name == "embed" or name.startswith("mtp."):
+            continue
+        if name.rsplit(".", 1)[-1] in ("wi", "wg", "wo") and ".moe." in name:
+            experts += p.numel() * p.element_size()
+        else:
+            other += p.numel() * p.element_size()
+    for m, used in zip(moe_layers, used_experts):
+        per_expert = sum(getattr(m, w).numel() * getattr(m, w).element_size()
+                         for w in ("wi", "wg", "wo") if hasattr(m, w))
+        active += per_expert // m.wi.shape[0] * used
+    return other + active, other + experts
+
+
+def _lm_moe(smi: str) -> None:
+    """grok-1 and deepseek-v3 at their published widths, depth cut to
+    ``LM_MOE_LAYERS``, through ``serve.load`` + ``serve.generate``; each
+    built, run and freed in turn."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model, moe
+    from repro_torch.launch import serve
+    batch, prompt_len, gen = 4, 16, 16
+    for arch in LM_MOE:
+        published = configs.get(arch)
+        cfg = dataclasses.replace(published, n_layers=LM_MOE_LAYERS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            params, prompts = serve.load(cfg, batch, prompt_len, 0,
+                                         torch.device(DEV))
+            _sync()
+            init_s = time.perf_counter() - t0
+            init_peak = torch.cuda.max_memory_allocated() - base
+            n_params = sum(p.numel() for p in params.parameters())
+            rep = _lm_prefill_check(arch, params, prompts, cfg, gen)
+            caches = model.init_cache(cfg, batch, prompt_len + gen + 1, DEV)
+            tok = prompts[:, :1]
+            step = lambda: model.decode_step(params, tok, caches, cfg)  # noqa
+            with moe.recording() as rec:
+                step()
+            used = [int(torch.unique(idx).numel()) for _, idx in rec]
+            step_ms = cuda_ms(step, reps=5, trials=3)
+            split = device_split(step, reps=5)
+            kv_bytes = sum(v.numel() * v.element_size()
+                           for c in caches["layers"]
+                           for k, v in c["attn"].items() if k != "len")
+        peak = torch.cuda.max_memory_allocated() - base
+        active, every = _lm_weight_bytes(params, used)
+        rows = batch * cfg.d_model * params.embed.element_size()
+        b_active = (active + rows + kv_bytes) / HBM_BYTES_PER_S * 1e3
+        b_every = (every + rows + kv_bytes) / HBM_BYTES_PER_S * 1e3
+        ms = rep["decode_s_per_token"] * 1e3
+        log(f"[lm] {arch} full width, {LM_MOE_LAYERS} of "
+            f"{published.n_layers} layers ({len(cfg.prefix)} dense prefix; "
+            f"d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv}, "
+            f"{cfg.attn_kind}, {cfg.n_experts} experts top-{cfg.top_k}"
+            f"{f' + {cfg.n_shared_experts} shared' if cfg.n_shared_experts else ''}"
+            f", expert ff {cfg.ff_expert}, vocab {cfg.vocab}; "
+            f"{n_params / 1e9:.2f}e9 params, bf16): init {init_s:.2f} s "
+            f"(peak {init_peak / 2**30:.3f} GiB); batch {batch}, prompt "
+            f"{prompt_len}, gen {gen}: prefill {rep['prefill_s']:.4f} s, "
+            f"decode {ms:.3f} ms a token, {rep['throughput_tok_s']:.1f} "
+            f"tokens/s, peak {peak / 2**30:.3f} GiB; prefill vs forward "
+            f"(capacity E/K) {rep['prefill_err_ulps']:.3g} bf16 ulps over "
+            f"{rep['held_positions']} of {rep['positions']} positions "
+            f"(the rest past a router near-tie, log-prob gap <= "
+            f"{rep['router_gap']:.3g})")
+        busy_ms = sum(split.values()) / 1e3
+        log(f"[lm] {arch} decode step: {step_ms:.3f} ms (CUDA events, 5 "
+            f"steps queued), device busy "
+            f"{f'{busy_ms:.3f} ms' if busy_ms else 'not measured'}; "
+            f"weight-read bounds at {HBM_BYTES_PER_S:.3g} B/s: the experts "
+            f"routed to {b_active:.3f} ms ({(active + rows) / 1e9:.3f} GB; "
+            f"{'/'.join(map(str, used))} of {cfg.n_experts} experts a MoE "
+            f"layer), every expert (the capacity formulation's read) "
+            f"{b_every:.3f} ms ({(every + rows) / 1e9:.3f} GB); KV "
+            f"{kv_bytes / 1e6:.2f} MB | {smi}")
+        top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
+        log(f"[lm] {arch} decode step, device us by kernel: " + "; ".join(
+            f"{name[:60]} {us:.1f}" for name, us in top))
+        del params, prompts, caches, rec, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _lm_card_vs_cpu() -> None:
     """The reduced configs at float32 on the card against the CPU, on the
-    same weights carried across by ``convert``."""
+    same weights carried across by ``convert``: the dense five, grok-1
+    (MoE) and deepseek-v3 (MLA's latent cache, a dense prefix layer, MoE
+    with a shared expert)."""
     import torch
     from repro_torch import configs, convert
     from repro_torch.core import sampling
@@ -4263,7 +4439,7 @@ def _lm_card_vs_cpu() -> None:
         raise AssertionError("[lm] TF32 is enabled: the float32 comparison "
                              "needs full float32 matmuls")
     prompt_len, gen = 20, 4      # h2o's window 16: the ring buffer wraps
-    for arch in LM_DENSE:
+    for arch in LM_DENSE + LM_MOE:
         cfg = dataclasses.replace(configs.get_reduced(arch),
                                   param_dtype="float32",
                                   compute_dtype="float32")
@@ -4275,28 +4451,35 @@ def _lm_card_vs_cpu() -> None:
         out = {}
         for dev, params in (("cpu", cpu), (DEV, card)):
             toks = prompts.to(dev)
-            full, _ = model.forward(params, toks, cfg)
+            full, aux = model.forward(params, toks, cfg)
             pre, caches, _ = model.prefill(params, toks, cfg,
                                            prompt_len + gen + 1)
             rep = serve.generate(params, toks, cfg, gen)
-            out[dev] = (full, pre, convert.lm_cache_to_numpy(cfg, caches),
-                        rep["tokens"])
-        (f_c, p_c, c_c, t_c), (f_g, p_g, c_g, t_g) = out["cpu"], out[DEV]
-        errs = [_ulps_of_scale(f_c, f_g, 23), _ulps_of_scale(p_c, p_g, 23)]
-        for want, got in zip(c_c["blocks"], c_g["blocks"]):
-            for leaf in ("k", "v"):
+            out[dev] = (full, aux, pre,
+                        convert.lm_cache_to_numpy(cfg, caches), rep["tokens"])
+        (f_c, a_c, p_c, c_c, t_c), (f_g, a_g, p_g, c_g, t_g) = (out["cpu"],
+                                                                out[DEV])
+        errs = [_ulps_of_scale(f_c, f_g, 23), _ulps_of_scale(p_c, p_g, 23),
+                _ulps_of_scale(a_c, a_g, 23) if cfg.n_experts else 0.0]
+        leaves = set()
+        for want, got in zip(c_c["prefix"] + c_c["blocks"],
+                             c_g["prefix"] + c_g["blocks"]):
+            for leaf in set(want["attn"]) - {"len"}:
+                leaves.add(leaf)
                 errs.append(_ulps_of_scale(
                     torch.from_numpy(want["attn"][leaf]),
                     torch.from_numpy(got["attn"][leaf]), 23))
-        ring = c_c["blocks"][0]["attn"]["k"].shape[2] < prompt_len + gen + 1
+        ring = "k" in leaves and (c_c["blocks"][0]["attn"]["k"].shape[2]
+                                  < prompt_len + gen + 1)
         if max(errs) > LM_F32_ULPS or t_c != t_g:
             raise AssertionError(f"[lm] {arch} reduced f32: card vs CPU "
                                  f"{max(errs):.3g} ulps, tokens "
                                  f"{'equal' if t_c == t_g else 'differ'}")
         log(f"[lm] {arch} reduced f32: card == CPU within "
-            f"{max(errs):.3g} f32 ulps of the scale (forward, prefill, "
-            f"caches{', ring buffer' if ring else ''}), {gen} greedy tokens "
-            f"equal")
+            f"{max(errs):.3g} f32 ulps of the scale (forward, "
+            f"{'aux, ' if cfg.n_experts else ''}prefill, caches "
+            f"{'/'.join(sorted(leaves))}{', ring buffer' if ring else ''}), "
+            f"{gen} greedy tokens equal")
 
 
 def phase_lm(smi: str) -> None:
@@ -4304,6 +4487,7 @@ def phase_lm(smi: str) -> None:
     t0 = time.perf_counter()
     _lm_olmo(smi)
     _lm_full_width()
+    _lm_moe(smi)
     _lm_card_vs_cpu()
     log(f"[lm] phase took {time.perf_counter() - t0:.1f} s")
 

@@ -26,9 +26,11 @@ them back.
 The LM substrate's weights cross as the reference's parameter tree
 (``lm_params_from_numpy`` / ``lm_params_to_numpy``): its ``blocks``
 leaves, stacked over periods, are unstacked into the port's unrolled
-layers and stacked again on the way back.  A bf16 leaf goes through
-float32 and back, which is exact.  ``lm_cache_to_numpy`` gives a decode
-cache back in the reference's layout.
+layers and stacked again on the way back; the MoE (``moe``, its router
+float32), MLA and multi-token-prediction (``mtp``) subtrees cross the same
+way.  A bf16 leaf goes through float32 and back, which is exact.
+``lm_cache_to_numpy`` gives a decode cache back in the reference's
+layout, MLA's latent cache (``ckv``, ``k_rope``) included.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import torch
 
 from . import device as _device
 from .core import aco, islands, quant
+from .models import layers as lm_layers
 from .models import model as lm_model
 from .models.config import ModelConfig
 from .obs import metrics as obs_metrics
@@ -255,13 +258,22 @@ def _flat_items(tree: dict, prefix: str = ""):
             yield prefix + k, v
 
 
+# the top-level keys of the reference's LM tree that the port places
+_LM_KEYS = ("embed", "lm_head", "final_norm", "prefix", "blocks", "mtp")
+
+
 def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
                          device: _device.DeviceLike = None) -> lm_model.Model:
     """The reference's LM parameter tree (NumPy leaves) -> the port's
-    ``Model``: every leaf placed, none left over."""
+    ``Model``: every leaf placed, none left over (KeyError otherwise)."""
+    unknown = sorted(set(tree) - set(_LM_KEYS))
+    if unknown:
+        enc = [k for k in unknown if k.startswith("enc_")]
+        raise KeyError(f"the port places no {unknown}" + (
+            f" (the encoder {enc}: {lm_layers.CROSS_ITEM})" if enc else ""))
     dev = _device.resolve(device)
     flat = {}
-    for key in ("embed", "lm_head", "final_norm"):
+    for key in ("embed", "lm_head", "final_norm", "mtp"):
         if key in tree:
             flat.update(_flat_items({key: tree[key]}))
     for i, layer in enumerate(tree.get("prefix", [])):
@@ -322,12 +334,15 @@ def lm_params_to_numpy(params: lm_model.Model) -> dict:
         tree["prefix"] = [_module_tree(m) for m in params.prefix]
     tree["blocks"] = _stack_periods(
         cfg, [_module_tree(m) for m in params.blocks])
+    if params.mtp is not None:
+        tree["mtp"] = _module_tree(params.mtp)
     return tree
 
 
 def lm_cache_to_numpy(cfg: ModelConfig, caches: dict) -> dict:
     """The port's decode cache -> the reference's layout ({"prefix",
-    "blocks" stacked over periods, "step"}; float32 / int32 NumPy)."""
+    "blocks" stacked over periods, "step"}; float32 / int32 NumPy; GQA's
+    k/v or MLA's ckv/k_rope, whatever each layer holds)."""
     def leaves(c):
         if isinstance(c, dict):
             return {k: leaves(v) for k, v in c.items()}

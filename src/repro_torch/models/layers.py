@@ -1,18 +1,20 @@
-"""Transformer building blocks for the dense decoders, the PyTorch port of
+"""Transformer building blocks, the PyTorch port of
 ``repro.models.layers``: norms, rotary embeddings (RoPE, M-RoPE),
-grouped-query / sliding-window self-attention with a decode cache, dense
+grouped-query / sliding-window self-attention with a decode cache,
+DeepSeek-V3's Multi-head Latent Attention with its latent cache, dense
 MLPs.
 
 Each block's parameters live in a small ``nn.Module`` (``Norm``,
-``Attention``, ``MLP``) under the reference's names (``scale``/``bias``,
-``wq``/``wk``/``wv``/``wo``, ``wi``/``wg``/``wo``); the functions take that
-module where the reference takes its parameter dict.  Norm statistics and
-the softmax run in float32 whatever the compute dtype, and the casts sit
-where the reference's ``astype`` calls sit, since that is where bf16
-results are rounded.
+``Attention``, ``MLAttention``, ``MLP``) under the reference's names
+(``scale``/``bias``, ``wq``/``wk``/``wv``/``wo``, ``wq_a``/``q_norm``/
+``wq_b``/``wkv_a``/``kv_norm``/``wkv_b``/``wo``, ``wi``/``wg``/``wo``); the
+functions take that module where the reference takes its parameter dict.
+Norm statistics and the softmax run in float32 whatever the compute
+dtype, and the casts sit where the reference's ``astype`` calls sit,
+since that is where bf16 results are rounded.
 
-MLA (``mla_attention``) and cross-attention (``attention(kv_src=...)``)
-wait for later slices and raise ``NotImplementedError``.
+Cross-attention (``attention(kv_src=...)``) waits for a later slice and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,8 +27,7 @@ from ..core import floatops
 from .config import ModelConfig
 
 INIT_SCALE = 0.02
-# ROADMAP queue 1, the sub-items of item 18 still to port
-MLA_ITEM = "ROADMAP item 18.2 (MLA)"
+# ROADMAP queue 1, the sub-item of item 18 still to port here
 CROSS_ITEM = "ROADMAP item 18.4 (encoder-decoder)"
 
 
@@ -36,14 +37,16 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 def _normal_init(shape, cfg: ModelConfig, gen: Optional[torch.Generator],
-                 device: torch.device) -> nn.Parameter:
+                 device: torch.device, dtype=None) -> nn.Parameter:
     """The reference's ``_norm_init``: N(0, 1) in float32, cast to the
-    parameter dtype, then scaled by 0.02 in that dtype.  Without a
-    generator the tensor is left uninitialised (``convert`` fills it)."""
+    parameter dtype (or ``dtype``), then scaled by 0.02 in that dtype.
+    Without a generator the tensor is left uninitialised (``convert``
+    fills it)."""
+    dtype = dtype or cfg.pdtype
     if gen is None:
-        return _param(torch.empty(shape, dtype=cfg.pdtype, device=device))
+        return _param(torch.empty(shape, dtype=dtype, device=device))
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return _param(x.to(cfg.pdtype) * INIT_SCALE)
+    return _param(x.to(dtype) * INIT_SCALE)
 
 
 # ----------------------------------------------------------------- norms
@@ -133,8 +136,6 @@ class Attention(nn.Module):
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
-        if cfg.attn_kind == "mla":
-            raise NotImplementedError(f"mla attention: {MLA_ITEM}")
         d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head
         hp = cfg.attn_pad_heads or h
         assert hp >= h
@@ -148,8 +149,40 @@ class Attention(nn.Module):
             self.wo.data[h:, :, :] = 0
 
 
-def init_attention(cfg: ModelConfig, generator=None,
-                   device=None) -> Attention:
+class MLAttention(nn.Module):
+    """MLA projections: ``wq_a`` (d, q_rank), ``q_norm`` (q_rank,),
+    ``wq_b`` (q_rank, H * (nope + rope)), or ``wq`` (d, H * (nope + rope))
+    when ``q_lora_rank`` is 0; ``wkv_a`` (d, kv_rank + rope), ``kv_norm``
+    (kv_rank,), ``wkv_b`` (kv_rank, H * (nope + v)), ``wo`` (H * v, d)."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        if cfg.q_lora_rank:
+            self.wq_a = _normal_init((d, cfg.q_lora_rank), cfg, generator,
+                                     device)
+            self.q_norm = _param(torch.ones(cfg.q_lora_rank,
+                                            dtype=cfg.pdtype, device=device))
+            self.wq_b = _normal_init((cfg.q_lora_rank, h * qk), cfg,
+                                     generator, device)
+        else:
+            self.wq = _normal_init((d, h * qk), cfg, generator, device)
+        self.wkv_a = _normal_init((d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                                  cfg, generator, device)
+        self.kv_norm = _param(torch.ones(cfg.kv_lora_rank, dtype=cfg.pdtype,
+                                         device=device))
+        self.wkv_b = _normal_init(
+            (cfg.kv_lora_rank, h * (cfg.qk_nope_dim + cfg.v_head_dim)), cfg,
+            generator, device)
+        self.wo = _normal_init((h * cfg.v_head_dim, d), cfg, generator,
+                               device)
+
+
+def init_attention(cfg: ModelConfig, generator=None, device=None):
+    """``MLAttention`` when ``cfg.attn_kind`` is "mla", else ``Attention``."""
+    if cfg.attn_kind == "mla":
+        return MLAttention(cfg, generator, device)
     return Attention(cfg, generator, device)
 
 
@@ -209,6 +242,15 @@ def causal_mask(s: int, t: int, offset: int = 0, window: int = 0,
     return m[None, None]
 
 
+def _write_cache(buf: torch.Tensor, new: torch.Tensor,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """``lax.dynamic_update_slice_in_dim(buf, new, idx, 1)``: a new buffer,
+    the start clamped so that the slice fits, as XLA clamps it."""
+    t, s = buf.shape[1], new.shape[1]
+    rows = torch.clamp(idx, 0, t - s) + torch.arange(s, device=buf.device)
+    return buf.index_copy(1, rows, new)
+
+
 def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, cache: Optional[dict] = None,
               kv_src: Optional[torch.Tensor] = None,
@@ -254,11 +296,8 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
             mask = kj >= (t - torch.clamp(cache["len"] + 1, max=t))
         else:
             idx = cache["len"]
-            # XLA's dynamic_update_slice clamps the start so the slice fits
-            rows = torch.clamp(idx, 0, t - s) + torch.arange(s,
-                                                             device=x.device)
-            ck = cache["k"].index_copy(1, rows, k)
-            cv = cache["v"].index_copy(1, rows, v)
+            ck = _write_cache(cache["k"], k, idx)
+            cv = _write_cache(cache["v"], v, idx)
             mask = kj <= idx
             if cfg.window > 0:
                 mask &= kj > idx - cfg.window
@@ -270,9 +309,67 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     return torch.einsum("bshd,hdk->bsk", out, p.wo.to(ct)), new_cache
 
 
-def mla_attention(p, x, cfg: ModelConfig, positions, cache=None):
-    """DeepSeek-V3 Multi-head Latent Attention: not ported yet."""
-    raise NotImplementedError(f"mla_attention: {MLA_ITEM}")
+def mla_attention(p: MLAttention, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor, cache: Optional[dict] = None
+                  ) -> tuple[torch.Tensor, Optional[dict]]:
+    """DeepSeek-V3 Multi-head Latent Attention over the whole sequence
+    (``cache`` None) or decode into the latent cache.
+
+    cache: {"ckv": (B, T, kv_lora_rank), "k_rope": (B, T, 1, qk_rope_dim),
+    "len": 0-d int32}: only the normalised latent and the shared rope key
+    are kept, and ``wkv_b`` decompresses the whole cache each step, as the
+    reference does.  The returned cache is new.
+    """
+    b, s, d = x.shape
+    h = cfg.n_heads
+    ct = cfg.cdtype
+    nope, rdim, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    xc = x.to(ct)
+
+    if cfg.q_lora_rank:
+        ql = _rms(xc @ p.wq_a.to(ct), p.q_norm)
+        q = (ql @ p.wq_b.to(ct)).reshape(b, s, h, nope + rdim)
+    else:
+        q = (xc @ p.wq.to(ct)).reshape(b, s, h, nope + rdim)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv_a = xc @ p.wkv_a.to(ct)                         # (B, S, rank + rdim)
+    ckv = _rms(kv_a[..., :cfg.kv_lora_rank], p.kv_norm)
+    k_rope = apply_rope(kv_a[..., None, cfg.kv_lora_rank:], positions,
+                        cfg.rope_theta)                # (B, S, 1, rdim)
+
+    if cache is not None:
+        idx = cache["len"]
+        ckv = _write_cache(cache["ckv"], ckv, idx)
+        k_rope = _write_cache(cache["k_rope"], k_rope, idx)
+        new_cache = {"ckv": ckv, "k_rope": k_rope, "len": cache["len"] + 1}
+        t = ckv.shape[1]
+        mask = torch.arange(t, device=x.device)[None, None, None, :] <= idx
+    else:
+        new_cache = None
+        t = s
+        mask = causal_mask(s, s, device=x.device) if cfg.causal else None
+
+    kvb = (ckv @ p.wkv_b.to(ct)).reshape(b, t, h, nope + vdim)
+    k_nope, v = kvb[..., :nope], kvb[..., nope:]
+    qf = torch.cat([q_nope, q_rope], -1)
+    kf = torch.cat([k_nope, k_rope.expand(b, t, h, rdim)], -1)
+    logits = torch.einsum("bshd,bthd->bhst", qf, kf).to(torch.float32)
+    logits = logits / floatops.sqrt(floatops.const(nope + rdim, logits))
+    if mask is not None:
+        logits = torch.where(mask, logits, floatops.const(-1e30, logits))
+    probs = torch.softmax(logits, -1).to(v.dtype)
+    out = torch.einsum("bhst,bthd->bshd", probs, v).reshape(b, s, h * vdim)
+    return out @ p.wo.to(ct), new_cache
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """RMS norm in float32 (eps 1e-6, the scale in float32), back in x's
+    dtype."""
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + 1e-6)
+    return (y * scale.to(torch.float32)).to(x.dtype)
 
 
 # ---------------------------------------------------------------- MLPs

@@ -13,6 +13,9 @@ A/B of two commits on one card reads parent, change, change, parent.
 ``python3 chip_smoke.py --edge-stream ROOT [ROOT ...]`` does the same for
 the edge-stream K2: this script's [edge-stream] timing of each checkout's
 package, per call from a CUDA graph, beside ``mul`` + ``index_add_``.
+``python3 chip_smoke.py --lm-decode ROOT [ROOT ...]`` times one bf16
+decode step of OLMo-1B and of grok-1 and deepseek-v3 at four layers on
+each checkout's package (CUDA events and device busy time).
 
 Phases, each printing its own lines; any failure raises and exits
 non-zero:
@@ -234,11 +237,18 @@ non-zero:
    other experts (a near-tie of the router), prefill s, ms a token,
    tokens/s, peak memory, a decode step's device time and two
    weight-read bounds (the experts routed to; every expert, as the
-   capacity formulation reads them); the seven reduced configs at
-   float32 (TF32 off) on the card against the CPU on the same converted
-   weights within 16 float32 ulps of the scale (forward, MoE aux,
-   prefill, GQA and MLA caches), greedy tokens equal, h2o's ring buffer
-   wrapping;
+   capacity formulation reads them); mamba2-1.3b whole (48 Mamba
+   layers), jamba-1.5-large at full width and 4 of 72 layers (the
+   published period's first four: attention + dense MLP, Mamba + MoE,
+   Mamba + dense MLP, Mamba + MoE) and whisper-medium whole (24 encoder
+   + 24 decoder layers, 64 frames a request), the same way, each with a
+   decode step's bytes-read bound that counts the Mamba states read and
+   written and the cross caches, the Mamba prefill held within 32 bf16
+   ulps of its forward (the per-step bf16 state); the ten reduced
+   configs at float32 (TF32 off) on the card against the CPU on the same
+   converted weights within 16 float32 ulps of the scale (jamba's eight
+   layers 64; forward, MoE aux, prefill, GQA, MLA, Mamba and cross
+   caches), greedy tokens equal, h2o's ring buffer wrapping;
 6. profile -- device busy time and idle share of one AS iteration at
    n = 1002, and the kernels that take most of it; the split of one MMAS
    + 2-opt iteration over an int8 store into construction, local search
@@ -4137,9 +4147,19 @@ LM_DENSE = ("olmo_1b", "deepseek_7b", "h2o_danube_3_4b", "minitron_4b",
 # for one row than for 16, so the two round differently and the difference
 # grows over the layers; 16 bf16 ulps of the logit scale is 6% of it
 LM_BF16_ULPS = 16
-# card against CPU at float32 (the CPU tests hold the CPU against the
-# reference within the same)
+# card against CPU at float32, for a config of up to four layers (encoder
+# and decoder; the CPU tests hold the CPU against the reference within the
+# same); each layer past four adds at most LM_F32_ULPS_PER_LAYER: run from
+# the same input on both sides, one layer of jamba's reduced eight sits at
+# most 8 ulps of its scale from the CPU (``_lm_layer_split``)
 LM_F32_ULPS = 16
+LM_F32_ULPS_PER_LAYER = 8
+
+
+def _lm_f32_limit(cfg) -> float:
+    """The card-against-CPU limit at float32 for ``cfg``'s depth."""
+    depth = cfg.n_layers + cfg.n_enc_layers
+    return LM_F32_ULPS + LM_F32_ULPS_PER_LAYER * max(0, depth - 4)
 
 
 def _ulps_of_scale(want, got, bits: int, scale=None) -> float:
@@ -4183,9 +4203,12 @@ def _lm_routing_split(fwd, steps, cfg, b: int, s: int):
     return first, gap
 
 
-def _lm_prefill_check(label, params, prompts, cfg, gen) -> dict:
+def _lm_prefill_check(label, params, prompts, cfg, gen, frames=None,
+                      ulps=None) -> dict:
     """The step-loop prefill against ``forward`` over the same prompt
-    (bf16, the card against itself); the report of ``generate``.
+    (bf16, the card against itself, within ``ulps`` bf16 ulps of the
+    scale, ``LM_BF16_ULPS`` by default; an encoder-decoder encodes
+    ``frames`` first); the report of ``generate``.
 
     A MoE model's ``forward`` runs with capacity_factor E / K, which
     makes the capacity the prompt's length: nothing drops there, as
@@ -4199,11 +4222,13 @@ def _lm_prefill_check(label, params, prompts, cfg, gen) -> dict:
     fcfg = (dataclasses.replace(cfg,
                                 capacity_factor=cfg.n_experts / cfg.top_k)
             if cfg.n_experts else cfg)
+    ulps = LM_BF16_ULPS if ulps is None else ulps
     with moe.recording() as steps:
         pre, _, _ = model.prefill(params, prompts, cfg,
-                                  prompts.shape[1] + gen + 1)
+                                  prompts.shape[1] + gen + 1,
+                                  enc_frames=frames)
     with moe.recording() as fwd:
-        full, aux = model.forward(params, prompts, fcfg)
+        full, aux = model.forward(params, prompts, fcfg, enc_frames=frames)
     b, s = prompts.shape
     first, gap = _lm_routing_split(fwd, steps, cfg, b, s)
     if gap > LM_ROUTER_TIE:
@@ -4218,10 +4243,10 @@ def _lm_prefill_check(label, params, prompts, cfg, gen) -> dict:
         if f:
             err = max(err, _ulps_of_scale(full[r, :f], pre[r, :f], 7,
                                           scale))
-    if not (torch.isfinite(pre).all() and err <= LM_BF16_ULPS):
+    if not (torch.isfinite(pre).all() and err <= ulps):
         raise AssertionError(f"[lm] {label}: prefill {err:.3g} bf16 ulps of "
-                             f"the scale from forward (> {LM_BF16_ULPS})")
-    rep = serve.generate(params, prompts, cfg, gen)
+                             f"the scale from forward (> {ulps:g})")
+    rep = serve.generate(params, prompts, cfg, gen, frames)
     toks = torch.tensor(rep["tokens"])
     if toks.shape != (prompts.shape[0], gen) or not (
             (toks >= 0) & (toks < cfg.vocab)).all():
@@ -4256,8 +4281,8 @@ def _lm_olmo(smi: str) -> None:
                       gen=gen, reduced=False)
     peak = torch.cuda.max_memory_allocated() - base
     with torch.inference_mode():
-        params, prompts = serve.load(cfg, batch, prompt_len, 0,
-                                     torch.device(DEV))
+        params, prompts, _ = serve.load(cfg, batch, prompt_len, 0,
+                                        torch.device(DEV))
         check = _lm_prefill_check("olmo_1b", params, prompts, cfg, gen)
         if check["tokens"] != rep["tokens"]:
             raise AssertionError("[lm] olmo_1b: serve() and the same weights "
@@ -4308,7 +4333,7 @@ def _lm_full_width() -> None:
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         with torch.inference_mode():
-            params, prompts = serve.load(cfg, 2, 8, 0, torch.device(DEV))
+            params, prompts, _ = serve.load(cfg, 2, 8, 0, torch.device(DEV))
             rep = _lm_prefill_check(arch, params, prompts, cfg, 4)
         peak = torch.cuda.max_memory_allocated() - base
         log(f"[lm] {arch} full width, 2 of {configs.get(arch).n_layers} "
@@ -4331,12 +4356,15 @@ def _lm_weight_bytes(params, used_experts) -> tuple[int, int]:
     routes to, ``used_experts`` a count per MoE layer; with every expert,
     as the capacity formulation's batched product reads them).  The
     embedding gives one row a token (counted by the caller), the MTP
-    head does not run."""
+    head and the encoder do not run, and the cross-attention's keys and
+    values come from the cache (``wk``/``wv`` are read once, by
+    ``fill_cross_caches``)."""
     from repro_torch.models import moe
     other = experts = active = 0
     moe_layers = [m for m in params.modules() if isinstance(m, moe.MoE)]
     for name, p in params.named_parameters():
-        if name == "embed" or name.startswith("mtp."):
+        if (name == "embed" or name.startswith(("mtp.", "enc_"))
+                or name.endswith(("xattn.wk", "xattn.wv"))):
             continue
         if name.rsplit(".", 1)[-1] in ("wi", "wg", "wo") and ".moe." in name:
             experts += p.numel() * p.element_size()
@@ -4349,87 +4377,232 @@ def _lm_weight_bytes(params, used_experts) -> tuple[int, int]:
     return other + active, other + experts
 
 
-def _lm_moe(smi: str) -> None:
-    """grok-1 and deepseek-v3 at their published widths, depth cut to
-    ``LM_MOE_LAYERS``, through ``serve.load`` + ``serve.generate``; each
-    built, run and freed in turn."""
+# jamba-1.5-large at full width: the published period's first four
+# positions [attn + dense MLP, mamba + MoE, mamba + dense MLP, mamba + MoE]
+# (the reference's own REDUCED layout), 22.98e9 parameters: one whole
+# period of 8 is 45.1e9, 90.3 GB of bf16, past the card's 80 GB
+LM_JAMBA_LAYERS = 4
+# Mamba prefill against forward on the card at bf16: a decode step rounds
+# the recurrent state to bf16 every step where the chunked forward does
+# not, and the gap grows with depth.  The CPU test's rule (the port within
+# twice the reference's own gap plus one) at mamba2's 48 layers: there the
+# reference's own gap is 12.5 bf16 ulps of the scale, the port's 12.8 (at
+# the reduced configs' depth 1.88 / 2 mamba2, 5 / 5.75 jamba; tests/
+# test_torch_lm_model.py::test_mamba_prefill_gap_is_the_references).  The
+# reduced card == CPU check at float32 holds the Mamba caches themselves.
+LM_SSM_BF16_ULPS = 2 * 12.5 + 1
+
+
+def _lm_cache_bytes(caches) -> dict:
+    """Bytes of a decode cache by part: "attn" (K/V or MLA's latent, read
+    whole a step), "mamba" (conv window and recurrent state, read and
+    written a step: counted twice), "xattn" (the encoder's K/V, read)."""
+    out = {"attn": 0, "mamba": 0, "xattn": 0}
+    for c in caches["layers"]:
+        for part, leaves in c.items():
+            n = sum(v.numel() * v.element_size()
+                    for k, v in leaves.items() if k != "len")
+            out[part] += 2 * n if part == "mamba" else n
+    return out
+
+
+def _lm_serve_model(label, cfg, published, smi, ulps) -> None:
+    """One model at batch 4, prompt 16, gen 16 in bf16 through
+    ``serve.load`` + ``serve.generate`` (random weights from seed 0): its
+    prefill held against ``forward`` (``_lm_prefill_check``: a MoE model
+    per row up to its first token routed differently), init s and peak,
+    prefill s, ms a token, tokens/s and peak memory, one decode step's
+    CUDA-event time and device busy time by kernel beside the bytes the
+    step must read (weights with the experts routed to / every expert, as
+    the capacity formulation reads them; the embedding whole where tied,
+    else a row a token; KV or MLA's latent cache, the cross caches; the
+    Mamba states read and written); then freed."""
     import gc
     import torch
-    from repro_torch import configs
-    from repro_torch.models import model, moe
     from repro_torch.launch import serve
+    from repro_torch.models import model, moe
     batch, prompt_len, gen = 4, 16, 16
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params, prompts, frames = serve.load(cfg, batch, prompt_len, 0,
+                                             torch.device(DEV))
+        _sync()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() - base
+        n_params = sum(p.numel() for p in params.parameters())
+        rep = _lm_prefill_check(label, params, prompts, cfg, gen, frames,
+                                ulps)
+        _, caches, _ = model.prefill(params, prompts, cfg,
+                                     prompt_len + gen + 1,
+                                     enc_frames=frames)
+        tok = prompts[:, :1]
+        step = lambda: model.decode_step(params, tok, caches, cfg)  # noqa
+        with moe.recording() as rec:
+            step()
+        used = [int(torch.unique(idx).numel()) for _, idx in rec]
+        step_ms = cuda_ms(step, reps=5, trials=3)
+        split = device_split(step, reps=5)
+        state = _lm_cache_bytes(caches)
+    peak = torch.cuda.max_memory_allocated() - base
+    active, every = _lm_weight_bytes(params, used)
+    emb = params.embed
+    embed = (emb.numel() if cfg.tie_embeddings else batch * cfg.d_model
+             ) * emb.element_size()
+    state_b = sum(state.values())
+    b_active = (active + embed + state_b) / HBM_BYTES_PER_S * 1e3
+    b_every = (every + embed + state_b) / HBM_BYTES_PER_S * 1e3
+    busy_ms = sum(split.values()) / 1e3
+    kinds = "".join(("A" if sp.kind == "attn" else "M")
+                    + ("e" if sp.moe else "") for sp in cfg.layer_specs())
+    shape = [f"d {cfg.d_model}"]
+    if "M" in kinds:
+        shape.append(f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads x "
+                     f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+                     f"{cfg.ssm_chunk}")
+    if "A" in kinds:
+        shape.append(f"{cfg.attn_kind} heads {cfg.n_heads}/{cfg.n_kv} x "
+                     f"{cfg.d_head}")
+    if cfg.n_experts:
+        shape.append(
+            f"{cfg.n_experts} experts top-{cfg.top_k}"
+            f"{f' + {cfg.n_shared_experts} shared' if cfg.n_shared_experts else ''}"
+            f", ff {cfg.ff_expert}, dense ff {cfg.d_ff}"
+            f"{f', {len(cfg.prefix)} dense prefix' if cfg.prefix else ''}")
+    enc = (f" + {cfg.n_enc_layers} encoder layers, {frames.shape[1]} "
+           f"frames a request" if cfg.enc_dec else "")
+    ties = (f" (the rest past a router near-tie, log-prob gap <= "
+            f"{rep['router_gap']:.3g})" if cfg.n_experts else "")
+    log(f"[lm] {label} full width, {cfg.n_layers} of {published.n_layers} "
+        f"layers{enc} ({kinds}; {', '.join(shape)}, vocab {cfg.vocab}; "
+        f"{n_params / 1e9:.3f}e9 params, bf16): init {init_s:.2f} s (peak "
+        f"{init_peak / 2**30:.3f} GiB); batch {batch}, prompt {prompt_len}, "
+        f"gen {gen}: prefill {rep['prefill_s']:.4f} s, decode "
+        f"{rep['decode_s_per_token'] * 1e3:.3f} ms a token, "
+        f"{rep['throughput_tok_s']:.1f} tokens/s, peak {peak / 2**30:.3f} "
+        f"GiB; prefill vs forward{' (capacity E/K)' if cfg.n_experts else ''}"
+        f" {rep['prefill_err_ulps']:.3g} bf16 ulps of the scale (<= {ulps:g}) "
+        f"over {rep['held_positions']} of {rep['positions']} positions"
+        f"{ties}")
+    busy = (f"{busy_ms:.3f} ms, idle {1 - busy_ms / step_ms:.3f}"
+            if busy_ms else "not measured")
+    experts = (f" with the experts routed to ({'/'.join(map(str, used))} "
+               f"of {cfg.n_experts} a MoE layer), every expert "
+               f"{b_every:.3f} ms" if used else "")
+    log(f"[lm] {label} decode step: {step_ms:.3f} ms (CUDA events, 5 steps "
+        f"queued), device busy {busy}; bytes-read bound at "
+        f"{HBM_BYTES_PER_S:.3g} B/s {b_active:.3f} ms ({(active + embed) / 1e9:.3f} "
+        f"GB weights{experts}; Mamba states {state['mamba'] / 1e6:.2f} MB "
+        f"read + written, KV {state['attn'] / 1e6:.2f} MB, cross KV "
+        f"{state['xattn'] / 1e6:.2f} MB) | {smi}")
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[lm] {label} decode step, device us by kernel: " + "; ".join(
+        f"{name[:60]} {us:.1f}" for name, us in top))
+    del params, prompts, frames, caches, rec, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_moe(smi: str) -> None:
+    """grok-1 and deepseek-v3 at their published widths, depth cut to
+    ``LM_MOE_LAYERS`` (``_lm_serve_model``)."""
+    from repro_torch import configs
     for arch in LM_MOE:
         published = configs.get(arch)
         cfg = dataclasses.replace(published, n_layers=LM_MOE_LAYERS)
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            params, prompts = serve.load(cfg, batch, prompt_len, 0,
-                                         torch.device(DEV))
-            _sync()
-            init_s = time.perf_counter() - t0
-            init_peak = torch.cuda.max_memory_allocated() - base
-            n_params = sum(p.numel() for p in params.parameters())
-            rep = _lm_prefill_check(arch, params, prompts, cfg, gen)
-            caches = model.init_cache(cfg, batch, prompt_len + gen + 1, DEV)
-            tok = prompts[:, :1]
-            step = lambda: model.decode_step(params, tok, caches, cfg)  # noqa
-            with moe.recording() as rec:
-                step()
-            used = [int(torch.unique(idx).numel()) for _, idx in rec]
-            step_ms = cuda_ms(step, reps=5, trials=3)
-            split = device_split(step, reps=5)
-            kv_bytes = sum(v.numel() * v.element_size()
-                           for c in caches["layers"]
-                           for k, v in c["attn"].items() if k != "len")
-        peak = torch.cuda.max_memory_allocated() - base
-        active, every = _lm_weight_bytes(params, used)
-        rows = batch * cfg.d_model * params.embed.element_size()
-        b_active = (active + rows + kv_bytes) / HBM_BYTES_PER_S * 1e3
-        b_every = (every + rows + kv_bytes) / HBM_BYTES_PER_S * 1e3
-        ms = rep["decode_s_per_token"] * 1e3
-        log(f"[lm] {arch} full width, {LM_MOE_LAYERS} of "
-            f"{published.n_layers} layers ({len(cfg.prefix)} dense prefix; "
-            f"d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv}, "
-            f"{cfg.attn_kind}, {cfg.n_experts} experts top-{cfg.top_k}"
-            f"{f' + {cfg.n_shared_experts} shared' if cfg.n_shared_experts else ''}"
-            f", expert ff {cfg.ff_expert}, vocab {cfg.vocab}; "
-            f"{n_params / 1e9:.2f}e9 params, bf16): init {init_s:.2f} s "
-            f"(peak {init_peak / 2**30:.3f} GiB); batch {batch}, prompt "
-            f"{prompt_len}, gen {gen}: prefill {rep['prefill_s']:.4f} s, "
-            f"decode {ms:.3f} ms a token, {rep['throughput_tok_s']:.1f} "
-            f"tokens/s, peak {peak / 2**30:.3f} GiB; prefill vs forward "
-            f"(capacity E/K) {rep['prefill_err_ulps']:.3g} bf16 ulps over "
-            f"{rep['held_positions']} of {rep['positions']} positions "
-            f"(the rest past a router near-tie, log-prob gap <= "
-            f"{rep['router_gap']:.3g})")
-        busy_ms = sum(split.values()) / 1e3
-        log(f"[lm] {arch} decode step: {step_ms:.3f} ms (CUDA events, 5 "
-            f"steps queued), device busy "
-            f"{f'{busy_ms:.3f} ms' if busy_ms else 'not measured'}; "
-            f"weight-read bounds at {HBM_BYTES_PER_S:.3g} B/s: the experts "
-            f"routed to {b_active:.3f} ms ({(active + rows) / 1e9:.3f} GB; "
-            f"{'/'.join(map(str, used))} of {cfg.n_experts} experts a MoE "
-            f"layer), every expert (the capacity formulation's read) "
-            f"{b_every:.3f} ms ({(every + rows) / 1e9:.3f} GB); KV "
-            f"{kv_bytes / 1e6:.2f} MB | {smi}")
-        top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
-        log(f"[lm] {arch} decode step, device us by kernel: " + "; ".join(
-            f"{name[:60]} {us:.1f}" for name, us in top))
-        del params, prompts, caches, rec, step
-        gc.collect()
-        torch.cuda.empty_cache()
+        _lm_serve_model(arch, cfg, published, smi, LM_BF16_ULPS)
+
+
+def _lm_ssm(smi: str) -> None:
+    """mamba2-1.3b whole (48 Mamba layers) and jamba-1.5-large at full
+    width, depth cut to ``LM_JAMBA_LAYERS`` of 72, each built, run and
+    freed in turn (``_lm_serve_model``)."""
+    from repro_torch import configs
+    mamba2 = configs.get("mamba2_1_3b")
+    _lm_serve_model("mamba2_1_3b", mamba2, mamba2, smi, LM_SSM_BF16_ULPS)
+    jamba = configs.get("jamba_1_5_large_398b")
+    cut = dataclasses.replace(jamba, n_layers=LM_JAMBA_LAYERS,
+                              period=jamba.period[:LM_JAMBA_LAYERS])
+    _lm_serve_model("jamba_1_5_large_398b", cut, jamba, smi,
+                    LM_SSM_BF16_ULPS)
+
+
+def _lm_encdec(smi: str) -> None:
+    """whisper-medium whole (24 encoder + 24 decoder layers, 64 frames of
+    the reference's normal draw a request; ``_lm_serve_model``)."""
+    from repro_torch import configs
+    whisper = configs.get("whisper_medium")
+    _lm_serve_model("whisper_medium", whisper, whisper, smi, LM_BF16_ULPS)
+
+
+LM_SSM_ENCDEC = ("mamba2_1_3b", "jamba_1_5_large_398b", "whisper_medium")
+
+
+def _lm_layer_split(cfg, cpu, card, prompts) -> None:
+    """Where a model's card-against-CPU distance at float32 comes from:
+    each layer run on both sides from the CPU's own input (f32 ulps of
+    each output's own scale): for a Mamba layer its ``in_proj`` product,
+    the SSD scan (``_ssd_chunked`` on the CPU's inputs), the whole mixer,
+    then the MLP or MoE sublayer and the layer; and the distance of the
+    two sides each fed its own previous layer (the chain)."""
+    import torch
+    from repro_torch.models import layers, model, ssm
+    pos = layers.positions_like(prompts)
+    x = model._embed(cpu, prompts, cfg, pos)
+    x_chain = model._embed(card, prompts.to(DEV), cfg, pos.to(DEV))
+    u = lambda a, b: _ulps_of_scale(a, b, 23)  # noqa: E731
+    on_card = lambda t: t.to(DEV) if torch.is_tensor(t) else t  # noqa
+    parts = []
+    for i, (lc, lg) in enumerate(zip(cpu.all_layers(), card.all_layers())):
+        scans = []
+        ssd = ssm._ssd_chunked
+
+        def record(*args):
+            scans.append(args)
+            return ssd(*args)
+        ssm._ssd_chunked = record
+        try:
+            y, _, _ = lc(x, cfg, pos)
+        finally:
+            ssm._ssd_chunked = ssd
+        xg, pg = x.to(DEV), pos.to(DEV)
+        got = [f"L{i} {lc.spec.kind}"]
+        h = layers.apply_norm(lc.ln1, x, cfg)
+        hg = h.to(DEV)
+        if lc.spec.kind == "mamba":
+            mc, mg = lc.mamba, lg.mamba
+            got.append(f"in_proj {u(h @ mc.in_proj, hg @ mg.in_proj):.3g}")
+            scan = scans[0]
+            err = u(ssd(*scan)[0], ssd(*map(on_card, scan))[0])
+            got.append(f"ssd {err:.3g}")
+            mix = (ssm.mamba_forward(mc, h, cfg)[0],
+                   ssm.mamba_forward(mg, hg, cfg)[0])
+        else:
+            mix = (layers.attention(lc.attn, h, cfg, pos)[0],
+                   layers.attention(lg.attn, hg, cfg, pg)[0])
+        got.append(f"mixer {u(*mix):.3g}")
+        x_chain = lg(x_chain, cfg, pg)[0]
+        one = u(y, lg(xg, cfg, pg)[0])
+        got.append(f"layer{' (MoE)' if lc.spec.moe else ''} {one:.3g}, "
+                   f"chain {u(y, x_chain):.3g}")
+        parts.append(got[0] + " " + ", ".join(got[1:]))
+        x = y
+    log(f"[lm] {cfg.name} f32 card vs CPU by layer, each fed the "
+        f"CPU's input (f32 ulps of each output's scale): "
+        + "; ".join(parts))
 
 
 def _lm_card_vs_cpu() -> None:
     """The reduced configs at float32 on the card against the CPU, on the
     same weights carried across by ``convert``: the dense five, grok-1
-    (MoE) and deepseek-v3 (MLA's latent cache, a dense prefix layer, MoE
-    with a shared expert)."""
+    (MoE), deepseek-v3 (MLA's latent cache, a dense prefix layer, MoE
+    with a shared expert), mamba2 and jamba (Mamba's conv and state
+    caches) and whisper (the encoder, the cross caches), each within
+    ``_lm_f32_limit`` of its depth; a Mamba config's distance also layer
+    by layer (``_lm_layer_split``)."""
     import torch
     from repro_torch import configs, convert
     from repro_torch.core import sampling
@@ -4439,44 +4612,54 @@ def _lm_card_vs_cpu() -> None:
         raise AssertionError("[lm] TF32 is enabled: the float32 comparison "
                              "needs full float32 matmuls")
     prompt_len, gen = 20, 4      # h2o's window 16: the ring buffer wraps
-    for arch in LM_DENSE + LM_MOE:
+    for arch in LM_DENSE + LM_MOE + LM_SSM_ENCDEC:
         cfg = dataclasses.replace(configs.get_reduced(arch),
                                   param_dtype="float32",
                                   compute_dtype="float32")
         cpu = model.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
         card = convert.lm_params_from_numpy(
             cfg, convert.lm_params_to_numpy(cpu), DEV)
-        prompts = sampling.randint(sampling.prng_key(4), (2, prompt_len), 0,
-                                   cfg.vocab)
+        key = sampling.prng_key(4)
+        prompts = sampling.randint(key, (2, prompt_len), 0, cfg.vocab)
+        frames = (sampling.normal(sampling.fold_in(key, 1),
+                                  (2, serve.ENC_FRAMES, cfg.d_model))
+                  if cfg.enc_dec else None)
         out = {}
         for dev, params in (("cpu", cpu), (DEV, card)):
             toks = prompts.to(dev)
-            full, aux = model.forward(params, toks, cfg)
+            fr = None if frames is None else frames.to(dev)
+            full, aux = model.forward(params, toks, cfg, enc_frames=fr)
             pre, caches, _ = model.prefill(params, toks, cfg,
-                                           prompt_len + gen + 1)
-            rep = serve.generate(params, toks, cfg, gen)
+                                           prompt_len + gen + 1,
+                                           enc_frames=fr)
+            rep = serve.generate(params, toks, cfg, gen, fr)
             out[dev] = (full, aux, pre,
                         convert.lm_cache_to_numpy(cfg, caches), rep["tokens"])
         (f_c, a_c, p_c, c_c, t_c), (f_g, a_g, p_g, c_g, t_g) = (out["cpu"],
                                                                 out[DEV])
+        if any(sp.kind == "mamba" for sp in cfg.layer_specs()):
+            with torch.inference_mode():
+                _lm_layer_split(cfg, cpu, card, prompts)
         errs = [_ulps_of_scale(f_c, f_g, 23), _ulps_of_scale(p_c, p_g, 23),
                 _ulps_of_scale(a_c, a_g, 23) if cfg.n_experts else 0.0]
         leaves = set()
         for want, got in zip(c_c["prefix"] + c_c["blocks"],
                              c_g["prefix"] + c_g["blocks"]):
-            for leaf in set(want["attn"]) - {"len"}:
-                leaves.add(leaf)
-                errs.append(_ulps_of_scale(
-                    torch.from_numpy(want["attn"][leaf]),
-                    torch.from_numpy(got["attn"][leaf]), 23))
-        ring = "k" in leaves and (c_c["blocks"][0]["attn"]["k"].shape[2]
-                                  < prompt_len + gen + 1)
-        if max(errs) > LM_F32_ULPS or t_c != t_g:
+            for part in want:
+                for leaf in set(want[part]) - {"len"}:
+                    leaves.add(f"{part}.{leaf}")
+                    errs.append(_ulps_of_scale(
+                        torch.from_numpy(want[part][leaf]),
+                        torch.from_numpy(got[part][leaf]), 23))
+        attn0 = c_c["blocks"][0].get("attn", {})
+        ring = "k" in attn0 and attn0["k"].shape[2] < prompt_len + gen + 1
+        limit = _lm_f32_limit(cfg)
+        if max(errs) > limit or t_c != t_g:
             raise AssertionError(f"[lm] {arch} reduced f32: card vs CPU "
-                                 f"{max(errs):.3g} ulps, tokens "
+                                 f"{max(errs):.3g} ulps (> {limit}?), tokens "
                                  f"{'equal' if t_c == t_g else 'differ'}")
         log(f"[lm] {arch} reduced f32: card == CPU within "
-            f"{max(errs):.3g} f32 ulps of the scale (forward, "
+            f"{max(errs):.3g} f32 ulps of the scale (<= {limit}; forward, "
             f"{'aux, ' if cfg.n_experts else ''}prefill, caches "
             f"{'/'.join(sorted(leaves))}{', ring buffer' if ring else ''}), "
             f"{gen} greedy tokens equal")
@@ -4488,6 +4671,8 @@ def phase_lm(smi: str) -> None:
     _lm_olmo(smi)
     _lm_full_width()
     _lm_moe(smi)
+    _lm_ssm(smi)
+    _lm_encdec(smi)
     _lm_card_vs_cpu()
     log(f"[lm] phase took {time.perf_counter() - t0:.1f} s")
 
@@ -4802,12 +4987,69 @@ def edge_stream(roots) -> int:
     return 0
 
 
+def phase_lm_decode() -> None:
+    """One bf16 decode step (batch 4, after a 16-token prefill) of
+    OLMo-1B whole and of grok-1 and deepseek-v3 at ``LM_MOE_LAYERS``
+    layers, from the ``repro_torch`` first on ``sys.path``: CUDA-event
+    time and device busy time, each model built and freed in turn."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    smi = _smi("name,power.limit")
+    for arch, depth in (("olmo_1b", None), ("grok_1_314b", LM_MOE_LAYERS),
+                        ("deepseek_v3_671b", LM_MOE_LAYERS)):
+        published = configs.get(arch)
+        cfg = (published if depth is None
+               else dataclasses.replace(published, n_layers=depth))
+        with torch.inference_mode():
+            params, prompts = serve.load(cfg, 4, 16, 0,
+                                         torch.device(DEV))[:2]
+            _, caches, _ = model.prefill(params, prompts, cfg, 33)
+            tok = prompts[:, :1]
+            step = lambda: model.decode_step(params, tok, caches, cfg)  # noqa
+            step_ms = cuda_ms(step, reps=5, trials=3)
+            busy_ms = sum(device_split(step, reps=5).values()) / 1e3
+        log(f"[lm-decode] {arch} {cfg.n_layers} of {published.n_layers} "
+            f"layers, bf16, batch 4, a cache of 16: decode step "
+            f"{step_ms:.3f} ms (CUDA events, 5 steps queued), device busy "
+            f"{busy_ms:.3f} ms | {smi}")
+        del params, prompts, caches, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+_LM_DECODE = """
+import importlib.util, os, sys
+root = os.path.abspath(sys.argv[1])
+sys.path.insert(0, os.path.join(root, "src"))
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[2])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+smoke.phase_lm_decode()
+"""
+
+
+def lm_decode(roots) -> int:
+    """This script's ``phase_lm_decode`` on each checkout in ``roots``,
+    each in its own process (its own ``repro_torch``)."""
+    for root in roots:
+        log(f"[lm-decode] {os.path.abspath(root)}")
+        subprocess.run([sys.executable, "-c", _LM_DECODE,
+                        os.path.abspath(root), os.path.abspath(__file__)],
+                       check=True, cwd=root, timeout=600)
+    return 0
+
+
 def main() -> int:
     import torch   # noqa: F401  (fails here when torch is absent)
     if sys.argv[1:2] == ["--solo"]:
         return solo(sys.argv[2:])
     if sys.argv[1:2] == ["--edge-stream"]:
         return edge_stream(sys.argv[2:])
+    if sys.argv[1:2] == ["--lm-decode"]:
+        return lm_decode(sys.argv[2:])
     root = os.path.dirname(os.path.abspath(__file__))
     smi = phase_device()
     sys.path.insert(0, os.path.join(root, "src"))

@@ -26,11 +26,16 @@ them back.
 The LM substrate's weights cross as the reference's parameter tree
 (``lm_params_from_numpy`` / ``lm_params_to_numpy``): its ``blocks``
 leaves, stacked over periods, are unstacked into the port's unrolled
-layers and stacked again on the way back; the MoE (``moe``, its router
-float32), MLA and multi-token-prediction (``mtp``) subtrees cross the same
-way.  A bf16 leaf goes through float32 and back, which is exact.
-``lm_cache_to_numpy`` gives a decode cache back in the reference's
-layout, MLA's latent cache (``ckv``, ``k_rope``) included.
+layers and stacked again on the way back, and an encoder-decoder's
+``enc_blocks`` (stacked over its ``n_enc_layers``) the same way, beside
+its ``enc_in_proj`` and ``enc_final_norm``; the MoE (``moe``, its router
+float32), MLA, Mamba (``mamba``, its ``A_log``/``D``/``dt_bias``
+float32), cross-attention (``xattn``) and multi-token-prediction
+(``mtp``) subtrees cross the same way.  A bf16 leaf goes through float32
+and back, which is exact.  ``lm_cache_to_numpy`` gives a decode cache
+back in the reference's layout, whatever each layer holds: GQA's or
+MLA's (``ckv``, ``k_rope``) attention cache, Mamba's ``conv``/``h``, the
+cross-attention's ``xattn`` k/v.
 """
 from __future__ import annotations
 
@@ -41,7 +46,6 @@ import torch
 
 from . import device as _device
 from .core import aco, islands, quant
-from .models import layers as lm_layers
 from .models import model as lm_model
 from .models.config import ModelConfig
 from .obs import metrics as obs_metrics
@@ -258,22 +262,26 @@ def _flat_items(tree: dict, prefix: str = ""):
             yield prefix + k, v
 
 
-# the top-level keys of the reference's LM tree that the port places
+# the top-level keys of the reference's LM tree that the port places; an
+# encoder-decoder config adds its encoder's
 _LM_KEYS = ("embed", "lm_head", "final_norm", "prefix", "blocks", "mtp")
+_ENC_KEYS = ("enc_in_proj", "enc_final_norm", "enc_blocks")
 
 
 def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
                          device: _device.DeviceLike = None) -> lm_model.Model:
     """The reference's LM parameter tree (NumPy leaves) -> the port's
     ``Model``: every leaf placed, none left over (KeyError otherwise)."""
-    unknown = sorted(set(tree) - set(_LM_KEYS))
+    known = _LM_KEYS + (_ENC_KEYS if cfg.enc_dec else ())
+    unknown = sorted(set(tree) - set(known))
     if unknown:
-        enc = [k for k in unknown if k.startswith("enc_")]
+        enc = [k for k in unknown if k in _ENC_KEYS]
         raise KeyError(f"the port places no {unknown}" + (
-            f" (the encoder {enc}: {lm_layers.CROSS_ITEM})" if enc else ""))
+            f" ({cfg.name} has no encoder)" if enc else ""))
     dev = _device.resolve(device)
     flat = {}
-    for key in ("embed", "lm_head", "final_norm", "mtp"):
+    for key in ("embed", "lm_head", "final_norm", "mtp", "enc_in_proj",
+                "enc_final_norm"):
         if key in tree:
             flat.update(_flat_items({key: tree[key]}))
     for i, layer in enumerate(tree.get("prefix", [])):
@@ -283,6 +291,9 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
         for name, leaf in _flat_items(pos):
             for r in range(cfg.n_periods):
                 flat[f"blocks.{r * period + j}.{name}"] = np.asarray(leaf)[r]
+    for name, leaf in _flat_items(tree.get("enc_blocks", {})):
+        for i, one in enumerate(np.asarray(leaf)):
+            flat[f"enc_blocks.{i}.{name}"] = one
     params = lm_model.Model(cfg, None, dev)
     names = dict(params.named_parameters())
     if set(names) != set(flat):
@@ -309,17 +320,18 @@ def _module_tree(module: torch.nn.Module) -> dict:
     return out
 
 
+def _stack(*xs):
+    """Nested dicts of the same structure -> one, leaves stacked."""
+    if isinstance(xs[0], dict):
+        return {k: _stack(*(x[k] for x in xs)) for k in xs[0]}
+    return np.stack(xs)
+
+
 def _stack_periods(cfg: ModelConfig, per_layer: list) -> list:
     """Unrolled body entries -> the reference's ``blocks``: one entry per
     period position, leaves stacked over periods."""
     period = len(cfg.period)
-
-    def stack(*xs):
-        if isinstance(xs[0], dict):
-            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
-        return np.stack(xs)
-
-    return [stack(*per_layer[j::period]) for j in range(period)]
+    return [_stack(*per_layer[j::period]) for j in range(period)]
 
 
 def lm_params_to_numpy(params: lm_model.Model) -> dict:
@@ -336,13 +348,19 @@ def lm_params_to_numpy(params: lm_model.Model) -> dict:
         cfg, [_module_tree(m) for m in params.blocks])
     if params.mtp is not None:
         tree["mtp"] = _module_tree(params.mtp)
+    if cfg.enc_dec:
+        tree["enc_blocks"] = _stack(*[_module_tree(m)
+                                      for m in params.enc_blocks])
+        tree["enc_final_norm"] = _module_tree(params.enc_final_norm)
+        tree["enc_in_proj"] = _f32_numpy(params.enc_in_proj)
     return tree
 
 
 def lm_cache_to_numpy(cfg: ModelConfig, caches: dict) -> dict:
     """The port's decode cache -> the reference's layout ({"prefix",
-    "blocks" stacked over periods, "step"}; float32 / int32 NumPy; GQA's
-    k/v or MLA's ckv/k_rope, whatever each layer holds)."""
+    "blocks" stacked over periods, "step"}; float32 / int32 NumPy;
+    whatever each layer holds: "attn" (GQA's k/v or MLA's ckv/k_rope,
+    and len), "mamba" (conv, h), "xattn" (k, v))."""
     def leaves(c):
         if isinstance(c, dict):
             return {k: leaves(v) for k, v in c.items()}

@@ -43,6 +43,12 @@ two terms 1, the rest 0) and sums in index order beyond it.
 A traced ``x ** p`` compiles to the C library's ``powf`` on the CPU,
 which is neither PyTorch's vectorised power nor the correctly rounded
 one; ``powf`` calls the same function there.
+
+``jax.lax.erf_inv`` at float32 is XLA's own polynomial (M. Giles'
+single-precision approximation), not PyTorch's ``erfinv``; ``erfinv``
+evaluates the same polynomial, its Horner steps as fused multiply-adds.
+Its ``log1p`` is PyTorch's, which differs from XLA's CPU one by an ulp
+or two on some inputs, so the result is ulp-close, not bitwise.
 """
 from __future__ import annotations
 
@@ -168,12 +174,41 @@ def _libm_powf():
 
 
 def powf(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """``x ** p`` for a float32 ``x`` and a float32 scalar tensor ``p``, as
-    the reference's traced power computes it: on the CPU the C library's
-    ``powf`` element by element (slow, exact to the reference), on CUDA
-    the card's ``pow``."""
+    """``x ** p`` for float32 tensors that broadcast together (a 0-dim
+    ``x`` or ``p`` included), as the reference's traced power computes
+    it: on the CPU the C library's ``powf`` element by element (slow,
+    exact to the reference), on CUDA the card's ``pow``."""
     if x.device.type != "cpu":
         return torch.pow(x, p)
-    out = _libm_powf()(x.numpy(), np.float32(p.item()))
+    shape = torch.broadcast_shapes(x.shape, p.shape)
+    out = _libm_powf()(x.numpy(), p.numpy())
     return torch.from_numpy(np.asarray(out, dtype=np.float32).reshape(
-        tuple(x.shape)))
+        tuple(shape)))
+
+
+# XLA's ErfInv32: Horner coefficients for w < 5 and for w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``jax.lax.erf_inv``: w = -log1p(-x^2), a degree-8
+    polynomial in w - 2.5 (w < 5) or sqrt(w) - 3, times x; +-1 give
+    +-max float."""
+    w = -torch.log1p(-x * x)
+    small = w < const(5.0, x)
+    w = torch.where(small, w - const(2.5, x), sqrt(w) - const(3.0, x))
+
+    def coef(i):
+        return torch.where(small, const(_ERFINV_LT5[i], x),
+                           const(_ERFINV_GE5[i], x))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = torch.addcmul(coef(i), p, w)
+    return torch.where(torch.abs(x) == 1,
+                       x * const(float(np.finfo(np.float32).max), x), p * x)

@@ -23,7 +23,10 @@ lacks most arithmetic):
 ``uniform`` rounds its ``flo * span + minval`` once, as XLA's fused
 multiply-add does.  ``gumbel`` uses ``torch.log``, which differs from
 XLA's CPU ``log`` by an ulp on some inputs: gumbel draws are ulp-close to
-the reference, not bitwise.
+the reference, not bitwise.  ``normal`` is ``jax.random.normal``: the
+same uniform bits over (nextafter(-1, 0), 1), then sqrt(2) times XLA's
+``erf_inv`` polynomial (``floatops.erfinv``); ulp-close for the same
+reason (``torch.log1p``).
 """
 from __future__ import annotations
 
@@ -188,6 +191,13 @@ def gumbel_noise(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 def counter_gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """Width-invariant standard Gumbel draw."""
     return -torch.log(-torch.log(counter_uniform(key, shape, _TINY, 1.0)))
+
+
+def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` at float32 (ulp-close)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return floatops.const(np.sqrt(2.0), u) * floatops.erfinv(u)
 
 
 def randint(key: torch.Tensor, shape: Sequence[int], minval: int,

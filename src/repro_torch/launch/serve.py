@@ -10,15 +10,20 @@ without that flag it raises.  stdout is the reference's JSON report
 
 ``--full`` serves the published configuration instead of the reduced one
 (OLMo-1B at full width and depth takes 2.35 GB of bf16 weights on the
-card).  Weights are random, from ``torch.Generator`` seeded with
-``seed``; the prompts are the reference's own, drawn by the port's
-threefry ``randint`` from key ``seed + 1``.
+card).  Every architecture serves: attention decoders, MoE, MLA, Mamba
+and the Jamba hybrid, and whisper's encoder-decoder.  Weights are
+random, from ``torch.Generator`` seeded with ``seed``; the prompts are
+the reference's own, drawn by the port's threefry ``randint`` from key
+``seed + 1``, and an encoder-decoder's frames (B, 64, d_model), the
+audio frontend's stub, are the reference's ``normal`` draw from that
+key folded with 1 (``sampling.normal``, ulp-close).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,27 +41,39 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+ENC_FRAMES = 64      # the encoder's frames a request (the reference's)
+
+
 def load(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
-         dev: torch.device) -> tuple[model.Model, torch.Tensor]:
-    """Random weights (``torch.Generator`` seeded with ``seed``) and the
-    reference's prompts (B, S) int32, both on ``dev``."""
+         dev: torch.device
+         ) -> tuple[model.Model, torch.Tensor, Optional[torch.Tensor]]:
+    """Random weights (``torch.Generator`` seeded with ``seed``), the
+    reference's prompts (B, S) int32 and, for an encoder-decoder, its
+    encoder frames (B, ``ENC_FRAMES``, d_model) float32 (else None), all
+    on ``dev``."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = model.init_params(cfg, gen, dev)
-    prompts = sampling.randint(sampling.prng_key(seed + 1),
-                               (batch, prompt_len), 0, cfg.vocab)
-    return params, prompts.to(dev)
+    key = sampling.prng_key(seed + 1)
+    prompts = sampling.randint(key, (batch, prompt_len), 0, cfg.vocab)
+    frames = None
+    if cfg.enc_dec:
+        frames = sampling.normal(sampling.fold_in(key, 1),
+                                 (batch, ENC_FRAMES, cfg.d_model)).to(dev)
+    return params, prompts.to(dev), frames
 
 
 def generate(params: model.Model, prompts: torch.Tensor, cfg: ModelConfig,
-             gen: int) -> dict:
-    """Prefill ``prompts`` (the step loop), then ``gen - 1`` greedy decode
-    steps; the report with the (B, gen) tokens.  Times are host clocks
-    around synchronised work."""
+             gen: int, enc_frames: Optional[torch.Tensor] = None) -> dict:
+    """Prefill ``prompts`` (the step loop; an encoder-decoder encodes
+    ``enc_frames`` first), then ``gen - 1`` greedy decode steps; the
+    report with the (B, gen) tokens.  Times are host clocks around
+    synchronised work."""
     dev = prompts.device
     batch, prompt_len = prompts.shape
     max_len = prompt_len + gen + 1
     t0 = time.perf_counter()
-    logits, caches, _ = model.prefill(params, prompts, cfg, max_len)
+    logits, caches, _ = model.prefill(params, prompts, cfg, max_len,
+                                      enc_frames=enc_frames)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -84,8 +101,8 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int,
     dev = _device.resolve(device)
     cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
     with torch.inference_mode():
-        params, prompts = load(cfg, batch, prompt_len, seed, dev)
-        return generate(params, prompts, cfg, gen)
+        params, prompts, frames = load(cfg, batch, prompt_len, seed, dev)
+        return generate(params, prompts, cfg, gen, frames)
 
 
 def main(argv=None) -> None:

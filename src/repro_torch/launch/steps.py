@@ -3,6 +3,8 @@
 item 18.5)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..models import model
@@ -10,11 +12,13 @@ from ..models.config import ModelConfig
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """Full-sequence forward: (params, tokens) -> logits (B, S, V)."""
+    """Full-sequence forward: (params, tokens[, enc_frames]) -> logits
+    (B, S, V)."""
 
-    def prefill_step(params: model.Model, tokens: torch.Tensor
+    def prefill_step(params: model.Model, tokens: torch.Tensor,
+                     enc_frames: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
-        logits, _ = model.forward(params, tokens, cfg)
+        logits, _ = model.forward(params, tokens, cfg, enc_frames=enc_frames)
         return logits
 
     return prefill_step

@@ -1,7 +1,7 @@
-"""The LM substrate's decoders, the PyTorch port of ``repro.models``
-(config, layers with GQA and MLA attention, moe, model; SSM and sharding
-come in later slices)."""
+"""The LM substrate's models, the PyTorch port of ``repro.models``
+(config, layers with GQA, MLA and cross-attention, moe, ssm, model;
+sharding comes in a later slice)."""
 from .config import LayerSpec, ModelConfig
-from . import layers, model, moe
+from . import layers, model, moe, ssm
 
-__all__ = ["LayerSpec", "ModelConfig", "layers", "model", "moe"]
+__all__ = ["LayerSpec", "ModelConfig", "layers", "model", "moe", "ssm"]

@@ -1,8 +1,8 @@
 """Transformer building blocks, the PyTorch port of
 ``repro.models.layers``: norms, rotary embeddings (RoPE, M-RoPE),
 grouped-query / sliding-window self-attention with a decode cache,
-DeepSeek-V3's Multi-head Latent Attention with its latent cache, dense
-MLPs.
+cross-attention over an encoder's output, DeepSeek-V3's Multi-head Latent
+Attention with its latent cache, dense MLPs.
 
 Each block's parameters live in a small ``nn.Module`` (``Norm``,
 ``Attention``, ``MLAttention``, ``MLP``) under the reference's names
@@ -12,9 +12,6 @@ functions take that module where the reference takes its parameter dict.
 Norm statistics and the softmax run in float32 whatever the compute
 dtype, and the casts sit where the reference's ``astype`` calls sit,
 since that is where bf16 results are rounded.
-
-Cross-attention (``attention(kv_src=...)``) waits for a later slice and
-raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,8 +24,6 @@ from ..core import floatops
 from .config import ModelConfig
 
 INIT_SCALE = 0.02
-# ROADMAP queue 1, the sub-item of item 18 still to port here
-CROSS_ITEM = "ROADMAP item 18.4 (encoder-decoder)"
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -47,6 +42,17 @@ def _normal_init(shape, cfg: ModelConfig, gen: Optional[torch.Generator],
         return _param(torch.empty(shape, dtype=dtype, device=device))
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return _param(x.to(dtype) * INIT_SCALE)
+
+
+def _scaled_f32_init(shape, cfg: ModelConfig, gen: Optional[torch.Generator],
+                     device: torch.device) -> nn.Parameter:
+    """N(0, 1) in float32 scaled by 0.02, then cast to the parameter dtype
+    (the reference's embeddings, ``enc_in_proj`` and Mamba projections
+    scale before the cast); uninitialised without a generator."""
+    if gen is None:
+        return _param(torch.empty(shape, dtype=cfg.pdtype, device=device))
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return _param((x * INIT_SCALE).to(cfg.pdtype))
 
 
 # ----------------------------------------------------------------- norms
@@ -120,6 +126,27 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
         torch.tensor(sections, device=x.device))          # (half,)
     ang = positions3.to(torch.float32)[sec_id]            # (half, B, S)
     return _rotate(x, torch.movedim(ang, 0, -1) * freqs)
+
+
+def _inv_timescales(d: int, device=None) -> torch.Tensor:
+    """(d/2,) ``10000 ** (2 dim / d)`` in float32, the reference's traced
+    power (``floatops.powf``)."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)
+    expo = (2 * dim) / floatops.const(d, dim)
+    return floatops.powf(floatops.const(10000.0, expo), expo)
+
+
+def _sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(B, S) positions -> (B, S, d) float32 sinusoidal embeddings: the
+    sines of pos / 10000^(2i/d), then their cosines."""
+    ang = (positions[..., None].to(torch.float32)
+           / _inv_timescales(d, positions.device))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+def _sinusoidal(s: int, d: int, device=None) -> torch.Tensor:
+    """(S, d) float32 sinusoidal embeddings of positions 0 .. S-1."""
+    return _sinusoidal_at(torch.arange(s, device=device)[None], d)[0]
 
 
 def positions_like(tokens: torch.Tensor, offset=0) -> torch.Tensor:
@@ -256,21 +283,41 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
               kv_src: Optional[torch.Tensor] = None,
               is_cross: bool = False) -> tuple[torch.Tensor, Optional[dict]]:
     """Self-attention over the whole sequence (``cache`` None) or decode of
-    the new token(s) into a cache.
+    the new token(s) into a cache; cross-attention over ``kv_src``.
 
     cache: {"k": (B,T,KV,Dh), "v": ..., "len": 0-d int32}; a ring buffer
     of the last ``cfg.window`` keys when T == cfg.window (SWA decode
     state is O(window)), else a linear cache written at ``len``.  The
     returned cache is new; the one passed in is left as it was.
+
+    Cross-attention (``kv_src`` given or ``is_cross``): keys and values
+    are the cache's {"k", "v"} (B, T_enc, KV, Dh) when it holds them,
+    else ``kv_src`` (B, T_enc, d) projected by ``wk``/``wv``; no mask, no
+    rotary embedding; returns that {"k", "v"} as the cache.
     """
-    if kv_src is not None or is_cross:
-        raise NotImplementedError(f"cross-attention: {CROSS_ITEM}")
     b, s, d = x.shape
     hp = p.wq.shape[1]                          # physical (maybe padded) heads
     ct = cfg.cdtype
     hmask = _head_mask(cfg, hp, ct, x.device)
     xc = x.to(ct)
     q = torch.einsum("bsd,dhk->bshk", xc, p.wq.to(ct))
+
+    def project_out(out):
+        if hmask is not None:                   # zero padded heads: exact
+            out = out * hmask[None, None, :, None]
+        return torch.einsum("bshd,hdk->bsk", out, p.wo.to(ct))
+
+    if kv_src is not None or is_cross:
+        if cache is not None and "k" in cache:
+            k, v = cache["k"], cache["v"]
+        else:
+            src = kv_src.to(ct)
+            k = torch.einsum("btd,dhk->bthk", src, p.wk.to(ct))
+            v = torch.einsum("btd,dhk->bthk", src, p.wv.to(ct))
+        out = _sdpa(q, _expand_kv(k, hp, cfg), _expand_kv(v, hp, cfg), None,
+                    cfg.logit_softcap)
+        return project_out(out), {"k": k, "v": v}
+
     k = torch.einsum("bsd,dhk->bshk", xc, p.wk.to(ct))
     v = torch.einsum("bsd,dhk->bshk", xc, p.wv.to(ct))
     if cfg.rope == "rope":
@@ -304,9 +351,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
         new_cache = {"k": ck, "v": cv, "len": cache["len"] + 1}
     out = _sdpa(q, _expand_kv(ck, hp, cfg), _expand_kv(cv, hp, cfg), mask,
                 cfg.logit_softcap)
-    if hmask is not None:                       # zero padded heads: exact
-        out = out * hmask[None, None, :, None]
-    return torch.einsum("bshd,hdk->bsk", out, p.wo.to(ct)), new_cache
+    return project_out(out), new_cache
 
 
 def mla_attention(p: MLAttention, x: torch.Tensor, cfg: ModelConfig,
@@ -391,9 +436,19 @@ def init_mlp(cfg: ModelConfig, d_ff: int, generator=None,
     return MLP(cfg, d_ff, generator, device)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA computes it: ``x * (1 / (1 + exp(-x)))``,
+    each operation rounded in x's dtype (bitwise at bf16 on the CPU;
+    ``torch.nn.functional.silu`` rounds once from float32, and with it
+    the reduced jamba's bf16 greedy tokens leave the reference's).  Five
+    elementwise launches where ``F.silu`` is one: PERF.md's findings
+    have their cost on a decode step."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 def _act(x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "silu":
-        return nn.functional.silu(x)
+        return silu(x)
     if act == "gelu":           # jax.nn.gelu's default is the tanh form
         return nn.functional.gelu(x, approximate="tanh")
     if act == "relu2":          # nemotron/minitron squared relu

@@ -1,22 +1,24 @@
-"""Model assembly for the decoders, the serving half of
-``repro.models.model``: embeddings, the layer stack (dense or MoE MLPs,
-GQA or MLA attention), logits, the decode cache, ``decode_step`` and
-``prefill``.
+"""Model assembly, the serving half of ``repro.models.model``:
+embeddings, the layer stack (GQA or MLA attention, or Mamba; dense or
+MoE MLPs; cross-attention in an encoder-decoder's decoder), the encoder,
+logits, the decode cache, ``decode_step`` and ``prefill``.
 
 The reference stacks the periodic body's parameters over periods and runs
 it under ``lax.scan``, a compile-time idiom of XLA.  Here the body is an
 ``nn.ModuleList`` unrolled in ``cfg.layer_specs()`` order and a Python
 loop runs it; ``convert`` carries the stacked tree across.  Decode caches
-follow the same unrolled layout: a list with one entry per layer.
+follow the same unrolled layout: a list with one entry per layer.  The
+encoder's layers (``enc_blocks``) are unrolled the same way.
 
-A config that needs a family still to port (Mamba, encoder-decoder)
-raises ``NotImplementedError`` naming its ROADMAP item, and so does
-training (``loss_fn``, item 18.5).  deepseek-v3's multi-token-prediction
-head (``Model.mtp``) is built and carried by ``convert``; serving does not
-run it, as the reference's does not.
+Training (``loss_fn``) raises ``NotImplementedError`` naming its ROADMAP
+item, 18.5.  deepseek-v3's multi-token-prediction head (``Model.mtp``) is
+built and carried by ``convert``; serving does not run it, as the
+reference's does not.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -24,45 +26,31 @@ from torch import nn
 
 from .. import device as _device
 from ..core import floatops
-from . import layers, moe
+from . import layers, moe, ssm
 from .config import LayerSpec, ModelConfig
 
-SSM_ITEM = "ROADMAP item 18.3 (Mamba/SSM)"
 TRAIN_ITEM = "ROADMAP item 18.5 (training)"
 
 
-def missing_families(cfg: ModelConfig) -> list[str]:
-    """What ``cfg`` needs that the port does not have yet, each with its
-    ROADMAP item; empty for a decoder of attention layers."""
-    specs = cfg.prefix + cfg.period
-    out = []
-    if any(s.kind == "mamba" for s in specs):
-        out.append(f"Mamba layers: {SSM_ITEM}")
-    if (cfg.enc_dec or any(s.cross_attn for s in specs)
-            or cfg.pos_embed == "sinusoidal"):
-        out.append(f"the encoder, cross-attention and sinusoidal positions: "
-                   f"{layers.CROSS_ITEM}")
-    return out
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    missing = missing_families(cfg)
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name} is not ported yet: it needs " + "; ".join(missing))
-
-
 class Layer(nn.Module):
-    """One decoder layer of ``spec``: ``ln1``, ``attn`` (GQA, or MLA when
-    ``cfg.attn_kind`` is "mla"), then ``ln2`` and ``moe`` for a MoE spec,
-    or ``ln2`` and ``mlp`` of width ``d_ff`` when cfg.d_ff > 0."""
+    """One layer of ``spec``: ``ln1`` and ``attn`` (GQA, or MLA when
+    ``cfg.attn_kind`` is "mla") or ``mamba`` for a Mamba spec; ``ln_x``
+    and ``xattn`` for a cross-attention spec; then ``ln2`` and ``moe`` for
+    a MoE spec, or ``ln2`` and ``mlp`` of width ``d_ff`` when cfg.d_ff >
+    0."""
 
     def __init__(self, spec: LayerSpec, cfg: ModelConfig, d_ff: int,
                  generator=None, device=None):
         super().__init__()
         self.spec = spec
         self.ln1 = layers.init_norm(cfg, cfg.d_model, device)
-        self.attn = layers.init_attention(cfg, generator, device)
+        if spec.kind == "mamba":
+            self.mamba = ssm.init_mamba(cfg, generator, device)
+        else:
+            self.attn = layers.init_attention(cfg, generator, device)
+        if spec.cross_attn:
+            self.ln_x = layers.init_norm(cfg, cfg.d_model, device)
+            self.xattn = layers.init_attention(cfg, generator, device)
         if spec.moe:
             self.ln2 = layers.init_norm(cfg, cfg.d_model, device)
             self.moe = moe.init_moe(cfg, generator, device)
@@ -71,19 +59,38 @@ class Layer(nn.Module):
             self.mlp = layers.init_mlp(cfg, d_ff, generator, device)
 
     def forward(self, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor, cache: Optional[dict] = None
+                positions: torch.Tensor, cache: Optional[dict] = None,
+                enc_out: Optional[torch.Tensor] = None, causal: bool = True
                 ) -> tuple[torch.Tensor, Optional[dict],
                            Optional[torch.Tensor]]:
-        """The reference's ``_apply_layer`` for an attention layer ->
-        (x, new cache or None, the MoE aux loss 0-d float32 or, without
-        MoE, None: the reference's zero)."""
+        """The reference's ``_apply_layer`` -> (x, new cache or None, the
+        MoE aux loss 0-d float32 or, without MoE, None: the reference's
+        zero).  ``enc_out`` is what a cross-attention layer attends to
+        without a cache; ``causal`` False runs the self-attention
+        unmasked (the encoder)."""
         aux = None
+        new_cache = {}
         h = layers.apply_norm(self.ln1, x, cfg)
-        attend = (layers.mla_attention if cfg.attn_kind == "mla"
-                  else layers.attention)
-        out, c = attend(self.attn, h, cfg, positions,
-                        None if cache is None else cache["attn"])
+        if self.spec.kind == "mamba":
+            out, c = ssm.mamba_forward(self.mamba, h, cfg,
+                                       None if cache is None
+                                       else cache["mamba"])
+            new_cache["mamba"] = c
+        else:
+            attend = (layers.mla_attention if cfg.attn_kind == "mla"
+                      else layers.attention)
+            out, c = attend(self.attn, h, cfg if causal else _noncausal(cfg),
+                            positions, None if cache is None
+                            else cache["attn"])
+            new_cache["attn"] = c
         x = x + out
+        if self.spec.cross_attn:
+            hx = layers.apply_norm(self.ln_x, x, cfg)
+            xout, new_cache["xattn"] = layers.attention(
+                self.xattn, hx, cfg, positions,
+                None if cache is None else cache.get("xattn"),
+                kv_src=enc_out, is_cross=True)
+            x = x + xout
         if self.spec.moe:
             h2 = layers.apply_norm(self.ln2, x, cfg)
             mout, aux = moe.moe_layer(self.moe, h2, cfg)
@@ -91,7 +98,12 @@ class Layer(nn.Module):
         elif cfg.d_ff > 0:
             h2 = layers.apply_norm(self.ln2, x, cfg)
             x = x + layers.mlp(self.mlp, h2, cfg)
-        return x, (None if cache is None else {"attn": c}), aux
+        return x, (None if cache is None else new_cache), aux
+
+
+@functools.lru_cache(maxsize=None)
+def _noncausal(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, causal=False)
 
 
 class MTP(nn.Module):
@@ -109,18 +121,21 @@ class MTP(nn.Module):
 class Model(nn.Module):
     """``embed`` (V, d), ``final_norm``, ``lm_head`` (d, V) when untied,
     ``prefix`` (the unrolled leading layers, dense of width
-    ``cfg.ff_dense``), ``blocks`` (the periodic body, unrolled) and
-    ``mtp`` when ``cfg.mtp_depth``."""
+    ``cfg.ff_dense``), ``blocks`` (the periodic body, unrolled), ``mtp``
+    when ``cfg.mtp_depth``, and for an encoder-decoder ``enc_in_proj``
+    (d, d), ``enc_blocks`` (``n_enc_layers`` dense attention layers) and
+    ``enc_final_norm``."""
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         d = cfg.d_model
-        self.embed = _embedding((cfg.vocab, d), cfg, generator, device)
+        self.embed = layers._scaled_f32_init((cfg.vocab, d), cfg, generator,
+                                             device)
         self.final_norm = layers.init_norm(cfg, d, device)
         self.lm_head = (None if cfg.tie_embeddings else
-                        _embedding((d, cfg.vocab), cfg, generator, device))
+                        layers._scaled_f32_init((d, cfg.vocab), cfg,
+                                                generator, device))
         self.prefix = nn.ModuleList(
             Layer(spec, cfg, cfg.ff_dense, generator, device)
             for spec in cfg.prefix)
@@ -128,23 +143,22 @@ class Model(nn.Module):
             Layer(spec, cfg, cfg.d_ff, generator, device)
             for spec in cfg.period * cfg.n_periods)
         self.mtp = MTP(cfg, generator, device) if cfg.mtp_depth else None
+        if cfg.enc_dec:
+            self.enc_blocks = nn.ModuleList(
+                Layer(LayerSpec(), cfg, cfg.d_ff, generator, device)
+                for _ in range(cfg.n_enc_layers))
+            self.enc_final_norm = layers.init_norm(cfg, d, device)
+            self.enc_in_proj = layers._scaled_f32_init((d, d), cfg,
+                                                       generator, device)
 
     def all_layers(self) -> list[Layer]:
         """Every layer in ``cfg.layer_specs()`` order."""
         return list(self.prefix) + list(self.blocks)
 
     def forward(self, tokens: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return forward(self, tokens, self.cfg, positions)[0]
-
-
-def _embedding(shape, cfg: ModelConfig, gen, device) -> nn.Parameter:
-    """(N(0, 1) * 0.02) in float32, then cast to the parameter dtype."""
-    if gen is None:
-        return layers._param(torch.empty(shape, dtype=cfg.pdtype,
-                                         device=device))
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return layers._param((x * layers.INIT_SCALE).to(cfg.pdtype))
+                positions: Optional[torch.Tensor] = None,
+                enc_frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return forward(self, tokens, self.cfg, positions, enc_frames)[0]
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -161,7 +175,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 # ============================================================== forward
 def _run_body(params: Model, x: torch.Tensor, cfg: ModelConfig,
-              positions: torch.Tensor, caches: Optional[list]
+              positions: torch.Tensor, caches: Optional[list],
+              enc_out: Optional[torch.Tensor] = None
               ) -> tuple[torch.Tensor, Optional[list], torch.Tensor]:
     """Every layer in order -> (x, new caches or None, the layers' summed
     aux loss)."""
@@ -169,16 +184,37 @@ def _run_body(params: Model, x: torch.Tensor, cfg: ModelConfig,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(params.all_layers()):
         x, c, aux = layer(x, cfg, positions,
-                          None if caches is None else caches[i])
+                          None if caches is None else caches[i], enc_out)
         new_caches.append(c)
         if aux is not None:
             aux_total = aux_total + aux
     return x, (None if caches is None else new_caches), aux_total
 
 
-def _embed(params: Model, tokens: torch.Tensor,
+def encode(params: Model, frames: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
-    return params.embed[tokens.long()].to(cfg.cdtype)
+    """The encoder of an encoder-decoder model.  frames (B, S_enc, d) from
+    the modality frontend's stub -> (B, S_enc, d) after
+    ``enc_final_norm``: ``enc_in_proj``, sinusoidal positions, then the
+    ``enc_blocks`` (causal only when ``cfg.enc_causal``)."""
+    ct = cfg.cdtype
+    x = frames.to(ct) @ params.enc_in_proj.to(ct)
+    pos = layers.positions_like(frames[..., 0])
+    x = x + layers._sinusoidal(frames.shape[1], cfg.d_model,
+                               frames.device).to(ct)[None]
+    for layer in params.enc_blocks:
+        x, _, _ = layer(x, cfg, pos, causal=cfg.enc_causal)
+    return layers.apply_norm(params.enc_final_norm, x, cfg)
+
+
+def _embed(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
+           positions: torch.Tensor) -> torch.Tensor:
+    """Token embeddings in the compute dtype, plus the sinusoidal ones of
+    ``positions`` where ``cfg.pos_embed`` says so."""
+    x = params.embed[tokens.long()].to(cfg.cdtype)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + layers._sinusoidal_at(positions, cfg.d_model).to(cfg.cdtype)
+    return x
 
 
 def _check_precision(cfg: ModelConfig, dev: torch.device) -> None:
@@ -187,15 +223,21 @@ def _check_precision(cfg: ModelConfig, dev: torch.device) -> None:
 
 
 def forward(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
-            positions: Optional[torch.Tensor] = None
+            positions: Optional[torch.Tensor] = None,
+            enc_frames: Optional[torch.Tensor] = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits (B,S,V), aux loss): the MoE
-    layers' load-balancing losses summed, 0 without MoE layers."""
+    layers' load-balancing losses summed, 0 without MoE layers.  An
+    encoder-decoder model needs its encoder's ``enc_frames``."""
     _check_precision(cfg, tokens.device)
-    x = _embed(params, tokens, cfg)
     if positions is None:
         positions = layers.positions_like(tokens)
-    x, _, aux = _run_body(params, x, cfg, positions, None)
+    x = _embed(params, tokens, cfg, positions)
+    enc_out = None
+    if cfg.enc_dec:
+        assert enc_frames is not None, "enc-dec model needs encoder frames"
+        enc_out = encode(params, enc_frames, cfg)
+    x, _, aux = _run_body(params, x, cfg, positions, None, enc_out)
     h = layers.apply_norm(params.final_norm, x, cfg)
     return _project_logits(params, h, cfg), aux
 
@@ -221,13 +263,16 @@ def _project_logits(params: Model, x: torch.Tensor,
 
 # ============================================================== decode
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: _device.DeviceLike = None) -> dict:
-    """{"layers": one {"attn": ...} per layer in ``cfg.layer_specs()``
-    order, "step": 0-d int32}, in the compute dtype.  GQA: {"k", "v"}
-    (B, T, KV, Dh), T = max_len, or the window when that is shorter (a
-    ring buffer); MLA: the latent {"ckv" (B, max_len, kv_lora_rank),
-    "k_rope" (B, max_len, 1, qk_rope_dim)}; each with "len" 0-d int32."""
-    check_supported(cfg)
+               device: _device.DeviceLike = None, enc_len: int = 0) -> dict:
+    """{"layers": one entry per layer in ``cfg.layer_specs()`` order,
+    "step": 0-d int32}, in the compute dtype.  An attention layer's
+    {"attn": ...}: GQA's {"k", "v"} (B, T, KV, Dh), T = max_len, or the
+    window when that is shorter (a ring buffer); MLA's latent {"ckv" (B,
+    max_len, kv_lora_rank), "k_rope" (B, max_len, 1, qk_rope_dim)}; each
+    with "len" 0-d int32.  A Mamba layer's {"mamba": {"conv", "h"}}
+    (``ssm.init_mamba_cache``).  A cross-attention layer adds {"xattn":
+    {"k", "v"} (B, enc_len, KV, Dh)}, which ``fill_cross_caches``
+    fills."""
     dev = _device.resolve(device)
     t = min(max_len, cfg.window) if cfg.window else max_len
 
@@ -235,26 +280,50 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         return torch.zeros(shape, dtype=cfg.cdtype, device=dev)
 
     def one(spec: LayerSpec) -> dict:
-        if cfg.attn_kind == "mla":
-            c = {"ckv": zeros(batch, max_len, cfg.kv_lora_rank),
-                 "k_rope": zeros(batch, max_len, 1, cfg.qk_rope_dim)}
+        if spec.kind == "mamba":
+            out = {"mamba": ssm.init_mamba_cache(cfg, batch, cfg.cdtype,
+                                                 dev)}
         else:
-            c = {"k": zeros(batch, t, cfg.n_kv, cfg.d_head),
-                 "v": zeros(batch, t, cfg.n_kv, cfg.d_head)}
-        c["len"] = torch.zeros((), dtype=torch.int32, device=dev)
-        return {"attn": c}
+            if cfg.attn_kind == "mla":
+                c = {"ckv": zeros(batch, max_len, cfg.kv_lora_rank),
+                     "k_rope": zeros(batch, max_len, 1, cfg.qk_rope_dim)}
+            else:
+                c = {"k": zeros(batch, t, cfg.n_kv, cfg.d_head),
+                     "v": zeros(batch, t, cfg.n_kv, cfg.d_head)}
+            c["len"] = torch.zeros((), dtype=torch.int32, device=dev)
+            out = {"attn": c}
+        if spec.cross_attn:
+            out["xattn"] = {"k": zeros(batch, enc_len, cfg.n_kv, cfg.d_head),
+                            "v": zeros(batch, enc_len, cfg.n_kv, cfg.d_head)}
+        return out
 
     return {"layers": [one(s) for s in cfg.layer_specs()],
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def fill_cross_caches(params: Model, caches: dict, enc_out: torch.Tensor,
+                      cfg: ModelConfig) -> dict:
+    """The cross-attention layers' keys and values of ``enc_out`` written
+    into ``caches`` (in place, and returned)."""
+    ct = cfg.cdtype
+    enc = enc_out.to(ct)
+    for layer, c in zip(params.all_layers(), caches["layers"]):
+        if layer.spec.cross_attn:
+            c["xattn"] = {
+                "k": torch.einsum("btd,dhk->bthk", enc, layer.xattn.wk.to(ct)),
+                "v": torch.einsum("btd,dhk->bthk", enc,
+                                  layer.xattn.wv.to(ct))}
+    return caches
+
+
 def decode_step(params: Model, token: torch.Tensor, caches: dict,
                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """One decode step. token (B, 1) int32 -> (logits (B, 1, V), new
-    caches); ``caches`` itself is left as it was."""
+    caches); ``caches`` itself is left as it was.  Cross-attention reads
+    its keys and values from the cache (``fill_cross_caches``)."""
     _check_precision(cfg, token.device)
-    x = _embed(params, token, cfg)
     positions = caches["step"].expand(token.shape[0], 1).to(torch.int32)
+    x = _embed(params, token, cfg, positions)
     x, new_layers, _ = _run_body(params, x, cfg, positions,
                                  caches["layers"])
     x = layers.apply_norm(params.final_norm, x, cfg)
@@ -263,14 +332,20 @@ def decode_step(params: Model, token: torch.Tensor, caches: dict,
 
 
 def prefill(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
-            max_len: int) -> tuple[torch.Tensor, dict, None]:
+            max_len: int, enc_frames: Optional[torch.Tensor] = None
+            ) -> tuple[torch.Tensor, dict, Optional[torch.Tensor]]:
     """Run the prompt through the decoder step by step to build a cache,
-    as the reference does -> (logits (B, S, V), caches, None: the encoder
-    output of an encoder-decoder model, which is not ported yet)."""
+    as the reference does -> (logits (B, S, V), caches, the encoder's
+    output of ``enc_frames`` for an encoder-decoder model, else None)."""
     b, s = tokens.shape
-    caches = init_cache(cfg, b, max_len, tokens.device)
+    enc_out = encode(params, enc_frames, cfg) if cfg.enc_dec else None
+    caches = init_cache(cfg, b, max_len, tokens.device,
+                        enc_len=0 if enc_frames is None
+                        else enc_frames.shape[1])
+    if enc_out is not None:
+        caches = fill_cross_caches(params, caches, enc_out, cfg)
     all_logits = []
     for t in range(s):
         logits, caches = decode_step(params, tokens[:, t:t + 1], caches, cfg)
         all_logits.append(logits[:, 0])
-    return torch.stack(all_logits, 1), caches, None
+    return torch.stack(all_logits, 1), caches, enc_out

@@ -7,10 +7,13 @@ test_serve_end_to_end).  The port's ``init_params`` is replaced by the
 reference's weights (carried across by ``convert``) and its prompts are
 the reference's (the port's threefry ``randint``), so the generated
 tokens are the reference's, all six of each row.  The same holds for the
-two MoE architectures, grok-1 and deepseek-v3 (MLA), at their reduced
-configs.  ``main`` prints the reference's report keys; the three
-families still to port (Mamba for jamba and mamba2, the encoder-decoder
-for whisper) raise ``NotImplementedError`` naming their ROADMAP item.
+two MoE architectures, grok-1 and deepseek-v3 (MLA), for Mamba2, the
+Jamba hybrid (Mamba, attention and MoE) and whisper's encoder-decoder,
+at their reduced configs; whisper's encoder frames are the port's
+``sampling.normal`` draw, ulp-close to the reference's.  ``main`` prints
+the reference's report keys, and every one of the ten architectures
+serves on the CPU; only training (``loss_fn``, ROADMAP item 18.5)
+raises ``NotImplementedError``.
 """
 import json
 
@@ -29,46 +32,74 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 
 ARCH = "qwen2_vl_2b"
 MOE_ARCHS = ("grok_1_314b", "deepseek_v3_671b")
-NOT_PORTED = {
-    "jamba_1_5_large_398b": r"18\.3 \(Mamba",
-    "mamba2_1_3b": r"18\.3 \(Mamba",
-    "whisper_medium": r"18\.4 \(encoder-decoder\)",
-}
+SSM_ENCDEC_ARCHS = ("mamba2_1_3b", "jamba_1_5_large_398b", "whisper_medium")
+
+
+def _reference_serve(arch):
+    """The reference's ``serve`` of ``arch`` -> (its report, the weights
+    it drew from key 0 (its ``init_params``, recorded), as NumPy)."""
+    trees = []
+    init = jm.init_params
+
+    def recording(key, cfg):
+        trees.append(init(key, cfg))
+        return trees[-1]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jm, "init_params", recording)
+        report = jserve.serve(arch, batch=2, prompt_len=8, gen=6,
+                              reduced=True)
+    return report, jax.tree.map(np.asarray, trees[0])
 
 
 @pytest.fixture(scope="module")
-def reference():
-    return jserve.serve(ARCH, batch=2, prompt_len=8, gen=6, reduced=True)
+def reference_run():
+    return _reference_serve(ARCH)
 
 
-def _serve_on_the_reference_weights(arch, monkeypatch):
+@pytest.fixture(scope="module")
+def reference(reference_run):
+    return reference_run[0]
+
+
+def _serve_on_the_reference_weights(arch, tree, monkeypatch):
     """The port's ``serve`` with ``init_params`` giving the reference's
-    weights for ``arch`` (``jserve.serve`` draws them from key 0)."""
-    tree = jax.tree.map(np.asarray, jm.init_params(
-        jax.random.PRNGKey(0), jconfigs.get_reduced(arch)))
+    weights ``tree`` for ``arch``."""
     monkeypatch.setattr(
         tserve.model, "init_params",
         lambda cfg, gen, dev: convert.lm_params_from_numpy(cfg, tree, dev))
     return tserve.serve(arch, batch=2, prompt_len=8, gen=6, device="cpu")
 
 
-def test_serve_tokens_are_the_reference(reference, monkeypatch):
-    got = _serve_on_the_reference_weights(ARCH, monkeypatch)
+def test_serve_tokens_are_the_reference(reference_run, monkeypatch):
+    reference, tree = reference_run
+    got = _serve_on_the_reference_weights(ARCH, tree, monkeypatch)
     assert set(got) == set(reference)
     assert np.asarray(got["tokens"]).shape == (2, 6)
     assert got["tokens"] == reference["tokens"]
     assert got["decode_s_per_token"] > 0 and got["throughput_tok_s"] > 0
 
 
+def _assert_serves_the_references_tokens(arch, monkeypatch):
+    want, tree = _reference_serve(arch)
+    got = _serve_on_the_reference_weights(arch, tree, monkeypatch)
+    assert set(got) == set(want)
+    assert np.asarray(got["tokens"]).shape == (2, 6)
+    assert got["tokens"] == want["tokens"]
+
+
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_serve_tokens_are_the_reference(arch, monkeypatch):
     """grok-1 and deepseek-v3 reduced, bf16: the reference's six tokens
     of each row (the reference's own end-to-end shape)."""
-    want = jserve.serve(arch, batch=2, prompt_len=8, gen=6, reduced=True)
-    got = _serve_on_the_reference_weights(arch, monkeypatch)
-    assert set(got) == set(want)
-    assert np.asarray(got["tokens"]).shape == (2, 6)
-    assert got["tokens"] == want["tokens"]
+    _assert_serves_the_references_tokens(arch, monkeypatch)
+
+
+@pytest.mark.parametrize("arch", SSM_ENCDEC_ARCHS)
+def test_ssm_and_encdec_serve_tokens_are_the_reference(arch, monkeypatch):
+    """mamba2, jamba and whisper reduced, bf16: the reference's six
+    tokens of each row (whisper encodes 64 frames of the port's
+    ``sampling.normal`` draw)."""
+    _assert_serves_the_references_tokens(arch, monkeypatch)
 
 
 def test_main_prints_the_reference_report(reference, capsys):
@@ -79,12 +110,16 @@ def test_main_prints_the_reference_report(reference, capsys):
     assert all(v > 0 for v in out.values())
 
 
-@pytest.mark.parametrize("arch", list(NOT_PORTED))
-def test_families_still_to_port_raise(arch):
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]) as err:
-        tserve.serve(arch, batch=1, prompt_len=2, gen=2, device="cpu")
-    # MoE (18.1) and MLA (18.2) are ported: only the missing family is named
-    assert "18.1" not in str(err.value) and "18.2" not in str(err.value)
+@pytest.mark.parametrize("arch", sorted(jconfigs.ARCHS))
+def test_every_arch_serves_on_the_cpu(arch, reference):
+    """Every architecture's reduced config through ``serve`` on the CPU,
+    on the port's own weights: the reference's report keys and (B, gen)
+    tokens in the vocabulary."""
+    got = tserve.serve(arch, batch=2, prompt_len=3, gen=3, device="cpu")
+    assert set(got) == set(reference)
+    toks = np.asarray(got["tokens"])
+    assert toks.shape == (2, 3)
+    assert ((toks >= 0) & (toks < jconfigs.get_reduced(arch).vocab)).all()
 
 
 def test_training_raises_naming_its_item():

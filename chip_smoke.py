@@ -249,6 +249,19 @@ non-zero:
    converted weights within 16 float32 ulps of the scale (jamba's eight
    layers 64; forward, MoE aux, prefill, GQA, MLA, Mamba and cross
    caches), greedy tokens equal, h2o's ring buffer wrapping;
+   train     -- the LM's training path (ROADMAP item 18.5, no kernel of
+   its own): ``launch.train.train("olmo_1b", reduced=False)``, OLMo-1B
+   at full width and depth in bf16, batch 8, seq 128, 8 steps (ms a
+   step by CUDA events after two warm-up steps, tokens/s, peak memory,
+   the losses, which must fall); one profiled step's device busy time
+   and device operations beside its bound (6 N T + 2 N_layers T FLOPs
+   at the bf16 dense peak plus AdamW's bytes at the HBM rate), and the
+   AdamW update alone; mamba2-1.3b whole for 3 steps; the ten reduced
+   configs at float32, two train steps each run on the card and the CPU
+   from the same state (loss parts, global norm, moments in ulps of
+   their scale by depth, parameters in units of lr); the reduced OLMo
+   restarted from its step-3 checkpoint against a straight run and a
+   second straight run on the card;
 6. profile -- device busy time and idle share of one AS iteration at
    n = 1002, and the kernels that take most of it; the split of one MMAS
    + 2-opt iteration over an int8 store into construction, local search
@@ -269,6 +282,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -364,7 +378,10 @@ def log(*parts) -> None:
 
 def cuda_ms(fn, reps: int = 20, trials: int = 5, warmup: int = 3) -> float:
     """Median over trials of the mean time of ``reps`` calls (CUDA events),
-    after ``warmup`` calls."""
+    after ``warmup`` calls.  The plain walks' and per-step loops' times (3
+    to 11 s a call, over operations the parity grids ran before) are one
+    call each with no warm-up call, to keep the script well inside its
+    time limit."""
     import torch
     for _ in range(warmup):
         fn()
@@ -1087,7 +1104,7 @@ def phase_dense_walk(results: dict) -> None:
                 n, None, dtype, 8, None if n == 1002 else WALK_WINDOW)
             loop_wall = cuda_ms(lambda: _dense_walk(
                 fs.fused_walk_plain, replaced, "iroulette", "packed", None,
-                select=ops.fused_select), reps=1, trials=1, warmup=1)
+                select=ops.fused_select), reps=1, trials=1, warmup=0)
             loop_steps = n - replaced[-1]
             # bytes: payload (+ int8 row scales), eta, start, key and the
             # cities once each; operations: the weight and transform at
@@ -1119,7 +1136,7 @@ def phase_dense_walk(results: dict) -> None:
             if n == 1002:
                 plain_wall = cuda_ms(lambda: _dense_walk(
                     fs.fused_walk_plain, operands, "iroulette", "packed",
-                    None), reps=1, trials=1, warmup=1)
+                    None), reps=1, trials=1, warmup=0)
                 results[name] = {"max_abs_err": 0.0, "ms": ms,
                                  "plain_ms": plain_wall, "bound_ms": b_ms,
                                  "bound_by": b_by, "library_ms": None}
@@ -1330,10 +1347,10 @@ def phase_walk_kernel(results: dict) -> None:
         ms = statistics.median(own) / 1e3 if min(own) > 0 else wall
         plain_wall = cuda_ms(lambda: _walk(ss.sparse_walk_plain, operands,
                                            "iroulette", "packed", ewt, None),
-                             reps=1, trials=1, warmup=1)
+                             reps=1, trials=1, warmup=0)
         loop_wall = cuda_ms(lambda: _walk(
             k7_loop, operands, "iroulette", "packed", ewt, None), reps=1,
-            trials=1, warmup=1) if dtype == "fp32" else None
+            trials=1, warmup=0) if dtype == "fp32" else None
         # bytes, each input read once and each output written once: the
         # problem and page stores (coordinates, ids, distances, eta, the
         # payloads with their int8 row scales, overflow ids), the tabu rows
@@ -4677,6 +4694,329 @@ def phase_lm(smi: str) -> None:
     log(f"[lm] phase took {time.perf_counter() - t0:.1f} s")
 
 
+TRAIN_BATCH, TRAIN_SEQ = 8, 128     # the reference CLI's defaults
+TRAIN_STEPS, TRAIN_WARMUP = 8, 2
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense, tensor cores (data sheet)
+# AdamW's bytes a parameter: the bf16 gradient and parameter read, the
+# float32 moments read and written, the bf16 parameter written
+OPT_BYTES_PER_PARAM = 2 + 2 + 2 * 4 + 2 * 4 + 2
+# card against CPU at float32, a train step from the same state: the
+# loss parts within _lm_f32_limit (a forward's); the global norm and the
+# moments within TRAIN_F32_ULPS of their scale up to four layers, plus
+# TRAIN_F32_ULPS_PER_LAYER a layer past four (the second moment, a square
+# of the gradient, twice that); the parameters within TRAIN_STEP_LR x lr
+# (Adam divides each gradient by its running RMS: an element whose
+# gradient is near zero turns rounding into an update of order lr)
+TRAIN_F32_ULPS, TRAIN_F32_ULPS_PER_LAYER = 64, 16
+TRAIN_STEP_LR = 0.1
+# Mamba's A_log and dt_bias gradients cancel to ~3e-7 of their terms:
+# on the CPU the reference's own lies 180 ulps of that scale from float64
+TRAIN_SSM_FACTOR = 3
+TRAIN_RESTART_SPREAD = 4
+
+
+def _train_ulps(want, got, scale=None) -> float:
+    """``_ulps_of_scale`` at float32, 0 where both are all zero."""
+    if not float((want.detach().abs().max() if scale is None
+                  else abs(scale))):
+        return 0.0 if float((want - got.to(want.device)).abs().max()) == 0 \
+            else math.inf
+    return _ulps_of_scale(want, got, 23, scale)
+
+
+def _train_f32_limit(cfg) -> float:
+    depth = cfg.n_layers + cfg.n_enc_layers
+    return TRAIN_F32_ULPS + TRAIN_F32_ULPS_PER_LAYER * max(0, depth - 4)
+
+
+def _train_split(fn, reps: int) -> tuple[dict, float]:
+    """``device_split`` of ``fn`` and the device operations (kernels and
+    copies) it runs a call, from one ``torch.profiler`` record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split, count = {}, 0
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0) or 0)
+        if us > 0:
+            split[e.key] = split.get(e.key, 0.0) + us / reps
+            count += e.count
+    return split, count / reps
+
+
+def _train_model(label: str, arch: str, steps: int, smi: str) -> dict:
+    """``launch/train.py::train`` of ``arch`` at its published size on the
+    card (batch TRAIN_BATCH, seq TRAIN_SEQ, no checkpoint directory):
+    seconds a step by CUDA events after TRAIN_WARMUP steps, tokens/s,
+    peak memory and the losses, which must be finite and fall."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train as trainer
+    cfg = configs.get(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = trainer.train(arch, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        reduced=False, log_every=1, device=DEV)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = out["losses"]
+    if len(losses) != steps or not all(map(math.isfinite, losses)) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] {label}: losses {losses}")
+    timed = out["step_ms"][min(TRAIN_WARMUP, steps - 1):]
+    ms = statistics.mean(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] {label} full ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"vocab {cfg.vocab}, {cfg.param_count() / 1e9:.3f}e9 params, bf16) "
+        f"through train(reduced=False), batch {TRAIN_BATCH}, seq "
+        f"{TRAIN_SEQ}, {steps} steps in {wall:.2f} s: {ms:.2f} ms a step "
+        f"(CUDA events, mean of steps {steps - len(timed) + 1}-{steps}; "
+        f"first {out['step_ms'][0]:.1f} ms), {tokens / ms * 1e3:.0f} "
+        f"tokens/s, peak {peak / 2**30:.3f} GiB; losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + f" | {smi}")
+    return {"ms": ms, "peak": peak}
+
+
+def _train_profile(smi: str, ms: float) -> None:
+    """One OLMo-1B train step (the same step function, state and batch
+    shape as ``train``) under ``torch.profiler``: device busy time beside
+    the step's bound, the FLOPs 6 N T + 2 N_layers T (the forward's
+    recomputation under remat) at the bf16 dense peak plus AdamW's bytes
+    at the HBM rate."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    cfg = configs.get("olmo_1b")
+    params = model.init_params(cfg, torch.Generator(device=DEV)
+                               .manual_seed(0), DEV)
+    state = [params, adamw.adamw_init(params)]
+    step = steps.make_train_step(cfg, adamw.AdamWConfig(
+        total_steps=TRAIN_STEPS, warmup_steps=1), remat=True)
+    tok, lab = (torch.from_numpy(x).to(DEV) for x in next(SyntheticLMData(
+        DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH))))
+
+    def one():
+        state[0], state[1], _ = step(state[0], state[1], tok, lab)
+
+    split, launches = _train_split(one, reps=2)
+    busy_ms = sum(split.values()) / 1e3
+    n_all = sum(p.numel() for p in params.parameters())
+    n_layers = sum(p.numel() for name, p in params.named_parameters()
+                   if name.startswith(("blocks.", "prefix.")))
+    t = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_all * t + 2 * n_layers * t
+    t_flops = flops / BF16_OPS_PER_S * 1e3
+    t_bytes = OPT_BYTES_PER_PARAM * n_all / HBM_BYTES_PER_S * 1e3
+    opt_us = sum(us for name, us in split.items()
+                 if "elementwise" in name or "reduce" in name)
+    busy = (f"{busy_ms:.2f} ms, idle {1 - busy_ms / ms:.3f} of the {ms:.2f} "
+            f"ms step" if busy_ms else "not measured")
+    log(f"[train] olmo_1b train step: device busy {busy}; bound "
+        f"{t_flops + t_bytes:.2f} ms = {flops:.4g} FLOPs (6 N T + 2 N_layers "
+        f"T, N {n_all / 1e9:.4f}e9, N_layers {n_layers / 1e9:.4f}e9, T {t}) "
+        f"at {BF16_OPS_PER_S:.3g}/s bf16 = {t_flops:.2f} ms + AdamW "
+        f"{OPT_BYTES_PER_PARAM} B a parameter at {HBM_BYTES_PER_S:.3g} B/s = "
+        f"{t_bytes:.2f} ms; elementwise and reduction kernels "
+        f"{opt_us / 1e3:.2f} ms of the busy time | {smi}")
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[train] olmo_1b train step, {launches:.0f} device operations, "
+        f"device us by kernel: " + "; ".join(
+            f"{name[:60]} {us:.1f}" for name, us in top))
+    # the optimizer alone, on gradients of the parameters' shapes
+    grads = {name: torch.full_like(p, 1e-3)
+             for name, p in state[0].named_parameters()}
+    opt_cfg = adamw.AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+
+    def update():
+        adamw.adamw_update(opt_cfg, grads, state[1], state[0])
+
+    upd_ms = cuda_ms(update, reps=2, trials=3, warmup=1)
+    upd_split, upd_launches = _train_split(update, reps=2)
+    upd_busy = sum(upd_split.values()) / 1e3
+    log(f"[train] olmo_1b AdamW update alone: {upd_ms:.2f} ms (CUDA events), "
+        f"device busy {upd_busy:.2f} ms in {upd_launches:.0f} device "
+        f"operations ({len(grads)} tensors), against {t_bytes:.2f} ms for "
+        f"its {OPT_BYTES_PER_PARAM} B a parameter | {smi}")
+    del params, state, step, one, grads, update
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_card_vs_cpu() -> None:
+    """The ten reduced configs at float32, two train steps each: every step
+    runs on the CPU and on the card from the same state (the CPU's before
+    it, copied across), on the reference's synthetic batches (whisper on
+    its stub frames), and the card's loss parts, global norm, moments and
+    parameters are held against the CPU's."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import sampling
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("[train] TF32 is enabled: the float32 "
+                             "comparison needs full float32 matmuls")
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=2)
+    b, s = 2, 32
+    for arch in LM_DENSE + LM_MOE + LM_SSM_ENCDEC:
+        cfg = dataclasses.replace(configs.get_reduced(arch),
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        cpu = model.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+        card = model.init_params(cfg, torch.Generator().manual_seed(3),
+                                 "cpu").to(DEV)
+        opt = adamw.adamw_init(cpu)
+        step = steps.make_train_step(cfg, opt_cfg, remat=True)
+        data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                          global_batch=b, seed=3))
+        limit, f_limit = _train_f32_limit(cfg), _lm_f32_limit(cfg)
+        worst = {"loss": 0.0, "grad_norm": 0.0, "mu": 0.0, "nu": 0.0,
+                 "params_lr": 0.0}
+        for i in range(2):
+            tok, lab = (torch.from_numpy(x) for x in next(data))
+            frames = (sampling.normal(sampling.fold_in(
+                sampling.prng_key(4), i), (b, serve.ENC_FRAMES, cfg.d_model))
+                      if cfg.enc_dec else None)
+            with torch.no_grad():
+                for (_, pc), (_, pg) in zip(cpu.named_parameters(),
+                                            card.named_parameters()):
+                    pg.copy_(pc)
+            opt_g = adamw.AdamWState(*(
+                {k: v.to(DEV, copy=True) for k, v in moments.items()}
+                for moments in (opt.mu, opt.nu)), opt.step.to(DEV,
+                                                               copy=True))
+            cpu, opt, m_c = step(cpu, opt, tok, lab, frames)
+            card, opt_g, m_g = step(card, opt_g, tok.to(DEV), lab.to(DEV),
+                                    None if frames is None
+                                    else frames.to(DEV))
+            for k in m_c:
+                if k == "lr":
+                    if m_c[k].item() != m_g[k].item():
+                        raise AssertionError(f"[train] {arch}: lr differs")
+                    continue
+                scale = m_c["loss"] if k != "grad_norm" else m_c[k]
+                err = _train_ulps(m_c[k], m_g[k], scale)
+                key = "grad_norm" if k == "grad_norm" else "loss"
+                worst[key] = max(worst[key], err)
+            for key, want, got in (("mu", opt.mu, opt_g.mu),
+                                   ("nu", opt.nu, opt_g.nu)):
+                for name in want:
+                    err = _train_ulps(want[name], got[name])
+                    if name.endswith(("A_log", "dt_bias")):
+                        err /= TRAIN_SSM_FACTOR
+                    worst[key] = max(worst[key], err)
+            worst["params_lr"] = max(worst["params_lr"], max(
+                float((pc.detach() - pg.detach().cpu()).abs().max())
+                for pc, pg in zip(cpu.parameters(), card.parameters()))
+                / opt_cfg.lr)
+        if (worst["loss"] > f_limit or worst["grad_norm"] > limit
+                or worst["mu"] > limit or worst["nu"] > 2 * limit
+                or worst["params_lr"] > TRAIN_STEP_LR):
+            raise AssertionError(f"[train] {arch} reduced f32: card vs CPU "
+                                 f"{worst} (limits {f_limit}, {limit}, "
+                                 f"{2 * limit}, {TRAIN_STEP_LR} lr)")
+        log(f"[train] {arch} reduced f32, 2 train steps, card vs CPU from the "
+            f"same state: loss parts {worst['loss']:.3g} ulps of the loss "
+            f"(<= {f_limit}), global norm {worst['grad_norm']:.3g} (<= "
+            f"{limit}), mu {worst['mu']:.3g} / nu {worst['nu']:.3g} ulps of "
+            f"each leaf's scale (<= {limit} / {2 * limit}; Mamba A_log, "
+            f"dt_bias counted / {TRAIN_SSM_FACTOR}), parameters "
+            f"{worst['params_lr']:.3g} lr (<= {TRAIN_STEP_LR})")
+
+
+def _train_restart() -> None:
+    """The reduced olmo on the card: six straight steps (checkpoints at 3
+    and 6) against the same run restarted from its step-3 checkpoint,
+    beside a second straight run: the restart's step-6 checkpoint may
+    differ from the straight run's by no more than TRAIN_RESTART_SPREAD
+    times as much as two straight runs differ from each other (an
+    atomic add in a backward would make them differ; if they do not,
+    the restart must be bitwise)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch import train as trainer
+
+    def leaves(path):
+        """A checkpoint's tensors as float64 (bf16 is stored as its raw
+        bits)."""
+        with np.load(path) as z:
+            raw = json.loads(str(z["__meta__"])).get("raw_dtypes", {})
+            out = {}
+            for k in z.files:
+                if k == "__meta__":
+                    continue
+                a = np.array(z[k])
+                if k[len("leaf_"):] in raw:
+                    a = torch.from_numpy(a).view(torch.bfloat16).float()\
+                        .numpy()
+                out[k] = a.astype(np.float64)
+        return out
+
+    def dist(a, b):
+        return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(steps=6, batch=4, seq=64, ckpt_every=3, log_every=1,
+                  device=DEV)
+        runs = {}
+        for name in ("straight", "again"):
+            d = os.path.join(tmp, name)
+            out = trainer.train("olmo_1b", ckpt_dir=d, **kw)
+            runs[name] = (out["losses"], leaves(
+                os.path.join(d, "ckpt_000000006.npz")))
+        d = os.path.join(tmp, "straight")
+        shutil.move(os.path.join(d, "ckpt_000000006.npz"),
+                    os.path.join(tmp, "moved.npz"))
+        out = trainer.train("olmo_1b", ckpt_dir=d, **kw)
+        resumed = leaves(os.path.join(d, "ckpt_000000006.npz"))
+    straight, again = runs["straight"][1], runs["again"][1]
+    spread, diff = dist(straight, again), dist(straight, resumed)
+    loss_diff = max(abs(a - b) for a, b in zip(out["losses"],
+                                                runs["straight"][0][3:]))
+    if len(out["losses"]) != 3 or diff > TRAIN_RESTART_SPREAD * spread:
+        raise AssertionError(f"[train] restart: step-6 checkpoint {diff:.3g} "
+                             f"from the straight run's, two straight runs "
+                             f"{spread:.3g} apart")
+    log(f"[train] restart (reduced olmo, bf16, batch 4, seq 64): 3 steps, "
+        f"checkpoint, restart, 3 more steps against 6 straight steps: the "
+        f"step-6 checkpoints differ by at most {diff:.3g} ({len(straight)} "
+        f"tensors: parameters, moments, step, data cursor), two straight "
+        f"runs by {spread:.3g}; losses of steps 4-6 {loss_diff:.3g} apart")
+
+
+def phase_train(smi: str) -> None:
+    """The LM's training path (ROADMAP item 18.5): OLMo-1B at full width
+    and depth through ``launch/train.py`` and one profiled step,
+    mamba2-1.3b whole, the ten reduced configs card against CPU, and a
+    checkpoint restart on the card."""
+    t0 = time.perf_counter()
+    olmo = _train_model("olmo_1b", "olmo_1b", TRAIN_STEPS, smi)
+    _train_profile(smi, olmo["ms"])
+    _train_model("mamba2_1_3b", "mamba2_1_3b", 3, smi)
+    _train_card_vs_cpu()
+    _train_restart()
+    log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+
+
 def phase_sparse_split() -> None:
     """Where one sparse MMAS iteration over an int8 store goes at
     n = 2392, k = 16, m = 64 (host clock between synchronisations, median
@@ -5051,30 +5391,30 @@ def main() -> int:
     if sys.argv[1:2] == ["--lm-decode"]:
         return lm_decode(sys.argv[2:])
     root = os.path.dirname(os.path.abspath(__file__))
+    t_start = time.perf_counter()
     smi = phase_device()
     sys.path.insert(0, os.path.join(root, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
-    phase_build()
     results: dict = {}
-    phase_kernels(results)
-    phase_dense_walk(results)
-    phase_sparse_kernels(results)
-    phase_small()
-    phase_small_sparse()
     launches: dict = {}
-    phase_main(launches)
-    phase_sparse(launches)
-    phase_batched(launches)
-    phase_service(launches)
-    phase_streaming(launches)
-    phase_cli(launches)
-    phase_programs(launches)
-    phase_mesh(launches, results)
-    phase_ladder(launches)
-    phase_lm(smi)
-    phase_profile()
-    phase_split()
-    phase_sparse_split()
+    for phase, args in ((phase_build, ()), (phase_kernels, (results,)),
+                        (phase_dense_walk, (results,)),
+                        (phase_sparse_kernels, (results,)),
+                        (phase_small, ()), (phase_small_sparse, ()),
+                        (phase_main, (launches,)), (phase_sparse, (launches,)),
+                        (phase_batched, (launches,)),
+                        (phase_service, (launches,)),
+                        (phase_streaming, (launches,)),
+                        (phase_cli, (launches,)),
+                        (phase_programs, (launches,)),
+                        (phase_mesh, (launches, results)),
+                        (phase_ladder, (launches,)), (phase_lm, (smi,)),
+                        (phase_train, (smi,)), (phase_profile, ()),
+                        (phase_split, ()), (phase_sparse_split, ())):
+        t0 = time.perf_counter()
+        phase(*args)
+        log(f"[time] {phase.__name__} {time.perf_counter() - t0:.1f} s "
+            f"(script {time.perf_counter() - t_start:.1f} s)")
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         n_launch = launches.get(name, 0)

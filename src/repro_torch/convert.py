@@ -35,7 +35,10 @@ float32), cross-attention (``xattn``) and multi-token-prediction
 and back, which is exact.  ``lm_cache_to_numpy`` gives a decode cache
 back in the reference's layout, whatever each layer holds: GQA's or
 MLA's (``ckv``, ``k_rope``) attention cache, Mamba's ``conv``/``h``, the
-cross-attention's ``xattn`` k/v.
+cross-attention's ``xattn`` k/v.  Training's state crosses in the same
+stacked layout: ``lm_opt_state_from_numpy`` / ``lm_opt_state_to_numpy``
+(AdamW's float32 ``mu``/``nu`` trees and its step) and
+``lm_grads_to_numpy`` (gradients keyed by parameter name).
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ from .core import aco, islands, quant
 from .models import model as lm_model
 from .models.config import ModelConfig
 from .obs import metrics as obs_metrics
+from .optim import adamw
 from .sparse import store
 
 
@@ -268,17 +272,16 @@ _LM_KEYS = ("embed", "lm_head", "final_norm", "prefix", "blocks", "mtp")
 _ENC_KEYS = ("enc_in_proj", "enc_final_norm", "enc_blocks")
 
 
-def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
-                         device: _device.DeviceLike = None) -> lm_model.Model:
-    """The reference's LM parameter tree (NumPy leaves) -> the port's
-    ``Model``: every leaf placed, none left over (KeyError otherwise)."""
+def _port_names(cfg: ModelConfig, tree: dict) -> dict:
+    """The reference's LM tree (NumPy leaves) -> {the port's parameter
+    name: NumPy leaf}, every stacked leaf split into its layers; KeyError
+    for a top-level key the port does not place."""
     known = _LM_KEYS + (_ENC_KEYS if cfg.enc_dec else ())
     unknown = sorted(set(tree) - set(known))
     if unknown:
         enc = [k for k in unknown if k in _ENC_KEYS]
         raise KeyError(f"the port places no {unknown}" + (
             f" ({cfg.name} has no encoder)" if enc else ""))
-    dev = _device.resolve(device)
     flat = {}
     for key in ("embed", "lm_head", "final_norm", "mtp", "enc_in_proj",
                 "enc_final_norm"):
@@ -294,30 +297,50 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
     for name, leaf in _flat_items(tree.get("enc_blocks", {})):
         for i, one in enumerate(np.asarray(leaf)):
             flat[f"enc_blocks.{i}.{name}"] = one
-    params = lm_model.Model(cfg, None, dev)
+    return flat
+
+
+def _check_names(params: lm_model.Model, flat: dict) -> dict:
     names = dict(params.named_parameters())
     if set(names) != set(flat):
         raise KeyError(f"parameter trees differ: only in the model "
                        f"{sorted(set(names) - set(flat))}, only in the tree "
                        f"{sorted(set(flat) - set(names))}")
+    return names
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree: dict,
+                         device: _device.DeviceLike = None) -> lm_model.Model:
+    """The reference's LM parameter tree (NumPy leaves) -> the port's
+    ``Model``: every leaf placed, none left over (KeyError otherwise)."""
+    flat = _port_names(cfg, tree)
+    params = lm_model.Model(cfg, None, _device.resolve(device))
     with torch.no_grad():
-        for name, param in names.items():
+        for name, param in _check_names(params, flat).items():
             param.copy_(torch.from_numpy(np.array(flat[name], np.float32)))
     return params
 
 
+def lm_opt_state_from_numpy(params: lm_model.Model, mu: dict, nu: dict,
+                            step) -> adamw.AdamWState:
+    """The reference's ``AdamWState`` (``mu``/``nu`` trees in its stacked
+    layout, NumPy float32; ``step``) -> the port's, on ``params``'
+    device, its moments keyed by parameter name."""
+    dev = params.embed.device
+
+    def moments(tree):
+        flat = _port_names(params.cfg, tree)
+        _check_names(params, flat)
+        return {name: torch.tensor(np.asarray(flat[name], np.float32),
+                                   device=dev)
+                for name, _ in params.named_parameters()}
+
+    return adamw.AdamWState(moments(mu), moments(nu), torch.tensor(
+        int(np.asarray(step)), dtype=torch.int32, device=dev))
+
+
 def _f32_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to(torch.float32).cpu().numpy()
-
-
-def _module_tree(module: torch.nn.Module) -> dict:
-    """A module's parameters as the reference's nested dict (float32
-    NumPy), empty dicts for modules without parameters."""
-    out = {name: _f32_numpy(p)
-           for name, p in module.named_parameters(recurse=False)}
-    for name, child in module.named_children():
-        out[name] = _module_tree(child)
-    return out
 
 
 def _stack(*xs):
@@ -334,26 +357,58 @@ def _stack_periods(cfg: ModelConfig, per_layer: list) -> list:
     return [_stack(*per_layer[j::period]) for j in range(period)]
 
 
+def _reference_tree(params: lm_model.Model, named: dict) -> dict:
+    """{the port's parameter name: tensor} -> the reference's tree in its
+    stacked layout (float32 NumPy leaves), empty dicts where a module
+    holds no parameters (OLMo's norms)."""
+    def module_tree(prefix: str, module: torch.nn.Module) -> dict:
+        out = {name: _f32_numpy(named[prefix + name])
+               for name, _ in module.named_parameters(recurse=False)}
+        for name, child in module.named_children():
+            out[name] = module_tree(f"{prefix}{name}.", child)
+        return out
+
+    cfg = params.cfg
+    tree = {"embed": _f32_numpy(named["embed"]),
+            "final_norm": module_tree("final_norm.", params.final_norm)}
+    if params.lm_head is not None:
+        tree["lm_head"] = _f32_numpy(named["lm_head"])
+    if cfg.prefix:
+        tree["prefix"] = [module_tree(f"prefix.{i}.", m)
+                          for i, m in enumerate(params.prefix)]
+    tree["blocks"] = _stack_periods(
+        cfg, [module_tree(f"blocks.{i}.", m)
+              for i, m in enumerate(params.blocks)])
+    if params.mtp is not None:
+        tree["mtp"] = module_tree("mtp.", params.mtp)
+    if cfg.enc_dec:
+        tree["enc_blocks"] = _stack(*[module_tree(f"enc_blocks.{i}.", m)
+                                      for i, m in enumerate(params.enc_blocks)])
+        tree["enc_final_norm"] = module_tree("enc_final_norm.",
+                                             params.enc_final_norm)
+        tree["enc_in_proj"] = _f32_numpy(named["enc_in_proj"])
+    return tree
+
+
 def lm_params_to_numpy(params: lm_model.Model) -> dict:
     """The port's ``Model`` -> the reference's parameter tree (float32
     NumPy leaves)."""
-    cfg = params.cfg
-    tree = {"embed": _f32_numpy(params.embed),
-            "final_norm": _module_tree(params.final_norm)}
-    if params.lm_head is not None:
-        tree["lm_head"] = _f32_numpy(params.lm_head)
-    if cfg.prefix:
-        tree["prefix"] = [_module_tree(m) for m in params.prefix]
-    tree["blocks"] = _stack_periods(
-        cfg, [_module_tree(m) for m in params.blocks])
-    if params.mtp is not None:
-        tree["mtp"] = _module_tree(params.mtp)
-    if cfg.enc_dec:
-        tree["enc_blocks"] = _stack(*[_module_tree(m)
-                                      for m in params.enc_blocks])
-        tree["enc_final_norm"] = _module_tree(params.enc_final_norm)
-        tree["enc_in_proj"] = _f32_numpy(params.enc_in_proj)
-    return tree
+    return _reference_tree(params, dict(params.named_parameters()))
+
+
+def lm_grads_to_numpy(params: lm_model.Model, grads: dict) -> dict:
+    """Gradients keyed by parameter name -> the reference's gradient tree
+    (its parameters' layout, float32 NumPy leaves)."""
+    return _reference_tree(params, grads)
+
+
+def lm_opt_state_to_numpy(params: lm_model.Model,
+                          state: adamw.AdamWState) -> dict:
+    """The port's ``AdamWState`` -> {"mu", "nu": trees in the reference's
+    layout, "step": int32}."""
+    return {"mu": _reference_tree(params, state.mu),
+            "nu": _reference_tree(params, state.nu),
+            "step": np.int32(int(state.step))}
 
 
 def lm_cache_to_numpy(cfg: ModelConfig, caches: dict) -> dict:

@@ -27,7 +27,7 @@ INIT_SCALE = 0.02
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    # serving only: no autograd graph (training, ROADMAP item 18.5, flips it)
+    # no autograd graph for serving; training turns requires_grad on
     return nn.Parameter(t, requires_grad=False)
 
 

@@ -1,7 +1,9 @@
-"""Model assembly, the serving half of ``repro.models.model``:
-embeddings, the layer stack (GQA or MLA attention, or Mamba; dense or
-MoE MLPs; cross-attention in an encoder-decoder's decoder), the encoder,
-logits, the decode cache, ``decode_step`` and ``prefill``.
+"""Model assembly, the port of ``repro.models.model``: embeddings, the
+layer stack (GQA or MLA attention, or Mamba; dense or MoE MLPs;
+cross-attention in an encoder-decoder's decoder), the encoder, logits,
+the training loss (``loss_fn``: next-token cross-entropy, the MoE aux
+loss and deepseek-v3's multi-token prediction), the decode cache,
+``decode_step`` and ``prefill``.
 
 The reference stacks the periodic body's parameters over periods and runs
 it under ``lax.scan``, a compile-time idiom of XLA.  Here the body is an
@@ -10,26 +12,29 @@ loop runs it; ``convert`` carries the stacked tree across.  Decode caches
 follow the same unrolled layout: a list with one entry per layer.  The
 encoder's layers (``enc_blocks``) are unrolled the same way.
 
-Training (``loss_fn``) raises ``NotImplementedError`` naming its ROADMAP
-item, 18.5.  deepseek-v3's multi-token-prediction head (``Model.mtp``) is
-built and carried by ``convert``; serving does not run it, as the
-reference's does not.
+``loss_fn`` runs the layers with the parameters' gradients on (training
+sets ``requires_grad``; serving leaves it off).  ``remat=True``
+checkpoints each layer (``torch.utils.checkpoint``, non-reentrant), where
+the reference checkpoints its scanned period body: the backward recomputes
+a layer's activations instead of keeping them.  deepseek-v3's
+multi-token-prediction head (``Model.mtp``) runs only in the loss, as in
+the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _checkpoint
 
 from .. import device as _device
 from ..core import floatops
 from . import layers, moe, ssm
 from .config import LayerSpec, ModelConfig
-
-TRAIN_ITEM = "ROADMAP item 18.5 (training)"
 
 
 class Layer(nn.Module):
@@ -161,6 +166,24 @@ class Model(nn.Module):
         return forward(self, tokens, self.cfg, positions, enc_frames)[0]
 
 
+def reference_path(name: str, cfg: ModelConfig) -> tuple[tuple, int, int]:
+    """The port's parameter name -> (the path of the reference's leaf that
+    holds it, dict keys and list indices; its index along that leaf's
+    stacked axis; the stacked axis' size, 0 for a leaf that is not
+    stacked).  Layer i of the periodic body is row i // len(cfg.period)
+    of the reference's ``blocks[i % len(cfg.period)]``; encoder layer i
+    row i of ``enc_blocks``."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        i, period = int(parts[1]), len(cfg.period)
+        return (("blocks", i % period) + tuple(parts[2:]), i // period,
+                cfg.n_periods)
+    if parts[0] == "enc_blocks":
+        return (("enc_blocks",) + tuple(parts[2:]), int(parts[1]),
+                cfg.n_enc_layers)
+    return tuple(int(x) if x.isdigit() else x for x in parts), 0, 0
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device: _device.DeviceLike = None) -> Model:
     """Random weights from ``generator`` (default: seed 0), on the GPU
@@ -176,19 +199,31 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # ============================================================== forward
 def _run_body(params: Model, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, caches: Optional[list],
-              enc_out: Optional[torch.Tensor] = None
+              enc_out: Optional[torch.Tensor] = None, remat: bool = False
               ) -> tuple[torch.Tensor, Optional[list], torch.Tensor]:
     """Every layer in order -> (x, new caches or None, the layers' summed
-    aux loss)."""
+    aux loss).  ``remat`` checkpoints each layer (full sequence only)."""
     new_caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(params.all_layers()):
-        x, c, aux = layer(x, cfg, positions,
-                          None if caches is None else caches[i], enc_out)
+        if remat:
+            x, c, aux = _checkpoint.checkpoint(
+                layer, x, cfg, positions, None, enc_out, use_reentrant=False,
+                context_fn=_record_once)
+        else:
+            x, c, aux = layer(x, cfg, positions,
+                              None if caches is None else caches[i], enc_out)
         new_caches.append(c)
         if aux is not None:
             aux_total = aux_total + aux
     return x, (None if caches is None else new_caches), aux_total
+
+
+def _record_once():
+    """A checkpointed layer's contexts: its forward as it is, its
+    recomputation in the backward without MoE routing records (the
+    forward recorded that routing once already)."""
+    return contextlib.nullcontext(), moe.not_recording()
 
 
 def encode(params: Model, frames: torch.Tensor,
@@ -222,13 +257,12 @@ def _check_precision(cfg: ModelConfig, dev: torch.device) -> None:
         _device.check_full_fp32(dev, f"{cfg.name} at float32")
 
 
-def forward(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
-            positions: Optional[torch.Tensor] = None,
-            enc_frames: Optional[torch.Tensor] = None
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward -> (logits (B,S,V), aux loss): the MoE
-    layers' load-balancing losses summed, 0 without MoE layers.  An
-    encoder-decoder model needs its encoder's ``enc_frames``."""
+def _forward_hidden(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
+                    positions: Optional[torch.Tensor],
+                    enc_frames: Optional[torch.Tensor], remat: bool = False
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The trunk -> (hidden states after ``final_norm`` (B, S, d), aux
+    loss)."""
     _check_precision(cfg, tokens.device)
     if positions is None:
         positions = layers.positions_like(tokens)
@@ -237,14 +271,69 @@ def forward(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
     if cfg.enc_dec:
         assert enc_frames is not None, "enc-dec model needs encoder frames"
         enc_out = encode(params, enc_frames, cfg)
-    x, _, aux = _run_body(params, x, cfg, positions, None, enc_out)
-    h = layers.apply_norm(params.final_norm, x, cfg)
+    x, _, aux = _run_body(params, x, cfg, positions, None, enc_out, remat)
+    return layers.apply_norm(params.final_norm, x, cfg), aux
+
+
+def forward(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
+            positions: Optional[torch.Tensor] = None,
+            enc_frames: Optional[torch.Tensor] = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward -> (logits (B,S,V), aux loss): the MoE
+    layers' load-balancing losses summed, 0 without MoE layers.  An
+    encoder-decoder model needs its encoder's ``enc_frames``."""
+    h, aux = _forward_hidden(params, tokens, cfg, positions, enc_frames)
     return _project_logits(params, h, cfg), aux
 
 
-def loss_fn(*args, **kwargs):
-    """Training's loss (next-token CE, MoE aux, MTP): not ported yet."""
-    raise NotImplementedError(f"loss_fn: {TRAIN_ITEM}")
+def loss_fn(params: Model, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: ModelConfig, enc_frames: Optional[torch.Tensor] = None,
+            remat: bool = True, positions: Optional[torch.Tensor] = None
+            ) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy + 0.01 x the MoE aux loss (+ 0.3 x the
+    depth-1 MTP loss when ``cfg.mtp_depth``) -> (total 0-d float32,
+    {"ce", "aux"[, "mtp"], "loss"}).  Labels < 0 are masked out.  XLA
+    contracts each weighted add into one multiply-add (``addcmul``)."""
+    h, aux = _forward_hidden(params, tokens, cfg, positions, enc_frames,
+                             remat)
+    ce = _xent(_project_logits(params, h, cfg), labels)
+    total = torch.addcmul(ce, floatops.const(0.01, ce), aux)
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp_depth:
+        mtp = _mtp_loss(params, h, tokens, labels, cfg)
+        total = torch.addcmul(total, floatops.const(0.3, mtp), mtp)
+        metrics["mtp"] = mtp
+    metrics["loss"] = total
+    return total, metrics
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean float32 cross-entropy over the positions with a label >= 0."""
+    mask = labels >= 0
+    labs = torch.clamp_min(labels, 0).long()
+    lp = torch.log_softmax(logits.to(torch.float32), -1)
+    ll = torch.gather(lp, -1, labs[..., None])[..., 0]
+    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1).to(
+        torch.float32)
+
+
+def _mtp_loss(params: Model, h: torch.Tensor, tokens: torch.Tensor,
+              labels: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """DeepSeek-V3's depth-1 multi-token prediction: the trunk's hidden
+    state at t joined with the embedding of token t+1, one extra dense
+    layer and ``norm``, predicting label t+1 (token t+2)."""
+    ct = cfg.cdtype
+    mtp = params.mtp
+    x = params.embed[tokens.long()].to(ct)
+    positions = layers.positions_like(tokens)
+    nxt_emb = torch.roll(x, -1, 1)
+    comb = torch.cat([h, nxt_emb], -1) @ mtp.proj.to(ct)
+    comb, _, _ = mtp.block(comb, cfg, positions)
+    comb = layers.apply_norm(mtp.norm, comb, cfg)
+    logits = _project_logits(params, comb, cfg)
+    mtp_labels = torch.roll(labels, -1, 1)
+    mtp_labels[:, -1] = -1
+    return _xent(logits, mtp_labels)
 
 
 def _project_logits(params: Model, x: torch.Tensor,

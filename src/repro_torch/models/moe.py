@@ -53,6 +53,17 @@ def recording():
         _RECORD.reset(token)
 
 
+@contextlib.contextmanager
+def not_recording():
+    """No routing is recorded inside (a checkpointed layer's recomputation
+    in the backward repeats a routing its forward recorded)."""
+    token = _RECORD.set(None)
+    try:
+        yield
+    finally:
+        _RECORD.reset(token)
+
+
 def _expert_init(shape, dtype, gen: Optional[torch.Generator],
                  device) -> nn.Parameter:
     """The reference's ``_norm_init`` (N(0, 1) in float32, cast, scaled in

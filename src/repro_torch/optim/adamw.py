@@ -1,0 +1,180 @@
+"""AdamW with a cosine schedule and global-norm clipping, the PyTorch port
+of ``repro.optim.adamw``.
+
+Functions over a model's named parameters (an ``nn.Module``): the moments
+are float32 dicts keyed by parameter name, whatever the parameter dtype,
+and ``adamw_update`` writes the new parameters and moments in place, under
+``torch.no_grad`` (the reference returns new trees; its trainer donates
+the old ones).  ``torch.optim.AdamW`` is not used: its decay and clipping
+differ from the reference's.
+
+The reference's numbers, which the update reproduces:
+
+- **Decay by the reference leaf's rank.**  The reference decays a leaf
+  when ``p.ndim >= 2``.  It stacks the periodic body (``blocks``) and the
+  encoder (``enc_blocks``) over a leading axis, so a norm scale, ``q_norm``
+  / ``kv_norm`` or a Mamba ``A_log`` / ``D`` / ``dt_bias`` / ``conv_b`` /
+  ``norm_scale`` inside them is 2-D there and decays, while the same
+  vector in ``prefix``, ``mtp`` or ``final_norm`` is 1-D and does not.
+  The port's layers are unrolled, so ``reference_leaves`` gives each
+  parameter its reference leaf and the rule reads that leaf's rank.
+- **The global norm** sums each reference leaf's squares (a stacked leaf
+  over all its periods) and adds the leaves in ``jax.tree.leaves`` order.
+  Within a leaf the order is PyTorch's, not XLA's: the norm is ulp-close.
+- **float32 constants.**  ``1 - b1`` and the other Python constants are
+  rounded to float32 as JAX rounds them (``floatops.const``), and
+  ``b1 ** step`` is a float32 power (``floatops.powf``).
+- **XLA's fused expression.**  Inside the reference's jitted step XLA
+  contracts ``b1 * m + (1 - b1) * g`` into ``fma(b1, m, (1 - b1) * g)``
+  (and the same for ``nu``), the decay into ``fma(wd, p, delta)`` and the
+  step into ``fma(-lr, delta, p)``, each rounded once
+  (``torch.addcmul``), and rewrites ``(m / c1) / (sqrt(vhat) + eps)`` as
+  ``m / (c1 * (sqrt(vhat) + eps))``.  With the same clip scale the update
+  is bitwise the reference's jitted one; the scale follows the global
+  norm, which is ulp-close.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core import floatops
+from ..models import model
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_ratio: float = 0.1
+
+
+class AdamWState(NamedTuple):
+    mu: dict               # parameter name -> float32 first moment
+    nu: dict               # parameter name -> float32 second moment
+    step: torch.Tensor     # 0-d int32
+
+
+def reference_leaves(params: nn.Module) -> list[tuple[tuple, int, list]]:
+    """The reference's parameter leaves in ``jax.tree.leaves`` order: (its
+    path, its stacked axis' size or 0, the port's parameter names that
+    make it up in stacking order); ``model.reference_path`` places each
+    name."""
+    groups: dict[tuple, list] = {}
+    stacks: dict[tuple, int] = {}
+    for name, _ in params.named_parameters():
+        path, row, stack = model.reference_path(name, params.cfg)
+        groups.setdefault(path, []).append((row, name))
+        stacks[path] = stack
+    return [(path, stacks[path], [n for _, n in sorted(groups[path])])
+            for path in sorted(groups)]
+
+
+def decays(params: nn.Module) -> dict[str, bool]:
+    """Parameter name -> whether the reference decays its leaf (the leaf,
+    stacked or not, has rank >= 2)."""
+    named = dict(params.named_parameters())
+    return {name: named[name].dim() + bool(stack) >= 2
+            for _, stack, names in reference_leaves(params)
+            for name in names}
+
+
+def adamw_init(params: nn.Module) -> AdamWState:
+    zeros = {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for name, p in params.named_parameters()}
+    dev = next(iter(zeros.values())).device
+    return AdamWState(mu=zeros,
+                      nu={k: torch.zeros_like(v) for k, v in zeros.items()},
+                      step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """The learning rate (0-d float32) at ``step`` (0-d int32): linear
+    warm-up, then a cosine down to ``min_lr_ratio`` of ``cfg.lr``.  XLA
+    multiplies by the float32 reciprocal of a constant divisor, and its
+    float32 ``cos`` is correctly rounded (taken here in float64)."""
+    s = step.to(torch.float32)
+    c = lambda v: floatops.const(v, s)  # noqa: E731
+    warm = torch.clamp(s * c(_recip(cfg.warmup_steps)), max=1.0)
+    t = torch.clamp((step - cfg.warmup_steps).to(torch.float32)
+                    * c(_recip(cfg.total_steps - cfg.warmup_steps)),
+                    0.0, 1.0)
+    cos = c(0.5) * (c(1.0) + torch.cos((c(math.pi) * t).double()).float())
+    frac = torch.addcmul(c(cfg.min_lr_ratio), c(1 - cfg.min_lr_ratio), cos)
+    return c(cfg.lr) * warm * frac
+
+
+def _recip(n: int) -> float:
+    """float32 ``1 / max(n, 1)``."""
+    return float(np.float32(1.0) / np.float32(max(n, 1)))
+
+
+def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    return torch.sum(xf * xf)
+
+
+def global_norm(grads: dict, params: nn.Module) -> torch.Tensor:
+    """sqrt of the sum of every gradient's squares, the reference leaves
+    added in its order (``grads``: parameter name -> gradient)."""
+    total = None
+    for _, _, names in reference_leaves(params):
+        leaf = _sum_squares(grads[names[0]])
+        for name in names[1:]:
+            leaf = leaf + _sum_squares(grads[name])
+        total = leaf if total is None else total + leaf
+    return _sqrt(total)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    # the card's float32 sqrt is correctly rounded; the CPU's is not
+    return torch.sqrt(x) if x.is_cuda else floatops.sqrt(x)
+
+
+def _pow(base: float, step: torch.Tensor) -> torch.Tensor:
+    s = step.to(torch.float32)
+    return floatops.powf(floatops.const(base, s), s)
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, grads: dict, state: AdamWState,
+                 params: nn.Module) -> tuple[nn.Module, AdamWState, dict]:
+    """One AdamW step over ``params`` from ``grads`` (parameter name ->
+    gradient, any float dtype): the parameters and moments are written in
+    place -> (params, the new state, {"grad_norm", "lr"} 0-d float32)."""
+    step = state.step + 1
+    gnorm = global_norm(grads, params)
+    c = lambda v: floatops.const(v, gnorm)  # noqa: E731
+    scale = torch.clamp(c(cfg.clip_norm) / torch.clamp_min(gnorm, 1e-9),
+                        max=1.0)
+    lr = cosine_lr(cfg, step)
+    neg_lr = -lr
+    c1 = c(1.0) - _pow(cfg.b1, step)
+    c2 = c(1.0) - _pow(cfg.b2, step)
+    b1, b2, one_b1, one_b2 = c(cfg.b1), c(cfg.b2), c(1 - cfg.b1), c(1 - cfg.b2)
+    eps, wd = c(cfg.eps), c(cfg.weight_decay)
+    decay = decays(params)
+    for name, p in params.named_parameters():
+        g = grads[name].to(torch.float32) * scale
+        m = torch.addcmul(one_b1 * g, b1, state.mu[name])
+        v = torch.addcmul((one_b2 * g) * g, b2, state.nu[name])
+        delta = m / (c1 * (_sqrt(v / c2) + eps))
+        pf = p.to(torch.float32)
+        if decay[name]:
+            delta = torch.addcmul(delta, wd, pf)
+        p.copy_(torch.addcmul(pf, neg_lr, delta))
+        state.mu[name].copy_(m)
+        state.nu[name].copy_(v)
+    return params, AdamWState(state.mu, state.nu, step), {
+        "grad_norm": gnorm, "lr": lr}

@@ -9,9 +9,8 @@ rounding error does not accumulate.  ``key`` switches round-half-even to
 stochastic rounding, leaf i drawing from ``fold_in(key, i)``.  With 8-bit
 payloads the bytes an all-reduce moves drop 4x against float32.
 
-Nothing on the card's solver path calls the gradient half yet; it is the
-optimiser substrate the LM port (ROADMAP queue 1 item 18) builds on, held
-against the reference on the CPU.
+The LM's train step (``launch/steps.py``, ``compress=True``) sends its
+gradients through ``compress_grads`` / ``decompress_grads``.
 """
 from __future__ import annotations
 

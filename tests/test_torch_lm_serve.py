@@ -12,8 +12,9 @@ Jamba hybrid (Mamba, attention and MoE) and whisper's encoder-decoder,
 at their reduced configs; whisper's encoder frames are the port's
 ``sampling.normal`` draw, ulp-close to the reference's.  ``main`` prints
 the reference's report keys, and every one of the ten architectures
-serves on the CPU; only training (``loss_fn``, ROADMAP item 18.5)
-raises ``NotImplementedError``.
+serves on the CPU.  Placing parameters over a mesh of more than one
+position (``sharding.to_shardings``, ROADMAP item 18.6) raises
+``NotImplementedError``.
 """
 import json
 
@@ -122,10 +123,16 @@ def test_every_arch_serves_on_the_cpu(arch, reference):
     assert ((toks >= 0) & (toks < jconfigs.get_reduced(arch).vocab)).all()
 
 
-def test_training_raises_naming_its_item():
-    from repro_torch.models import model
-    with pytest.raises(NotImplementedError, match=r"18\.5 \(training\)"):
-        model.loss_fn()
+def test_to_shardings_raises_naming_its_item():
+    from repro_torch import configs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model, sharding
+    cfg = configs.get_reduced(ARCH)
+    params = model.Model(cfg, None, torch.device("meta"))
+    mesh = Mesh([torch.device("cpu")] * 2, ("data",))
+    specs = sharding.param_specs(params, cfg, mesh)
+    with pytest.raises(NotImplementedError, match=r"18\.6 \(sharding\)"):
+        sharding.to_shardings(specs, mesh)
 
 
 def test_serve_needs_a_device_without_a_gpu():

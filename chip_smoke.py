@@ -4750,11 +4750,13 @@ def _train_split(fn, reps: int) -> tuple[dict, float]:
     return split, count / reps
 
 
-def _train_model(label: str, arch: str, steps: int, smi: str) -> dict:
+def _train_model(label: str, arch: str, steps: int, smi: str,
+                 warmup: int = TRAIN_WARMUP, **mesh) -> dict:
     """``launch/train.py::train`` of ``arch`` at its published size on the
-    card (batch TRAIN_BATCH, seq TRAIN_SEQ, no checkpoint directory):
-    seconds a step by CUDA events after TRAIN_WARMUP steps, tokens/s,
-    peak memory and the losses, which must be finite and fall."""
+    card (batch TRAIN_BATCH, seq TRAIN_SEQ, no checkpoint directory; over
+    ``mesh``, ``train``'s ``devices`` and ``model_parallel``): seconds a
+    step by CUDA events after ``warmup`` steps, tokens/s, peak memory and
+    the losses, which must be finite and fall."""
     import gc
     import torch
     from repro_torch import configs
@@ -4766,14 +4768,14 @@ def _train_model(label: str, arch: str, steps: int, smi: str) -> dict:
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     out = trainer.train(arch, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                        reduced=False, log_every=1, device=DEV)
+                        reduced=False, log_every=1, device=DEV, **mesh)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base
     losses = out["losses"]
     if len(losses) != steps or not all(map(math.isfinite, losses)) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"[train] {label}: losses {losses}")
-    timed = out["step_ms"][min(TRAIN_WARMUP, steps - 1):]
+    timed = out["step_ms"][min(warmup, steps - 1):]
     ms = statistics.mean(timed)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     log(f"[train] {label} full ({cfg.n_layers} layers, d {cfg.d_model}, "
@@ -4784,7 +4786,7 @@ def _train_model(label: str, arch: str, steps: int, smi: str) -> dict:
         f"first {out['step_ms'][0]:.1f} ms), {tokens / ms * 1e3:.0f} "
         f"tokens/s, peak {peak / 2**30:.3f} GiB; losses "
         + ", ".join(f"{x:.4f}" for x in losses) + f" | {smi}")
-    return {"ms": ms, "peak": peak}
+    return {"ms": ms, "peak": peak, "losses": losses}
 
 
 def _train_profile(smi: str, ms: float) -> None:
@@ -5010,11 +5012,332 @@ def phase_train(smi: str) -> None:
     checkpoint restart on the card."""
     t0 = time.perf_counter()
     olmo = _train_model("olmo_1b", "olmo_1b", TRAIN_STEPS, smi)
+    TRAIN_OLMO.update(olmo)
     _train_profile(smi, olmo["ms"])
     _train_model("mamba2_1_3b", "mamba2_1_3b", 3, smi)
     _train_card_vs_cpu()
     _train_restart()
     log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+
+
+SHARD_DEVICES, SHARD_MP = 4, 2          # a (2, 2) mesh of the one card
+SHARD_STEPS = 4                          # one warm-up step, three timed
+# the sharded step's first loss against the one-position step's at bf16,
+# from the same weights: within twice the reference's own sharded-vs-
+# unsharded gap plus one f32 ulp of the loss (the rule the Mamba
+# prefill check uses, LM_SSM_BF16_ULPS); the reference's gap at the reduced olmo's first step is 22 f32
+# ulps (tests/test_torch_lm_shard.py::
+# test_bf16_loss_gap_is_within_twice_the_references)
+SHARD_BF16_ULPS = 2 * 22 + 1
+# After that step the parameters cannot be held within 0.1 lr at bf16:
+# the gradients are bf16 and the sharded step adds the groups' rounded
+# gradients, so an update that lands near a bf16 rounding point rounds
+# the other way (one bf16 ulp, 0.4-4 lr at these magnitudes), and a
+# gradient that cancels to near zero may take the other sign (Adam's
+# first step moves an element by about lr x g / (|g| + eps): up to 2 lr
+# apart).  So every element is held within 2 lr plus one bf16 ulp of the
+# larger of the two, at most SHARD_BF16_MOVED of the elements may differ
+# at all (a group's gradient lost or counted twice flips the sign of a
+# large share of them; measured 0.00889 on OLMo-1B, 0.00205 on the
+# reduced olmo, tests/test_torch_lm_shard.py), and the global norms, sums
+# of the squares of bf16 gradients, within two bf16 ulps of each other
+SHARD_BF16_MOVED = 0.05
+# jamba's Mamba projections after one step, card against CPU: an element
+# whose gradient is within its leaf's rounding of zero moves by a share of
+# lr that the rounding decides (the CPU test holds the port's jamba
+# within 0.5 lr of the reference's, measured 0.204, and its one-position
+# step lies as far, tests/test_torch_lm_shard.py::JAMBA_PARAM_LR)
+SHARD_JAMBA_LR = 0.5
+TRAIN_OLMO: dict = {}                    # [train]'s one-position OLMo-1B
+
+
+def _shard_mesh(device):
+    from repro_torch.launch.mesh import make_mesh_for
+    return make_mesh_for([device] * SHARD_DEVICES, model_parallel=SHARD_MP)
+
+
+def _shard_bytes(cfg) -> tuple[list, int]:
+    """(the parameter and moment bytes each position of the (2, 2) mesh
+    holds, the whole's), from ``meta`` shards."""
+    import torch
+    from repro_torch.models import model, sharding
+    from repro_torch.models.sharded import ShardedModel
+    meta = model.Model(cfg, None, torch.device("meta"))
+    mesh = _shard_mesh("meta")
+    sp = ShardedModel.from_model(meta, mesh, sharding.param_specs(
+        meta, cfg, mesh))
+    held = [b + 8 * sum(s[pos].numel() for s in sp.shards.values())
+            for pos, b in enumerate(sp.position_bytes())]
+    whole = sum(p.numel() * (p.element_size() + 8)
+                for p in meta.parameters())
+    return held, whole
+
+
+def _shard_split(fn) -> tuple[float, int, dict]:
+    """One profiled call of ``fn`` -> (device busy us: the kernels', copies'
+    and sets' time; their count; the device time (us) of the kernels
+    launched under the per-layer gathers (``shard.gather``), the
+    gradients' slicing (``shard.reduce``) and their accumulation into the
+    shards (``AccumulateGrad``))."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ranges = {"shard.gather": 0.0, "shard.reduce": 0.0,
+              "torch::autograd::AccumulateGrad": 0.0}
+    busy, count = 0.0, 0
+    cpu = torch.autograd.DeviceType.CPU
+    for e in prof.events():
+        if e.device_type == cpu:
+            if e.name in ranges:
+                # the host-side range's kernels (its device-side span
+                # would count the idle gaps between them too)
+                ranges[e.name] += e.device_time_total
+        elif e.name not in ranges:
+            busy += e.device_time_total
+            count += 1
+    return busy, count, ranges
+
+
+def _shard_vs_one(smi: str) -> None:
+    """OLMo-1B at full size: one step from the same weights on one position
+    and on the (2, 2) mesh (loss within SHARD_BF16_ULPS, parameters as
+    SHARD_BF16_MOVED says); then one more sharded step profiled: device
+    busy time and operations, and the gathers' and reductions' device
+    time."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import steps
+    from repro_torch.models import model, sharding
+    from repro_torch.models.sharded import ShardedModel
+    from repro_torch.optim import adamw
+    cfg = configs.get("olmo_1b")
+    opt_cfg = adamw.AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=1)
+    one = model.init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                            DEV)
+    mesh = _shard_mesh(DEV)
+    specs = sharding.param_specs(one, cfg, mesh)
+    sp = ShardedModel.from_model(one, mesh, specs)
+    tok, lab = (torch.from_numpy(x).to(DEV) for x in next(SyntheticLMData(
+        DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH))))
+    one, _, m1 = steps.make_train_step(cfg, opt_cfg)(
+        one, adamw.adamw_init(one), tok, lab)
+    state = [sp, adamw.adamw_init_sharded(sp)]
+    step = steps.make_train_step(cfg, opt_cfg, mesh=mesh, pspecs=specs)
+    state[0], state[1], ms = step(state[0], state[1], tok, lab)
+    a, b = m1["loss"].item(), ms["loss"].item()
+    loss_ulps = abs(a - b) / 2.0 ** (math.floor(math.log2(abs(a))) - 23)
+    na, nb = m1["grad_norm"].item(), ms["grad_norm"].item()
+    norm_ulps = abs(na - nb) / 2.0 ** (math.floor(math.log2(na)) - 7)
+    lr = m1["lr"].item()
+    whole = state[0].whole(state[0].shards, DEV)
+    moved = total = 0
+    worst = 0.0
+    with torch.no_grad():
+        for name, p in one.named_parameters():
+            x, y = p.float(), whole[name].float()
+            ulp = torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(
+                torch.log2(torch.maximum(x.abs(), y.abs()).clamp_min(
+                    1e-30))))
+            worst = max(worst, float(((x - y).abs() / (2 * lr + ulp)).max()))
+            moved += int((x != y).sum())
+            total += x.numel()
+    del whole, one
+    if loss_ulps > SHARD_BF16_ULPS or norm_ulps > 2 or worst > 1 or \
+            moved / total > SHARD_BF16_MOVED:
+        raise AssertionError(
+            f"[shard] olmo_1b: sharded vs one position, loss {b!r} vs {a!r} "
+            f"({loss_ulps:.3g} f32 ulps, limit {SHARD_BF16_ULPS}), global "
+            f"norm {nb!r} vs {na!r} ({norm_ulps:.3g} bf16 ulps, limit 2), "
+            f"parameters {moved / total:.3g} differ (limit "
+            f"{SHARD_BF16_MOVED}), worst {worst:.3g} of 2 lr + 1 bf16 ulp")
+    log(f"[shard] olmo_1b full, one step from the same weights (batch "
+        f"{TRAIN_BATCH}, seq {TRAIN_SEQ}, bf16): (2, 2) mesh loss {b!r} "
+        f"against one position's {a!r}, {loss_ulps:.3g} f32 ulps of the loss "
+        f"(<= {SHARD_BF16_ULPS}); global norm {nb!r} against {na!r}, "
+        f"{norm_ulps:.3g} bf16 ulps (<= 2); parameters: {moved} of {total} "
+        f"elements differ ({moved / total:.3g}, <= {SHARD_BF16_MOVED}), the "
+        f"largest by {worst:.3g} of (2 lr + 1 bf16 ulp of the larger) | "
+        f"{smi}")
+
+    def one_step():
+        state[0], state[1], _ = step(state[0], state[1], tok, lab)
+
+    busy, launches, coll = _shard_split(one_step)
+    busy /= 1e3
+    log(f"[shard] olmo_1b sharded train step, one profiled step: device "
+        f"busy {busy:.2f} ms in {launches} device operations; per-layer "
+        f"gathers {coll['shard.gather'] / 1e3:.2f} ms, gradient slicing "
+        f"{coll['shard.reduce'] / 1e3:.2f} ms, accumulation into the shards "
+        f"{coll['torch::autograd::AccumulateGrad'] / 1e3:.2f} ms (device "
+        f"time under each range) | {smi}")
+    del state, step, one_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _shard_card_vs_cpu(smi: str) -> None:
+    """The ten reduced configs at float32: one sharded step on a (2, 2)
+    mesh of the card against the same step on a (2, 2) mesh of CPU
+    positions, from the same weights and batch (whisper on its stub
+    frames): loss parts within ``_lm_f32_limit``, the global norm and the
+    moments within ``_train_f32_limit`` (the second moment twice), the
+    parameters within TRAIN_STEP_LR x lr."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import sampling
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model, sharding
+    from repro_torch.models.sharded import ShardedModel
+    from repro_torch.optim import adamw
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=2)
+    b, s = 4, 32
+    for arch in LM_DENSE + LM_MOE + LM_SSM_ENCDEC:
+        cfg = dataclasses.replace(configs.get_reduced(arch),
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        whole = model.init_params(cfg, torch.Generator().manual_seed(3),
+                                  "cpu")
+        tok, lab = (torch.from_numpy(x) for x in next(SyntheticLMData(
+            DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=3))))
+        frames = (sampling.normal(sampling.prng_key(4), (
+            b, serve.ENC_FRAMES, cfg.d_model)) if cfg.enc_dec else None)
+        out = {}
+        for dev in ("cpu", DEV):
+            mesh = _shard_mesh(dev)
+            specs = sharding.param_specs(whole, cfg, mesh)
+            sp = ShardedModel.from_model(whole, mesh, specs)
+            opt = adamw.adamw_init_sharded(sp)
+            sp, opt, m = steps.make_train_step(
+                cfg, opt_cfg, mesh=mesh, pspecs=specs)(sp, opt, tok, lab,
+                                                      frames)
+            out[dev] = (sp.whole(sp.shards, "cpu"), sp.whole(opt.mu, "cpu"),
+                        sp.whole(opt.nu, "cpu"), m)
+        (p_c, mu_c, nu_c, m_c), (p_g, mu_g, nu_g, m_g) = out["cpu"], out[DEV]
+        limit, f_limit = _train_f32_limit(cfg), _lm_f32_limit(cfg)
+        p_limit = (SHARD_JAMBA_LR if arch == "jamba_1_5_large_398b"
+                   else TRAIN_STEP_LR)
+        worst = {"loss": max(_train_ulps(m_c[k], m_g[k], m_c["loss"])
+                             for k in m_c if k not in ("grad_norm", "lr")),
+                 "grad_norm": _train_ulps(m_c["grad_norm"], m_g["grad_norm"],
+                                          m_c["grad_norm"]),
+                 "mu": 0.0, "nu": 0.0,
+                 "params_lr": max(float((p_c[n] - p_g[n]).abs().max())
+                                  for n in p_c) / opt_cfg.lr}
+        for key, want, got in (("mu", mu_c, mu_g), ("nu", nu_c, nu_g)):
+            for name in want:
+                err = _train_ulps(want[name], got[name])
+                if name.endswith(("A_log", "dt_bias")):
+                    err /= TRAIN_SSM_FACTOR
+                worst[key] = max(worst[key], err)
+        if (m_c["lr"].item() != m_g["lr"].item() or worst["loss"] > f_limit
+                or worst["grad_norm"] > limit or worst["mu"] > limit
+                or worst["nu"] > 2 * limit
+                or worst["params_lr"] > p_limit):
+            raise AssertionError(f"[shard] {arch} reduced f32: card vs CPU "
+                                 f"{worst} (limits {f_limit}, {limit}, "
+                                 f"{2 * limit}, {p_limit} lr)")
+        log(f"[shard] {arch} reduced f32, a sharded step on a (2, 2) mesh of "
+            f"the card vs the same on CPU positions: loss parts "
+            f"{worst['loss']:.3g} ulps of the loss (<= {f_limit}), global "
+            f"norm {worst['grad_norm']:.3g} (<= {limit}), mu "
+            f"{worst['mu']:.3g} / nu {worst['nu']:.3g} (<= {limit} / "
+            f"{2 * limit}), parameters {worst['params_lr']:.3g} lr (<= "
+            f"{p_limit})")
+
+
+def _shard_restart(smi: str) -> None:
+    """The reduced olmo on the card: three steps on the (2, 2) mesh with a
+    checkpoint, restored on one position and saved again without a step
+    (bitwise the checkpoint), three more there; and the same from one
+    position to the mesh.  The first resumed step's loss within
+    SHARD_BF16_ULPS of the straight run's."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.launch import train as trainer
+
+    def leaves(path):
+        with np.load(path) as z:
+            return {k: np.array(z[k]) for k in z.files}
+
+    report = []
+    for first, then in ((SHARD_DEVICES, None), (None, SHARD_DEVICES)):
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "ck")
+
+            def run(devices, steps):
+                return trainer.train(
+                    "olmo_1b", steps=steps, batch=4, seq=64, ckpt_dir=ck,
+                    ckpt_every=3, log_every=1, lr=3e-3, device=DEV,
+                    devices=devices,
+                    model_parallel=SHARD_MP if devices else 1)
+
+            straight = run(first, 6)
+            os.remove(os.path.join(ck, "ckpt_000000006.npz"))
+            three = os.path.join(ck, "ckpt_000000003.npz")
+            shutil.copy(three, os.path.join(tmp, "three.npz"))
+            run(then, 3)
+            want, got = leaves(os.path.join(tmp, "three.npz")), leaves(three)
+            if want.keys() != got.keys() or any(
+                    not np.array_equal(want[k], got[k]) for k in want):
+                raise AssertionError(f"[shard] restart {first} -> {then}: "
+                                     "the restored checkpoint changed")
+            resumed = run(then, 6)
+            a, b = straight["losses"][3], resumed["losses"][0]
+            ulps = abs(a - b) / 2.0 ** (math.floor(math.log2(abs(a))) - 23)
+            if len(resumed["losses"]) != 3 or ulps > SHARD_BF16_ULPS or \
+                    not all(map(math.isfinite, resumed["losses"])):
+                raise AssertionError(f"[shard] restart {first} -> {then}: "
+                                     f"losses {straight['losses']} / "
+                                     f"{resumed['losses']}")
+            report.append(f"{'(2, 2)' if first else 'one position'} -> "
+                          f"{'(2, 2)' if then else 'one position'}: step-4 "
+                          f"loss {ulps:.3g} f32 ulps from the straight run's")
+    log("[shard] restart across meshes (reduced olmo, bf16, batch 4, seq "
+        "64): the step-3 checkpoint restored on the other mesh and saved "
+        "again is bitwise the checkpoint; " + "; ".join(report))
+
+
+def phase_shard(smi: str) -> None:
+    """The LM trained over a mesh (ROADMAP item 18.6): OLMo-1B at full
+    width and depth on a (2, 2) mesh of the card (four positions of one
+    device), parameters and moments held in shards, beside [train]'s
+    one-position run; one step against the one-position step and one
+    profiled; the ten reduced configs card against CPU; a restart across
+    meshes."""
+    import torch
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    cfg = configs.get("olmo_1b")
+    olmo = _train_model("olmo_1b (2, 2) mesh", "olmo_1b", SHARD_STEPS, smi,
+                        warmup=1, devices=[torch.device(DEV)] * SHARD_DEVICES,
+                        model_parallel=SHARD_MP)
+    held, whole = _shard_bytes(cfg)
+    one = (f"{TRAIN_OLMO['ms']:.2f} ms a step, peak "
+           f"{TRAIN_OLMO['peak'] / 2**30:.3f} GiB" if TRAIN_OLMO
+           else "not run")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[shard] olmo_1b (2, 2) mesh of one card: {olmo['ms']:.2f} ms a "
+        f"step, {tokens / olmo['ms'] * 1e3:.0f} tokens/s, peak "
+        f"{olmo['peak'] / 2**30:.3f} GiB, beside [train]'s one position: "
+        f"{one}; parameters and moments held per position "
+        + ", ".join(f"{b / 2**30:.3f}" for b in held)
+        + f" GiB, whole {whole / 2**30:.3f} GiB | {smi}")
+    parts = {"train": time.perf_counter() - t0}
+    for part in (_shard_vs_one, _shard_card_vs_cpu, _shard_restart):
+        t1 = time.perf_counter()
+        part(smi)
+        parts[part.__name__] = time.perf_counter() - t1
+    log(f"[shard] phase took {time.perf_counter() - t0:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
 
 
 def phase_sparse_split() -> None:
@@ -5409,7 +5732,8 @@ def main() -> int:
                         (phase_programs, (launches,)),
                         (phase_mesh, (launches, results)),
                         (phase_ladder, (launches,)), (phase_lm, (smi,)),
-                        (phase_train, (smi,)), (phase_profile, ()),
+                        (phase_train, (smi,)), (phase_shard, (smi,)),
+                        (phase_profile, ()),
                         (phase_split, ()), (phase_sparse_split, ())):
         t0 = time.perf_counter()
         phase(*args)

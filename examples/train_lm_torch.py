@@ -9,8 +9,15 @@ otherwise):
 Quick demo (the reduced OLMo, ~1M params; about 10 s on the CPU):
     PYTHONPATH=src python examples/train_lm_torch.py --quick --device cpu
 
+Over a mesh (parameters and moments held in shards, ``--devices``
+positions, ``--model-parallel`` of them along the model axis; with
+``--device`` the positions may share it):
+    PYTHONPATH=src python examples/train_lm_torch.py --quick --device cpu \
+        --devices 4 --model-parallel 2
+
 Checkpoints go to ``--ckpt-dir`` (default: a new temporary directory);
-a second run over the same directory resumes from its newest one.
+a second run over the same directory resumes from its newest one, on any
+mesh.
 """
 import argparse
 import sys
@@ -57,18 +64,23 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' to run "
                          "there)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="mesh positions: that many cards, or that many "
+                         "positions of --device")
+    ap.add_argument("--model-parallel", type=int, default=1)
     args = ap.parse_args(argv)
+    mesh = dict(devices=args.devices, model_parallel=args.model_parallel)
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="train_lm_ck_")
 
     if args.quick:
         out = train("olmo_1b", steps=args.steps or 60, batch=8, seq=128,
                     reduced=True, ckpt_dir=ckpt_dir, ckpt_every=20,
-                    lr=3e-3, log_every=10, device=args.device)
+                    lr=3e-3, log_every=10, device=args.device, **mesh)
     else:
         _register_olmo_100m()
         out = train("olmo_100m", steps=args.steps or 300, batch=8, seq=256,
                     reduced=False, ckpt_dir=ckpt_dir, ckpt_every=50,
-                    lr=1e-3, log_every=10, device=args.device)
+                    lr=1e-3, log_every=10, device=args.device, **mesh)
     print("final loss:", out["final_loss"])
     return out
 

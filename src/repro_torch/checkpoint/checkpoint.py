@@ -90,10 +90,12 @@ def load_pytree(path: str, template: Any) -> Any:
 def restore_to_sharding(path: str, template: Any, shardings: Any) -> Any:
     """Restore ``path`` in ``template``'s structure onto target devices.
 
-    ``shardings`` is one device for every leaf, a tree like ``template``
-    with one device per leaf, or a list of per-position devices: every
-    leaf is then stacked with one row per position (island states), and
-    the result is a list of per-position trees, row i on ``shardings[i]``.
+    ``shardings`` is one device for every leaf; a tree like ``template``
+    with a device or a ``models.sharding.Sharding`` at each leaf (a leaf
+    with a ``Sharding`` comes back as its list of per-position shards,
+    ``Sharding.shard``); or a list of per-position devices: every leaf is
+    then stacked with one row per position (island states), and the
+    result is a list of per-position trees, row i on ``shardings[i]``.
     """
     host = load_pytree(path, tree.map(lambda x: x.to("cpu"), template))
     if isinstance(shardings, (str, torch.device)):
@@ -103,23 +105,26 @@ def restore_to_sharding(path: str, template: Any, shardings: Any) -> Any:
             not isinstance(template, list):
         return [tree.map(lambda x: x[i].to(dev), host)
                 for i, dev in enumerate(shardings)]
-    devs = _device_leaves(shardings)
+    targets = _targets(shardings)
     leaves = tree.flatten(host)
-    if len(devs) != len(leaves):
-        raise ValueError(f"{len(devs)} shardings for {len(leaves)} leaves")
-    return tree.unflatten(host, [x.to(d) for x, d in zip(leaves, devs)])
+    if len(targets) != len(leaves):
+        raise ValueError(f"{len(targets)} shardings for {len(leaves)} leaves")
+    return tree.unflatten(host, [
+        t.shard(x) if hasattr(t, "shard") else x.to(t)
+        for x, t in zip(leaves, targets)])
 
 
-def _device_leaves(shardings: Any) -> list:
-    """The device leaves of a tree of devices, in field order."""
-    if isinstance(shardings, (str, torch.device)):
-        return [torch.device(shardings)]
+def _targets(shardings: Any) -> list:
+    """The device or ``Sharding`` leaves of a tree of them, in the order
+    ``tree.flatten`` takes a template's (fields in order, dict keys
+    sorted)."""
     if shardings is None:
         return []
-    out = []
-    for kid in shardings:
-        out.extend(_device_leaves(kid))
-    return out
+    if isinstance(shardings, dict):
+        return [t for k in sorted(shardings) for t in _targets(shardings[k])]
+    if isinstance(shardings, (tuple, list)):
+        return [t for kid in shardings for t in _targets(kid)]
+    return [shardings]
 
 
 def reshard_islands(state: Any, n_new: int) -> Any:

@@ -14,9 +14,11 @@ device_count``): a 4-position mesh of ``cpu`` runs the island model in
 one process on the CPU, and a 4-position mesh of ``cuda:0`` runs it on
 one card.
 
-Meshes are built by functions, never at import time.  The reference's
-``make_production_mesh`` and its TPU ``HW`` constants serve the TPU
-dry-runs and the LM substrate and are not ported here.
+Meshes are built by functions, never at import time.
+``make_production_mesh`` gives the reference's production layouts as
+positions of one device (``meta`` by default: shapes and layout only,
+the counterpart of the dry run's forced host devices), and ``HW`` holds
+the H100's figures for a roofline.
 """
 from __future__ import annotations
 
@@ -99,6 +101,28 @@ def resolve_devices(devices: DevicesLike = None) -> list:
     if not 1 <= n <= len(avail):
         raise ValueError(f"requested {n} devices, have {len(avail)}")
     return avail[:n]
+
+
+# NVIDIA H100 80GB HBM3 (SXM), 700 W, data sheet: dense bf16 tensor-core
+# FLOP/s, HBM3 bytes/s, and NVLink 4 bytes/s in each direction (900 GB/s
+# both ways).
+HW = {
+    "peak_flops_bf16": 989e12,     # per card
+    "hbm_bw": 3.35e12,             # bytes/s per card
+    "nvlink_bw": 450e9,            # bytes/s per card, each direction
+}
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: Union[str, torch.device] = "meta") -> Mesh:
+    """The reference's production mesh: 16 x 16 positions ("data",
+    "model"), or 2 x 16 x 16 ("pod", "data", "model") with ``multi_pod``,
+    every position ``device``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    arr = np.empty(int(np.prod(shape)), dtype=object)
+    arr[:] = [torch.device(device)] * arr.size
+    return Mesh(arr.reshape(shape), axes)
 
 
 def make_data_mesh(devices: DevicesLike = None, axis: str = "data") -> Mesh:

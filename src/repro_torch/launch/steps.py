@@ -6,13 +6,16 @@ from typing import Optional
 
 import torch
 
-from ..models import model
+from ..models import model, sharding
 from ..models.config import ModelConfig
+from ..models.sharded import ShardedModel
 from ..optim import adamw, compression
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                    remat: bool = True, compress: bool = False):
+                    remat: bool = True, compress: bool = False,
+                    mesh=None, pspecs: Optional[dict] = None,
+                    dspec: Optional[tuple] = None):
     """(params, opt_state, tokens, labels[, enc_frames]) -> (params,
     opt_state, metrics): the loss and its gradients, then one AdamW step
     (``adamw.adamw_update``, which writes the parameters and moments in
@@ -23,7 +26,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     dequantise pair (``optim.compression``) before the optimizer: under
     data parallelism the int8 payload is what would cross the data
     axis.  One scale covers a reference leaf, all periods of a stacked
-    one, as in the reference."""
+    one, as in the reference.
+
+    With a ``mesh`` of more than one position the step is the sharded
+    one (``_sharded_train_step``): ``params`` is a ``ShardedModel`` over
+    that mesh (its specs are ``pspecs``, ``param_specs`` by default), the
+    moments ``adamw.adamw_init_sharded``'s, and the batch is split by
+    ``dspec`` (``data_specs`` of its size by default)."""
+    if mesh is not None and mesh.size > 1:
+        return _sharded_train_step(cfg, opt_cfg, remat, compress, mesh,
+                                   pspecs, dspec)
 
     def train_step(params: model.Model, opt_state: adamw.AdamWState,
                    tokens: torch.Tensor, labels: torch.Tensor,
@@ -57,6 +69,126 @@ def _compress_roundtrip(grads: dict, params: model.Model) -> dict:
                                 compression.decompress_grads(q, scales)):
         out.update(zip(names, leaf.unbind(0)))
     return out
+
+
+def _compress_roundtrip_sharded(grads: dict, params: ShardedModel) -> dict:
+    """``_compress_roundtrip`` of gradients held in shards: a reference
+    leaf's scale is from the largest magnitude over every shard of its
+    parameters (a ``pmax``), then each shard is quantised with it."""
+    root = params.root
+    out = {}
+    for _, _, names in adamw.reference_leaves(params.meta):
+        amax = None
+        for name in names:
+            for pos in params.shardings[name].distinct():
+                m = grads[name][pos].abs().max().to(torch.float32).to(root)
+                amax = m if amax is None else torch.maximum(amax, m)
+        for name in names:
+            out[name] = []
+            for g in grads[name]:
+                q, scale = compression.quantize_int8(
+                    g.to(torch.float32), amax=amax.to(g.device))
+                out[name].append(compression.dequantize_int8(q, scale))
+    return out
+
+
+def _data_groups(batch: sharding.Sharding) -> list[int]:
+    """The data-parallel groups of the batch's sharding, in the order of
+    their batch shards: each group's first position (the positions of a
+    group hold the same batch shard)."""
+    return sorted(batch.distinct(), key=batch.chunk)
+
+
+def _detached(parts: dict) -> dict:
+    """``loss_parts`` with each differentiable sum a new leaf."""
+    def leaf(t):
+        return t.detach().requires_grad_(True) if t.requires_grad else t
+    out = dict(parts)
+    for key in ("ce", "mtp"):
+        if key in parts:
+            out[key] = (leaf(parts[key][0]), parts[key][1])
+    out["moe"] = [leaf(t) for t in parts["moe"]]
+    return out
+
+
+def _roots(parts: dict) -> list:
+    return ([parts[k][0] for k in ("ce", "mtp") if k in parts]
+            + list(parts["moe"]))
+
+
+def _sharded_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                        remat: bool, compress: bool, mesh,
+                        pspecs: Optional[dict], dspec: Optional[tuple]):
+    """The train step over a mesh (ZeRO-3 style, ``models/sharded.py``):
+
+    - the batch is split by ``dspec``, and each data-parallel group (the
+      positions holding one batch shard) computes its shard once, on its
+      first position's device, each layer's weights gathered from their
+      shards just before the layer runs;
+    - the loss's sums (``model.loss_parts``) are added over the groups
+      and divided once (``model.loss_from_parts``): the cross-entropy,
+      MTP and MoE aux means are the whole batch's;
+    - each group's backward runs after the one before it, so every
+      position's gradient is the sum over the data axes in position
+      order, of its slice;
+    - the global norm counts a replicated slice once, and AdamW updates
+      every position's shard (``adamw.adamw_update_sharded``).
+    """
+
+    def train_step(params: ShardedModel, opt_state: adamw.AdamWState,
+                   tokens: torch.Tensor, labels: torch.Tensor,
+                   enc_frames: Optional[torch.Tensor] = None):
+        if params.mesh is not mesh:
+            raise ValueError("the parameters are sharded over another mesh")
+        if pspecs is not None and params.specs != pspecs:
+            raise ValueError("the parameters' specs are not the step's")
+        spec = dspec or sharding.data_specs(cfg, mesh, tokens.shape[0])
+        batch = sharding.Sharding(mesh, spec)
+        groups = _data_groups(batch)
+        devices = mesh.device_list()
+        leaves = [s for shards in params.shards.values() for s in shards]
+        for t in leaves:
+            t.requires_grad_(True)
+            t.grad = None
+        attached, detached = [], []
+        with sharding.activation_sharding(mesh, sharding.axes_of(spec[0]),
+                                          shards=len(groups)):
+            for pos in groups:
+                dev = devices[pos]
+                rows = batch.slices(pos, tokens.shape)[0]
+                frames = (None if enc_frames is None
+                          else enc_frames[rows].to(dev))
+                with params.view(dev) as view:
+                    parts = model.loss_parts(
+                        view, tokens[rows].to(dev), labels[rows].to(dev),
+                        cfg, enc_frames=frames, remat=remat)
+                attached.append(parts)
+                detached.append(_detached(parts))
+        loss, metrics = model.loss_from_parts(detached, cfg)
+        seeds = [r for d in detached for r in _roots(d) if r.requires_grad]
+        grads = iter(torch.autograd.grad(loss, seeds, allow_unused=True))
+        for a, d in zip(attached, detached):
+            roots, seed = [], []
+            for r, dr in zip(_roots(a), _roots(d)):
+                if dr.requires_grad:
+                    g = next(grads)
+                    roots.append(r)
+                    seed.append(torch.zeros_like(r) if g is None else g)
+            torch.autograd.backward(roots, seed)
+        del attached, detached, seeds
+        grads = {name: [s.grad for s in shards]
+                 for name, shards in params.shards.items()}
+        for t in leaves:
+            t.grad = None
+            t.requires_grad_(False)
+        if compress:
+            grads = _compress_roundtrip_sharded(grads, params)
+        params, opt_state, om = adamw.adamw_update_sharded(
+            opt_cfg, grads, opt_state, params)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return params, opt_state, {**metrics, **om}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):

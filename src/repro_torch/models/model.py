@@ -33,7 +33,7 @@ from torch.utils import checkpoint as _checkpoint
 
 from .. import device as _device
 from ..core import floatops
-from . import layers, moe, ssm
+from . import layers, moe, sharding, ssm
 from .config import LayerSpec, ModelConfig
 
 
@@ -202,10 +202,16 @@ def _run_body(params: Model, x: torch.Tensor, cfg: ModelConfig,
               enc_out: Optional[torch.Tensor] = None, remat: bool = False
               ) -> tuple[torch.Tensor, Optional[list], torch.Tensor]:
     """Every layer in order -> (x, new caches or None, the layers' summed
-    aux loss).  ``remat`` checkpoints each layer (full sequence only)."""
+    aux loss).  ``remat`` checkpoints each layer (full sequence only).
+    The token stream passes through ``sharding.constrain_tokens`` where
+    the reference's scanned period body starts and ends."""
     new_caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_prefix, period = len(cfg.prefix), len(cfg.period)
     for i, layer in enumerate(params.all_layers()):
+        j = i - n_prefix                          # index in the body
+        if j >= 0 and j % period == 0:
+            x = sharding.constrain_tokens(x)
         if remat:
             x, c, aux = _checkpoint.checkpoint(
                 layer, x, cfg, positions, None, enc_out, use_reentrant=False,
@@ -213,17 +219,26 @@ def _run_body(params: Model, x: torch.Tensor, cfg: ModelConfig,
         else:
             x, c, aux = layer(x, cfg, positions,
                               None if caches is None else caches[i], enc_out)
+        if j >= 0 and j % period == period - 1:
+            x = sharding.constrain_tokens(x)
         new_caches.append(c)
         if aux is not None:
             aux_total = aux_total + aux
     return x, (None if caches is None else new_caches), aux_total
 
 
+@contextlib.contextmanager
+def _not_recording(aux_parts: bool):
+    with moe.not_recording(aux_parts), sharding.not_recording():
+        yield
+
+
 def _record_once():
     """A checkpointed layer's contexts: its forward as it is, its
-    recomputation in the backward without MoE routing records (the
-    forward recorded that routing once already)."""
-    return contextlib.nullcontext(), moe.not_recording()
+    recomputation in the backward without MoE routing, aux-part or
+    activation-constraint records (the forward recorded them once
+    already), computing the aux parts where the forward did."""
+    return contextlib.nullcontext(), _not_recording(moe.in_aux_parts())
 
 
 def encode(params: Model, frames: torch.Tensor,
@@ -266,7 +281,7 @@ def _forward_hidden(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
     _check_precision(cfg, tokens.device)
     if positions is None:
         positions = layers.positions_like(tokens)
-    x = _embed(params, tokens, cfg, positions)
+    x = sharding.constrain_tokens(_embed(params, tokens, cfg, positions))
     enc_out = None
     if cfg.enc_dec:
         assert enc_frames is not None, "enc-dec model needs encoder frames"
@@ -292,36 +307,86 @@ def loss_fn(params: Model, tokens: torch.Tensor, labels: torch.Tensor,
             ) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy + 0.01 x the MoE aux loss (+ 0.3 x the
     depth-1 MTP loss when ``cfg.mtp_depth``) -> (total 0-d float32,
-    {"ce", "aux"[, "mtp"], "loss"}).  Labels < 0 are masked out.  XLA
-    contracts each weighted add into one multiply-add (``addcmul``)."""
-    h, aux = _forward_hidden(params, tokens, cfg, positions, enc_frames,
-                             remat)
-    ce = _xent(_project_logits(params, h, cfg), labels)
+    {"ce", "aux"[, "mtp"], "loss"}): ``loss_from_parts`` of this batch's
+    ``loss_parts``.  Labels < 0 are masked out."""
+    return loss_from_parts([loss_parts(params, tokens, labels, cfg,
+                                       enc_frames, remat, positions)], cfg)
+
+
+def loss_parts(params: Model, tokens: torch.Tensor, labels: torch.Tensor,
+               cfg: ModelConfig, enc_frames: Optional[torch.Tensor] = None,
+               remat: bool = True, positions: Optional[torch.Tensor] = None
+               ) -> dict:
+    """The loss's sums over this batch, which ``loss_from_parts`` adds over
+    the batch shards of a sharded step before it divides: {"ce": (the
+    labelled positions' summed log-likelihood, their count), "mtp": the
+    same for the MTP head (when ``cfg.mtp_depth``), "moe": each MoE
+    layer's (2, E) sums (``moe.aux_parts``), "tokens": B x S}."""
+    with moe.aux_parts() as moe_parts:
+        h, _ = _forward_hidden(params, tokens, cfg, positions, enc_frames,
+                               remat)
+    out = {"ce": _xent_sums(_project_logits(params, h, cfg), labels),
+           "moe": moe_parts, "tokens": tokens.numel()}
+    if cfg.mtp_depth:
+        out["mtp"] = _mtp_sums(params, h, tokens, labels, cfg)
+    return out
+
+
+def loss_from_parts(parts: list[dict], cfg: ModelConfig
+                    ) -> tuple[torch.Tensor, dict]:
+    """``loss_fn``'s (total, metrics) from the ``loss_parts`` of each batch
+    shard (one for a whole batch), on the first shard's device: every sum
+    is added over the shards in their order, and each mean and the MoE
+    aux loss (a product of two means over every token) are taken once,
+    over the whole batch.  XLA contracts each weighted add into one
+    multiply-add (``addcmul``)."""
+    dev = parts[0]["ce"][0].device
+
+    def added(key: str, k: int) -> torch.Tensor:
+        total = parts[0][key][k]
+        for p in parts[1:]:
+            total = total + p[key][k].to(dev)
+        return total
+
+    ce = _mean(added("ce", 0), added("ce", 1))
+    tokens = sum(p["tokens"] for p in parts)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    for layer in range(len(parts[0]["moe"])):
+        aux = aux + moe.aux_from_parts([p["moe"][layer] for p in parts],
+                                       tokens, cfg)
     total = torch.addcmul(ce, floatops.const(0.01, ce), aux)
     metrics = {"ce": ce, "aux": aux}
     if cfg.mtp_depth:
-        mtp = _mtp_loss(params, h, tokens, labels, cfg)
+        mtp = _mean(added("mtp", 0), added("mtp", 1))
         total = torch.addcmul(total, floatops.const(0.3, mtp), mtp)
         metrics["mtp"] = mtp
     metrics["loss"] = total
     return total, metrics
 
 
-def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean float32 cross-entropy over the positions with a label >= 0."""
+def _xent_sums(logits: torch.Tensor, labels: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 cross-entropy's sums over the positions with a label >= 0:
+    (the summed log-likelihood, the count)."""
     mask = labels >= 0
     labs = torch.clamp_min(labels, 0).long()
     lp = torch.log_softmax(logits.to(torch.float32), -1)
     ll = torch.gather(lp, -1, labs[..., None])[..., 0]
-    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1).to(
-        torch.float32)
+    return (ll * mask).sum(), mask.sum()
 
 
-def _mtp_loss(params: Model, h: torch.Tensor, tokens: torch.Tensor,
-              labels: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mean(ll_sum: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """The mean cross-entropy from ``_xent_sums``."""
+    return -ll_sum / torch.clamp_min(count, 1).to(torch.float32)
+
+
+def _mtp_sums(params: Model, h: torch.Tensor, tokens: torch.Tensor,
+              labels: torch.Tensor, cfg: ModelConfig
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """DeepSeek-V3's depth-1 multi-token prediction: the trunk's hidden
     state at t joined with the embedding of token t+1, one extra dense
-    layer and ``norm``, predicting label t+1 (token t+2)."""
+    layer and ``norm``, predicting label t+1 (token t+2); its
+    ``_xent_sums``."""
     ct = cfg.cdtype
     mtp = params.mtp
     x = params.embed[tokens.long()].to(ct)
@@ -333,7 +398,7 @@ def _mtp_loss(params: Model, h: torch.Tensor, tokens: torch.Tensor,
     logits = _project_logits(params, comb, cfg)
     mtp_labels = torch.roll(labels, -1, 1)
     mtp_labels[:, -1] = -1
-    return _xent(logits, mtp_labels)
+    return _xent_sums(logits, mtp_labels)
 
 
 def _project_logits(params: Model, x: torch.Tensor,

@@ -17,21 +17,25 @@ the CPU and on the card, where ``index_add_`` would add in atomic order.
 Shared experts (deepseek-v3) run densely on every token.  The router
 computes float32 logits whatever the parameter dtype, renormalises the
 top-k gates and returns the Switch load-balancing loss (returned, not
-applied).  The reference's sharding constraints on the expert batch
-(``sharding.constrain_expert_batch``) do nothing in one process and are
-left out until ROADMAP item 18.6 (sharding).
+applied).  The expert batch passes through the reference's constraint,
+``sharding.constrain_expert_batch``, before and after the expert products.
+
+The loss is a product of two means over every token of the batch.  Where
+the batch is split into shards (the sharded train step), ``aux_parts``
+collects each call's sums instead, ``aux_from_parts`` adds them over the
+shards and takes the product once.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..core import floatops
-from . import layers
+from . import layers, sharding
 from .config import ModelConfig
 
 # While ``recording()`` is active in this context: one (probs (B, S, E)
@@ -53,15 +57,60 @@ def recording():
         _RECORD.reset(token)
 
 
+# While ``aux_parts()`` is active: one (2, E) float32 tensor per
+# ``moe_layer`` call (the router probabilities summed over the tokens, and
+# the count of (token, k) pairs routed to each expert), in call order
+_AUX_PARTS: contextvars.ContextVar[Optional[list]] = contextvars.ContextVar(
+    "moe_aux_parts", default=None)
+
+
 @contextlib.contextmanager
-def not_recording():
-    """No routing is recorded inside (a checkpointed layer's recomputation
-    in the backward repeats a routing its forward recorded)."""
+def not_recording(aux_parts: bool = False):
+    """No routing and no aux parts are recorded inside (a checkpointed
+    layer's recomputation in the backward repeats a routing its forward
+    recorded).  With ``aux_parts`` ``moe_layer`` computes its aux parts
+    and drops them, so that the recomputation of a forward that ran
+    inside ``aux_parts()`` runs the same operations."""
     token = _RECORD.set(None)
+    parts = _AUX_PARTS.set([] if aux_parts else None)
     try:
         yield
     finally:
+        _AUX_PARTS.reset(parts)
         _RECORD.reset(token)
+
+
+def in_aux_parts() -> bool:
+    return _AUX_PARTS.get() is not None
+
+
+@contextlib.contextmanager
+def aux_parts():
+    """Inside, ``moe_layer`` returns no aux loss and appends its sums to
+    the list this yields instead (``aux_from_parts`` turns them into the
+    loss)."""
+    parts: list = []
+    token = _AUX_PARTS.set(parts)
+    try:
+        yield parts
+    finally:
+        _AUX_PARTS.reset(token)
+
+
+def aux_from_parts(shards: Sequence[torch.Tensor], tokens: int,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """One layer's load-balancing loss from its (2, E) sums over the batch
+    shards (``aux_parts``, each shard's on its own device) and the
+    batch's ``tokens``: the sums added over the shards in order, then
+    ``E * sum(me * ce)`` as ``moe_layer`` computes it over a whole
+    batch."""
+    dev = shards[0].device
+    total = shards[0]
+    for part in shards[1:]:
+        total = total + part.to(dev)
+    me = total[0] / tokens
+    ce = total[1] / (tokens * cfg.top_k)
+    return cfg.n_experts * torch.sum(me * ce)
 
 
 def _expert_init(shape, dtype, gen: Optional[torch.Generator],
@@ -161,8 +210,9 @@ def _route(p: MoE, xt: torch.Tensor, cfg: ModelConfig,
 
 def moe_layer(p: MoE, x: torch.Tensor, cfg: ModelConfig,
               generator: Optional[torch.Generator] = None
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (out (B, S, d), aux loss 0-d float32).
+              ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x (B, S, d) -> (out (B, S, d), aux loss 0-d float32, or None
+    inside ``aux_parts``).
 
     Capacity is S*K/E*capacity_factor per sequence; ``generator`` draws
     the router noise when ``cfg.router_noise`` > 0."""
@@ -177,10 +227,14 @@ def moe_layer(p: MoE, x: torch.Tensor, cfg: ModelConfig,
         record.append((probs, idx))
 
     # load-balance auxiliary (Switch-style): E * sum_e f_e * P_e
-    me = probs.mean((0, 1))
-    ce = torch.bincount(idx.reshape(-1), minlength=e).to(torch.float32) \
-        / (b * s * k)
-    aux = e * torch.sum(me * ce)
+    counts = torch.bincount(idx.reshape(-1), minlength=e).to(torch.float32)
+    parts = _AUX_PARTS.get()
+    if parts is None:
+        me = probs.mean((0, 1))
+        aux = e * torch.sum(me * (counts / (b * s * k)))
+    else:
+        aux = None
+        parts.append(torch.stack([probs.sum((0, 1)), counts]))
 
     cap = int(max(1, round(s * k / e * cfg.capacity_factor)))
 
@@ -203,8 +257,10 @@ def moe_layer(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     src = torch.clamp(grp_start[..., None] + c, max=s * k - 1)
     filled = (c < count[..., None]).reshape(b, e * cap, 1)
     tok = st.gather(1, src.reshape(b, e * cap))
-    ebatch = torch.where(filled, xt[rows, tok], 0).reshape(b, e, cap, d)
-    eout = _expert_ffn_batched(p, ebatch, cfg).reshape(b, e * cap, d)
+    ebatch = sharding.constrain_expert_batch(
+        torch.where(filled, xt[rows, tok], 0).reshape(b, e, cap, d))
+    eout = sharding.constrain_expert_batch(
+        _expert_ffn_batched(p, ebatch, cfg)).reshape(b, e * cap, d)
 
     # combine: each pair's slot back in (token, k) order
     slot_sorted = torch.arange(s * k, device=dev) - grp_start.gather(1, se)

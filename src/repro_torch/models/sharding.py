@@ -1,5 +1,6 @@
-"""Partition rules, the part of ``repro.models.sharding`` that the trainer
-needs: ``param_specs``, ``data_specs`` and ``to_shardings``.
+"""Partition rules and shards, the port of ``repro.models.sharding``:
+``param_specs``, ``data_specs``, ``cache_specs``, ``to_shardings`` and the
+activation-sharding context.
 
 A spec is a tuple with one entry per tensor dimension: None (replicated),
 a mesh axis name, or a tuple of two or more axis names (one name alone is
@@ -18,26 +19,40 @@ Every rule checks divisibility and falls back to replication.  The
 reference stacks the periodic body and the encoder over a leading axis
 and evaluates its rules on those stacked shapes; the port's layers are
 unrolled, so each rule here reads the reference's stacked shape and the
-period axis is dropped from the spec it gives.
+period axis is dropped from the spec it gives (the decode cache's too).
+Where a rule shards that period axis itself (a 2-D MLP ``wo`` stacked to
+3-D matches the attention ``wo`` rule, and OLMo-1B's 16 periods split
+over ``model``), each unrolled layer is replicated over that axis.
 
-``to_shardings`` places every tensor on the device of a one-position
-mesh.  Placing shards over more positions, the activation constraints
-and the cache specs are ROADMAP item 18.6.
+A ``Sharding`` (``to_shardings``) is the port's ``NamedSharding``: a mesh
+of ``torch.device`` positions (``launch.mesh.Mesh``) and a spec.  A value
+sharded over the mesh is a list of per-position tensors in row-major
+position order (``core/collectives.py``); ``shard`` cuts a whole tensor
+into that list and ``gather`` puts it back together.
+
+The activation constraints (``constrain_tokens``,
+``constrain_expert_batch``, ``constrain_combine``) are value identities,
+as ``with_sharding_constraint`` is on values: the port's sharded step
+places the batch itself (``launch/steps.py``).  Inside
+``activation_sharding`` each call records the spec that the reference
+would pin, with the reference's divisibility fallbacks.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 from torch import nn
 
-from . import model
 from .config import ModelConfig
 
-SHARDING_ITEM = "ROADMAP item 18.6 (sharding)"
 
-
-def _tup(axis) -> tuple:
+def axes_of(axis) -> tuple:
+    """A spec entry's mesh axes: () for None, a 1-tuple for a name."""
     if axis is None:
         return ()
     return (axis,) if isinstance(axis, str) else tuple(axis)
@@ -53,7 +68,7 @@ def _entry(axes: tuple):
 def _div(n: int, mesh, axis) -> bool:
     if axis is None:
         return True
-    return n % int(np.prod([mesh.shape[a] for a in _tup(axis)])) == 0
+    return n % int(np.prod([mesh.shape[a] for a in axes_of(axis)])) == 0
 
 
 def _rule(path: str, shape: Sequence[int], mesh, fa, ma) -> tuple:
@@ -175,7 +190,8 @@ def param_specs(params: nn.Module, cfg: ModelConfig, mesh,
     """{parameter name: spec}, from the shapes only.  ``fsdp_axis`` may be
     one axis or a tuple (pure FSDP shards weights over both); model_axis
     None turns tensor parallelism off."""
-    fa = tuple(a for a in _tup(fsdp_axis) if a in mesh.shape) or None
+    from . import model     # model.py imports this module
+    fa = tuple(a for a in axes_of(fsdp_axis) if a in mesh.shape) or None
     out = {}
     for name, p in params.named_parameters():
         path, _, stack = model.reference_path(name, cfg)
@@ -190,25 +206,249 @@ def batch_axes(mesh) -> tuple:
     return tuple(a for a in ("pod", "data") if a in mesh.shape)
 
 
-def data_specs(cfg: ModelConfig, mesh, batch: int) -> tuple:
-    """Spec of (B, S) token batches: the batch over every data-parallel
-    axis that divides it."""
+def data_specs(cfg: ModelConfig, mesh, batch: int,
+               axes: Optional[Sequence[str]] = None) -> tuple:
+    """Spec of (B, S) token batches: the batch over every axis of
+    ``axes`` (default: the data-parallel axes, ``batch_axes``) that
+    divides it."""
     keep: list = []
     rem = batch
-    for a in batch_axes(mesh):
+    for a in batch_axes(mesh) if axes is None else axes:
         if rem % mesh.shape[a] == 0:
             keep.append(a)
             rem //= mesh.shape[a]
     return (_entry(tuple(keep)), None)
 
 
+def cache_specs(caches: dict, cfg: ModelConfig, mesh, batch: int,
+                shard_seq: bool = False) -> dict:
+    """Decode-cache specs, in the cache's own structure (``{"layers":
+    [...], "step"}``, ``model.init_cache``).  Default: the batch over the
+    data-parallel axes, kv-heads over ``model`` when divisible.
+    shard_seq=True (long context, batch 1): the cache's sequence axis
+    over ``data``, the distributed flash-decode layout."""
+    bspec = data_specs(cfg, mesh, batch)[0]
+    n_model = mesh.shape["model"]
+
+    def rule(name: str, shape) -> tuple:
+        if name in ("len", "step") or len(shape) == 0:
+            return ()
+        if name in ("k", "v"):                    # (B, T, KV, dh)
+            kvs = "model" if shape[-2] % n_model == 0 else None
+            return ((None, "data", kvs, None) if shard_seq
+                    else (bspec, None, kvs, None))
+        if name == "ckv":                         # (B, T, rank)
+            return (None, "data", None) if shard_seq else (bspec, None, None)
+        if name == "k_rope":                      # (B, T, 1, rdim)
+            return ((None, "data", None, None) if shard_seq
+                    else (bspec, None, None, None))
+        if name == "conv":                        # (B, K-1, conv_dim)
+            return (bspec, None,
+                    "model" if shape[-1] % n_model == 0 else None)
+        if name == "h":                           # (B, H, P, N)
+            return (bspec, "model" if shape[-3] % n_model == 0 else None,
+                    None, None)
+        return ()
+
+    def walk(node, name: str):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, name) for v in node]
+        return rule(name, tuple(node.shape))
+
+    return walk(caches, "")
+
+
+class Sharding:
+    """The port's ``NamedSharding``: ``mesh`` (a ``launch.mesh.Mesh``) and
+    ``spec``, which splits each dimension into equal chunks over the
+    product of its axes; a position's chunk index along a dimension is
+    its row-major coordinate over that dimension's axes, in the order the
+    entry names them.  Positions whose chunks agree in every dimension
+    hold copies of the same slice.  On a mesh of ``meta`` positions it
+    gives shapes only."""
+
+    def __init__(self, mesh, spec: Sequence):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+
+    def __repr__(self) -> str:
+        return f"Sharding({self.mesh.shape}, {self.spec})"
+
+    def _parts(self, entry) -> int:
+        return int(np.prod([self.mesh.shape[a] for a in axes_of(entry)]))
+
+    def shard_shape(self, shape: Sequence[int]) -> tuple:
+        """The shape each position holds of a whole tensor of ``shape``."""
+        shape = tuple(shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} for a shape {shape}")
+        out = list(shape)
+        for d, entry in enumerate(self.spec):
+            n = self._parts(entry)
+            if shape[d] % n:
+                raise ValueError(f"dimension {d} of {shape} does not split "
+                                 f"into {n} ({self.spec})")
+            out[d] = shape[d] // n
+        return tuple(out)
+
+    def chunk(self, pos: int) -> tuple:
+        """Position ``pos``'s chunk index along each dimension of the
+        spec."""
+        coords = dict(zip(self.mesh.axis_names, np.unravel_index(
+            pos, self.mesh.devices.shape)))
+        out = []
+        for entry in self.spec:
+            k = 0
+            for a in axes_of(entry):
+                k = k * self.mesh.shape[a] + int(coords[a])
+            out.append(k)
+        return tuple(out)
+
+    def slices(self, pos: int, shape: Sequence[int]) -> tuple:
+        """Position ``pos``'s slice of a whole tensor of ``shape``."""
+        part = self.shard_shape(shape)
+        return tuple(slice(k * n, (k + 1) * n)
+                     for k, n in zip(self.chunk(pos), part))
+
+    def distinct(self) -> list[int]:
+        """The first position holding each distinct chunk, in position
+        order: where a replicated slice is counted once."""
+        seen: dict = {}
+        for pos in range(self.mesh.size):
+            seen.setdefault(self.chunk(pos), pos)
+        return list(seen.values())
+
+    def shard(self, t: torch.Tensor) -> list:
+        """``t`` cut into each position's slice, a contiguous copy on that
+        position's device (a replicated slice copied to every position
+        holding it)."""
+        return [t[self.slices(pos, t.shape)].to(
+            dev, memory_format=torch.contiguous_format, copy=True)
+            for pos, dev in enumerate(self.mesh.device_list())]
+
+    def gather(self, shards: Sequence[torch.Tensor],
+               device) -> torch.Tensor:
+        """The whole tensor on ``device`` from the per-position
+        ``shards`` (each distinct slice read once)."""
+        part = tuple(shards[0].shape)
+        shape = tuple(n * (self._parts(self.spec[d]) if d < len(self.spec)
+                           else 1) for d, n in enumerate(part))
+        out = torch.empty(shape, dtype=shards[0].dtype, device=device)
+        for pos in self.distinct():
+            out[self.slices(pos, shape)] = shards[pos]
+        return out
+
+
 def to_shardings(specs: dict, mesh) -> dict:
-    """{name: the device its tensor lives on}: every tensor on the device
-    of a one-position mesh.  More positions raise NotImplementedError
-    (``SHARDING_ITEM``)."""
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"to_shardings over a {mesh.size}-position mesh {mesh.shape}: "
-            f"{SHARDING_ITEM}")
-    dev = mesh.device_list()[0]
-    return {name: dev for name in specs}
+    """{name: ``Sharding(mesh, spec)``} for {name: spec}."""
+    return {name: Sharding(mesh, spec) for name, spec in specs.items()}
+
+
+# --------------------------------------------------------------------------
+# The activation-sharding context.  The reference pins the token stream to
+# batch-over-data-parallel-axes inside its layer scan, and the MoE expert
+# batch to batch x experts, so that GSPMD does not replicate the batch.
+# The port's sharded step places the batch itself; here the constraints
+# are value identities that record, inside the context, what the
+# reference would pin.
+
+
+@dataclasses.dataclass
+class _ActContext:
+    mesh: object
+    batch_axes: tuple
+    shards: int            # batch shards the activations seen are one of
+    record: list
+
+
+_ACT: contextvars.ContextVar[Optional[_ActContext]] = contextvars.ContextVar(
+    "activation_sharding", default=None)
+_MUTED: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "activation_sharding_muted", default=False)
+
+
+@contextlib.contextmanager
+def activation_sharding(mesh, batch_axes_: Sequence[str], shards: int = 1):
+    """Inside, every constraint records ``(function name, the global shape
+    of its tensor, the spec the reference would pin)`` into the list this
+    yields.  ``shards`` > 1 says that the tensors seen hold one of that
+    many batch shards (the sharded train step's groups), so their global
+    batch is ``shards`` times theirs."""
+    record: list = []
+    token = _ACT.set(_ActContext(mesh, tuple(batch_axes_), shards, record))
+    try:
+        yield record
+    finally:
+        _ACT.reset(token)
+
+
+@contextlib.contextmanager
+def not_recording():
+    """No constraint is recorded inside (a checkpointed layer's
+    recomputation in the backward repeats calls its forward recorded)."""
+    token = _MUTED.set(True)
+    try:
+        yield
+    finally:
+        _MUTED.reset(token)
+
+
+def _global_rows(ctx: _ActContext, x: torch.Tensor) -> int:
+    return x.shape[0] * ctx.shards
+
+
+def _batch_entry(ctx: _ActContext, rows: int):
+    total = int(np.prod([ctx.mesh.shape[a] for a in ctx.batch_axes]))
+    return _entry(ctx.batch_axes) if ctx.batch_axes and \
+        rows % total == 0 else None
+
+
+def _pin(ctx: _ActContext, name: str, x: torch.Tensor,
+         spec: tuple) -> torch.Tensor:
+    if not _MUTED.get():
+        ctx.record.append((name, (_global_rows(ctx, x),) + tuple(
+            x.shape[1:]), spec))
+    return x
+
+
+def constrain_expert_batch(x: torch.Tensor) -> torch.Tensor:
+    """(B, E, cap, d) expert-dispatch buffer: batch over the data-parallel
+    axes, experts over ``model`` (the boundary whose reshard is the MoE
+    all-to-all); unpinned when neither divides."""
+    ctx = _ACT.get()
+    if ctx is None or x.dim() != 4:
+        return x
+    espec = ("model" if "model" in ctx.mesh.shape
+             and x.shape[1] % ctx.mesh.shape["model"] == 0 else None)
+    bspec = _batch_entry(ctx, _global_rows(ctx, x))
+    if bspec is None and espec is None:
+        return x
+    return _pin(ctx, "constrain_expert_batch", x, (bspec, espec, None, None))
+
+
+def constrain_combine(x: torch.Tensor) -> torch.Tensor:
+    """(B, E, cap, d) expert output before the combine: batch over the
+    data-parallel axes, experts unsharded.  The reference measured it
+    slower than what GSPMD derives and calls it nowhere; so does the
+    port."""
+    ctx = _ACT.get()
+    if ctx is None or x.dim() != 4:
+        return x
+    return _pin(ctx, "constrain_combine", x, (
+        _batch_entry(ctx, _global_rows(ctx, x)), None, None, None))
+
+
+def constrain_tokens(x: torch.Tensor) -> torch.Tensor:
+    """A (B, ...) activation: batch over the data-parallel axes (unpinned
+    outside the context, without such axes, or when B does not
+    divide)."""
+    ctx = _ACT.get()
+    if ctx is None or not ctx.batch_axes or x.dim() == 0:
+        return x
+    bspec = _batch_entry(ctx, _global_rows(ctx, x))
+    if bspec is None:
+        return x
+    return _pin(ctx, "constrain_tokens", x,
+                (bspec,) + (None,) * (x.dim() - 1))

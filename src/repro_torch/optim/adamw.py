@@ -147,6 +147,39 @@ def _pow(base: float, step: torch.Tensor) -> torch.Tensor:
     return floatops.powf(floatops.const(base, s), s)
 
 
+def _constants(cfg: AdamWConfig, step: torch.Tensor,
+               gnorm: torch.Tensor) -> dict:
+    """The update's 0-d float32 factors at ``step`` (already advanced)
+    for the global norm ``gnorm``: the clip scale, the learning rate and
+    Adam's constants."""
+    c = lambda v: floatops.const(v, gnorm)  # noqa: E731
+    lr = cosine_lr(cfg, step)
+    return {"scale": torch.clamp(c(cfg.clip_norm)
+                                 / torch.clamp_min(gnorm, 1e-9), max=1.0),
+            "lr": lr, "neg_lr": -lr,
+            "c1": c(1.0) - _pow(cfg.b1, step),
+            "c2": c(1.0) - _pow(cfg.b2, step),
+            "b1": c(cfg.b1), "b2": c(cfg.b2), "one_b1": c(1 - cfg.b1),
+            "one_b2": c(1 - cfg.b2), "eps": c(cfg.eps),
+            "wd": c(cfg.weight_decay)}
+
+
+def _apply(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+           nu: torch.Tensor, decay: bool, k: dict) -> None:
+    """One parameter's update in place (elementwise: a slice's update is
+    the slice of the whole's)."""
+    g = g.to(torch.float32) * k["scale"]
+    m = torch.addcmul(k["one_b1"] * g, k["b1"], mu)
+    v = torch.addcmul((k["one_b2"] * g) * g, k["b2"], nu)
+    delta = m / (k["c1"] * (_sqrt(v / k["c2"]) + k["eps"]))
+    pf = p.to(torch.float32)
+    if decay:
+        delta = torch.addcmul(delta, k["wd"], pf)
+    p.copy_(torch.addcmul(pf, k["neg_lr"], delta))
+    mu.copy_(m)
+    nu.copy_(v)
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: dict, state: AdamWState,
                  params: nn.Module) -> tuple[nn.Module, AdamWState, dict]:
@@ -155,26 +188,72 @@ def adamw_update(cfg: AdamWConfig, grads: dict, state: AdamWState,
     place -> (params, the new state, {"grad_norm", "lr"} 0-d float32)."""
     step = state.step + 1
     gnorm = global_norm(grads, params)
-    c = lambda v: floatops.const(v, gnorm)  # noqa: E731
-    scale = torch.clamp(c(cfg.clip_norm) / torch.clamp_min(gnorm, 1e-9),
-                        max=1.0)
-    lr = cosine_lr(cfg, step)
-    neg_lr = -lr
-    c1 = c(1.0) - _pow(cfg.b1, step)
-    c2 = c(1.0) - _pow(cfg.b2, step)
-    b1, b2, one_b1, one_b2 = c(cfg.b1), c(cfg.b2), c(1 - cfg.b1), c(1 - cfg.b2)
-    eps, wd = c(cfg.eps), c(cfg.weight_decay)
+    k = _constants(cfg, step, gnorm)
     decay = decays(params)
     for name, p in params.named_parameters():
-        g = grads[name].to(torch.float32) * scale
-        m = torch.addcmul(one_b1 * g, b1, state.mu[name])
-        v = torch.addcmul((one_b2 * g) * g, b2, state.nu[name])
-        delta = m / (c1 * (_sqrt(v / c2) + eps))
-        pf = p.to(torch.float32)
-        if decay[name]:
-            delta = torch.addcmul(delta, wd, pf)
-        p.copy_(torch.addcmul(pf, neg_lr, delta))
-        state.mu[name].copy_(m)
-        state.nu[name].copy_(v)
+        _apply(p, grads[name], state.mu[name], state.nu[name], decay[name],
+               k)
     return params, AdamWState(state.mu, state.nu, step), {
-        "grad_norm": gnorm, "lr": lr}
+        "grad_norm": gnorm, "lr": k["lr"]}
+
+
+# ------------------------------------------------------------- sharded
+# The same optimizer over a ``models.sharded.ShardedModel``: the moments
+# are held in the parameters' shards (``mu[name]``, ``nu[name]``: one
+# float32 tensor per mesh position), the step count on the first
+# position's device.
+
+
+def adamw_init_sharded(params) -> AdamWState:
+    """Zero moments in ``params``' shards."""
+    def zeros():
+        return {name: [torch.zeros(s.shape, dtype=torch.float32,
+                                   device=s.device) for s in shards]
+                for name, shards in params.shards.items()}
+    return AdamWState(mu=zeros(), nu=zeros(), step=torch.zeros(
+        (), dtype=torch.int32, device=params.root))
+
+
+def global_norm_sharded(grads: dict, params) -> torch.Tensor:
+    """``global_norm`` of gradients held in shards (``grads[name]``: one
+    per position): each parameter's squares summed over its distinct
+    shards in position order, a replicated slice once; on the first
+    position's device."""
+    root = params.root
+
+    def squares(name: str) -> torch.Tensor:
+        total = None
+        for pos in params.shardings[name].distinct():
+            sq = _sum_squares(grads[name][pos]).to(root)
+            total = sq if total is None else total + sq
+        return total
+
+    total = None
+    for _, _, names in reference_leaves(params.meta):
+        leaf = squares(names[0])
+        for name in names[1:]:
+            leaf = leaf + squares(name)
+        total = leaf if total is None else total + leaf
+    return _sqrt(total)
+
+
+@torch.no_grad()
+def adamw_update_sharded(cfg: AdamWConfig, grads: dict, state: AdamWState,
+                         params) -> tuple[object, AdamWState, dict]:
+    """``adamw_update`` on every position's shard, from the gradients'
+    shards; the norm is the whole gradient's (``global_norm_sharded``)."""
+    step = state.step + 1
+    gnorm = global_norm_sharded(grads, params)
+    k = _constants(cfg, step, gnorm)
+    on: dict = {}
+    decay = decays(params.meta)
+    for name, shards in params.shards.items():
+        for pos, p in enumerate(shards):
+            kd = on.get(p.device)
+            if kd is None:
+                kd = on[p.device] = {key: v.to(p.device)
+                                     for key, v in k.items()}
+            _apply(p, grads[name][pos], state.mu[name][pos],
+                   state.nu[name][pos], decay[name], kd)
+    return params, AdamWState(state.mu, state.nu, step), {
+        "grad_norm": gnorm, "lr": k["lr"]}

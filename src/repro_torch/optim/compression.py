@@ -40,7 +40,8 @@ def compression_init(params: PyTree) -> CompressionState:
 
 
 def quantize_int8(x: torch.Tensor, key: Optional[torch.Tensor] = None,
-                  axis: Optional[int] = None, *, compiled: bool = False
+                  axis: Optional[int] = None, *, compiled: bool = False,
+                  amax: Optional[torch.Tensor] = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """int8 quantisation with symmetric scales -> (q int8, scale f32).
 
@@ -53,12 +54,13 @@ def quantize_int8(x: torch.Tensor, key: Optional[torch.Tensor] = None,
     ``scale = max(amax, 1e-12) / 127`` as the reference's eager call
     computes it.  Inside a jitted program (the reference's colony step)
     XLA multiplies by float32(1/127) instead; ``compiled=True`` gives
-    those numbers.
+    those numbers.  ``amax`` gives the largest magnitude instead of
+    ``x``'s own (a tensor held in shards takes its whole's: the shards'
+    ``pmax``).
     """
-    if axis is None:
-        amax = x.abs().max()
-    else:
-        amax = x.abs().amax(dim=axis, keepdim=True)
+    if amax is None:
+        amax = (x.abs().max() if axis is None
+                else x.abs().amax(dim=axis, keepdim=True))
     amax = torch.maximum(amax, floatops.const(1e-12, x))
     if compiled:
         scale = amax * floatops.const(_INV_127, x)

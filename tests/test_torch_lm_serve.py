@@ -12,9 +12,8 @@ Jamba hybrid (Mamba, attention and MoE) and whisper's encoder-decoder,
 at their reduced configs; whisper's encoder frames are the port's
 ``sampling.normal`` draw, ulp-close to the reference's.  ``main`` prints
 the reference's report keys, and every one of the ten architectures
-serves on the CPU.  Placing parameters over a mesh of more than one
-position (``sharding.to_shardings``, ROADMAP item 18.6) raises
-``NotImplementedError``.
+serves on the CPU.  ``sharding.to_shardings`` over a mesh of two
+positions places each parameter's shards on their positions.
 """
 import json
 
@@ -123,16 +122,36 @@ def test_every_arch_serves_on_the_cpu(arch, reference):
     assert ((toks >= 0) & (toks < jconfigs.get_reduced(arch).vocab)).all()
 
 
-def test_to_shardings_raises_naming_its_item():
+def test_to_shardings_places_each_shard_on_its_position():
+    """Over a two-position ``data`` mesh each parameter's shards lie on
+    their positions' devices (here the CPU and ``meta``) in the shape
+    ``shard_shape`` gives; on two CPU positions an FSDP-sharded weight's
+    shards are its two halves and gather back to it."""
     from repro_torch import configs
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import model, sharding
     cfg = configs.get_reduced(ARCH)
-    params = model.Model(cfg, None, torch.device("meta"))
-    mesh = Mesh([torch.device("cpu")] * 2, ("data",))
+    params = model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    mesh = Mesh([torch.device("cpu"), torch.device("meta")], ("data",))
     specs = sharding.param_specs(params, cfg, mesh)
-    with pytest.raises(NotImplementedError, match=r"18\.6 \(sharding\)"):
-        sharding.to_shardings(specs, mesh)
+    placed = sharding.to_shardings(specs, mesh)
+    assert set(placed) == {n for n, _ in params.named_parameters()}
+    for name, p in params.named_parameters():
+        sh = placed[name]
+        assert sh.spec == specs[name] and sh.mesh is mesh
+        shards = sh.shard(p)
+        assert [s.device for s in shards] == mesh.device_list()
+        assert all(tuple(s.shape) == sh.shard_shape(p.shape) for s in shards)
+    assert any("data" in spec for spec in specs.values())
+    cpu2 = Mesh([torch.device("cpu")] * 2, ("data",))
+    p = params.get_parameter("blocks.0.mlp.wi")
+    sh = sharding.to_shardings(sharding.param_specs(params, cfg, cpu2),
+                               cpu2)["blocks.0.mlp.wi"]
+    assert sh.spec == ("data", None)
+    halves = sh.shard(p)
+    assert torch.equal(halves[0], p[:p.shape[0] // 2])
+    assert torch.equal(halves[1], p[p.shape[0] // 2:])
+    assert torch.equal(sh.gather(halves, "cpu"), p)
 
 
 def test_serve_needs_a_device_without_a_gpu():

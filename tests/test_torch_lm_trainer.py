@@ -27,7 +27,8 @@ first step's in 40 steps at batch 4, seq 64, lr 3e-3 (the property the
 reference's own test asks of its trainer); a run restarted from its step-3
 checkpoint writes a step-6 checkpoint bitwise the straight run's; every
 architecture trains two steps (whisper on the stub frames); the CLI
-prints its JSON line last; without a GPU it needs ``device``.
+prints its JSON line last; without a GPU it needs ``device``.  The
+training example also runs one step on a (2, 2) mesh of CPU positions.
 """
 import dataclasses
 import functools
@@ -264,5 +265,17 @@ def test_train_lm_example_runs_on_the_cpu(tmp_path, capsys):
          str(tmp_path)])
     assert len(out["losses"]) == 2 and out["losses"][-1] < out["losses"][0]
     assert sorted(os.listdir(tmp_path)) == ["ckpt_000000020.npz"]
+    assert capsys.readouterr().out.strip().splitlines()[-1].startswith(
+        "final loss:")
+
+
+def test_train_lm_example_runs_on_a_mesh(tmp_path, capsys):
+    """The example's quick run for one step on a (2, 2) mesh of CPU
+    positions (``--devices 4 --model-parallel 2``)."""
+    out = _example("train_lm_torch").main(
+        ["--quick", "--steps", "1", "--device", "cpu", "--devices", "4",
+         "--model-parallel", "2", "--ckpt-dir", str(tmp_path)])
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"]).all()
+    assert sorted(os.listdir(tmp_path)) == ["ckpt_000000001.npz"]
     assert capsys.readouterr().out.strip().splitlines()[-1].startswith(
         "final loss:")

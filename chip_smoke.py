@@ -262,6 +262,17 @@ non-zero:
    their scale by depth, parameters in units of lr); the reduced OLMo
    restarted from its step-3 checkpoint against a straight run and a
    second straight run on the card;
+   shard     -- the LM trained over a (2, 2) mesh of the card (item 18.6);
+   dryrun    -- the analysis tools (item 18.7): OLMo-1B's [train] cell
+   traced on ``meta`` (``launch.dryrun.trace_cell``) against
+   ``analysis.ops.accumulate`` over one real step on the card (dot FLOPs
+   exactly, the predicted arguments + temporaries within 10% of
+   ``max_memory_allocated``), and over the (2, 2) mesh (each position's
+   argument, all-gather and reduce-scatter bytes exactly); the sharded
+   prefill and decode against one position's; the city-sharded colony
+   with the edge-stream K2 on a (2, 4) mesh (collective bytes counted on
+   the card equal the meta trace's) and its ``ants_bf16`` variant card
+   against CPU;
 6. profile -- device busy time and idle share of one AS iteration at
    n = 1002, and the kernels that take most of it; the split of one MMAS
    + 2-opt iteration over an int8 store into construction, local search
@@ -1041,10 +1052,10 @@ def _dense_walk(fn, operands, mode, draw, n_act, **kw):
 def phase_dense_walk(results: dict) -> None:
     """The dense walk kernel (fp32, int8, bf16 payloads) against the plain
     walk on the card (every step through the full draw and
-    ``fused_select_plain``), bitwise: whole walks at n = m = 1002 over the
-    three payloads, three modes and both draws; the last 200 steps of a
-    walk at n = m = 2392 over the same grid, and one whole walk there; an
-    odd n (997) and a padded instance (901 real cities of 1002).  Then each
+    ``fused_select_plain``), bitwise: the last 200 steps of a walk at n =
+    m = 1002 and 2392 over the three payloads, three modes and both draws,
+    and one whole walk at each; an odd n (997) and a padded instance (901
+    real cities of 1002), whole.  Then each
     payload's time per launch at n = m = 1002 and 2392 beside the per-step
     route it replaced (the one-step kernel over the plain draw, once a
     step), the plain walk and the bound."""
@@ -1054,12 +1065,10 @@ def phase_dense_walk(results: dict) -> None:
     full = [(mode, draw) for mode in MODES for draw in ("packed", "counter")
             if mode != "greedy" or draw == "packed"]
     # (n, n_actual, payload, mode, draw, window)
-    grid = [(1002, None, d, mode, draw, None) for d in ("fp32",) + QUANT
-            for mode, draw in full]
-    grid += [(2392, None, d, mode, draw, WALK_WINDOW)
-             for d in ("fp32",) + QUANT
-             for mode, draw in full]
-    grid += [(2392, None, "fp32", "iroulette", "packed", None),
+    grid = [(n, None, d, mode, draw, WALK_WINDOW) for n in (1002, 2392)
+            for d in ("fp32",) + QUANT for mode, draw in full]
+    grid += [(1002, None, "fp32", "iroulette", "packed", None),
+             (2392, None, "fp32", "iroulette", "packed", None),
              (997, None, "fp32", "iroulette", "packed", None),
              (997, None, "int8", "gumbel", "counter", None),
              (997, None, "bf16", "greedy", "packed", None),
@@ -1077,11 +1086,10 @@ def phase_dense_walk(results: dict) -> None:
                 f"fused_walk != plain walk for {bad} ants ({dtype}, {mode}, "
                 f"{draw}, n={n}, n_actual={n_act}, window={window})")
     log(f"[kernels] fused_walk (fp32, int8, bf16): bitwise against the plain "
-        f"walk on the card in {len(grid)} cases (whole walks at n=m=1002 x "
-        f"3 payloads x iroulette, gumbel (packed, counter) and greedy; the "
-        f"last {WALK_WINDOW} steps at n=m=2392 over the same grid and one "
-        f"whole walk; "
-        f"n=997; n_actual=901 of 1002) in {time.perf_counter() - t0:.0f} s")
+        f"walk on the card in {len(grid)} cases (the last {WALK_WINDOW} "
+        f"steps at n=m=1002 and 2392 x 3 payloads x iroulette, gumbel "
+        f"(packed, counter) and greedy, and one whole walk at each; n=997; "
+        f"n_actual=901 of 1002) in {time.perf_counter() - t0:.0f} s")
 
     line = []
     for n in (1002, 2392):
@@ -5340,6 +5348,297 @@ def phase_shard(smi: str) -> None:
         f"{k} {v:.1f}" for k, v in parts.items()))
 
 
+# [dryrun] (ROADMAP item 18.7): the analysis tools' predictions from a
+# ``meta`` trace held against the same step counted on the card.  The
+# trace counts the card's own storages (its count of the step's
+# arguments and temporaries equals the card's to the byte); the measured
+# peak adds the caching allocator's rounding of every block to 512 bytes
+# and the workspaces cuBLAS allocates for the products: 0.05-0.45% above
+# the prediction measured, and 2% is the limit.
+DRYRUN_MEM_LIMIT = 0.02
+DRYRUN_DECODE = (4, 16, 4)          # batch, prompt, tokens ([lm]'s batch)
+# the one-position step's top-2 logits this close (in bf16 ulps of the
+# top one) are a near-tie, where the mesh's other GEMM shapes may pick
+# the other token: a row is held up to its first near-tie
+DRYRUN_TOKEN_TIE = 4
+DRYRUN_COLONY_N = 240               # a (2, 4) mesh: 60-column slabs
+DRYRUN_BF16_N = 96                  # ants_bf16 card against CPU
+
+
+def _dryrun_roofline(label: str, rec: dict) -> None:
+    r, mem = rec["roofline"], rec["memory_analysis"]
+    log(f"[dryrun] {label} roofline (meta trace, largest position): "
+        f"compute {r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
+        f"collectives {r['collective_s']:.4g} s -> {r['bottleneck']}; "
+        f"useful FLOPs {r['useful_flops_ratio']}; arguments "
+        f"{mem['argument_size_in_bytes'] / 2**30:.4f} GiB, temp "
+        f"{mem['temp_size_in_bytes'] / 2**30:.4f} GiB; collectives "
+        f"{rec['collectives']}; traced in {rec['trace_s']} s")
+
+
+def _dryrun_train(smi: str) -> None:
+    """OLMo-1B's [train] cell (batch 8, seq 128, bf16): the ``meta``
+    trace of one position against ``accumulate`` over one real step on
+    the card (dot FLOPs exactly; arguments + temporaries within
+    DRYRUN_MEM_LIMIT of the measured peak), then the same step over the
+    (2, 2) mesh of the card (each position's argument bytes and its
+    all-gather and reduce-scatter bytes exactly)."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.analysis import ops as aops
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import dryrun, specs, steps, tuning
+    from repro_torch.models import model
+    from repro_torch.models.sharded import ShardedModel
+    from repro_torch.optim import adamw
+    cfg = configs.get("olmo_1b")
+    cell = specs.ShapeCell("train_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tok, lab = (torch.from_numpy(x).to(DEV) for x in next(SyntheticLMData(
+        DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH))))
+    pred = dryrun.trace_cell(cfg, cell)
+    _dryrun_roofline("olmo_1b [train] cell, one position", pred)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = model.init_params(cfg, torch.Generator(device=DEV).manual_seed(
+        0), DEV)
+    opt = adamw.adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    card = aops.accumulate(steps.make_train_step(cfg, adamw.AdamWConfig()),
+                           params, opt, tok, lab)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    want = (pred["memory_analysis"]["argument_size_in_bytes"]
+            + pred["memory_analysis"]["temp_size_in_bytes"])
+    off = abs(peak - want) / peak
+    if card["dot_flops"] != pred["cost_analysis"]["flops"] or \
+            off > DRYRUN_MEM_LIMIT:
+        raise AssertionError(
+            f"[dryrun] olmo_1b one position: card dot FLOPs "
+            f"{card['dot_flops']!r} vs meta {pred['cost_analysis']['flops']!r}"
+            f"; measured peak {peak} vs predicted arguments + temp {want} "
+            f"({off:.3g}, limit {DRYRUN_MEM_LIMIT})")
+    log(f"[dryrun] olmo_1b [train] cell (batch {TRAIN_BATCH}, seq "
+        f"{TRAIN_SEQ}, bf16, remat), one position: dot FLOPs "
+        f"{card['dot_flops']:.6g} on the card == {pred['cost_analysis']['flops']:.6g}"
+        f" from the meta trace; peak {peak / 2**30:.4f} GiB measured "
+        f"(max_memory_allocated) against {want / 2**30:.4f} GiB predicted "
+        f"(arguments + temp), {off:.3%} apart (<= {DRYRUN_MEM_LIMIT:.0%}); "
+        f"the card's own count: arguments "
+        f"{card['memory']['argument_size_in_bytes']} B, temp "
+        f"{card['memory']['temp_size_in_bytes']} B, bytes accessed "
+        f"{card['bytes_accessed']:.6g} (meta "
+        f"{pred['cost_analysis']['bytes accessed']:.6g}) | {smi}")
+    del opt
+    mesh = _shard_mesh(DEV)
+    meta_mesh = _shard_mesh("meta")
+    pred4 = dryrun.trace_cell(cfg, cell, meta_mesh, "2d")
+    _dryrun_roofline("olmo_1b [train] cell, (2, 2) mesh", pred4)
+    pspecs, dspec = tuning.mesh_specs(params, cfg, mesh, TRAIN_BATCH, "2d")
+    sp = ShardedModel.from_model(params, mesh, pspecs)
+    del params
+    gc.collect()
+    opt4 = adamw.adamw_init_sharded(sp)
+    card4 = aops.accumulate(steps.make_train_step(
+        cfg, adamw.AdamWConfig(), mesh=mesh, pspecs=pspecs, dspec=dspec),
+        sp, opt4, tok, lab, mesh=mesh)
+    torch.cuda.synchronize()
+    held = [b + sum(m[pos].numel() * 4 for m in opt4.mu.values()) * 2
+            for pos, b in enumerate(sp.position_bytes())]
+    got = {k: [int(round(v)) for v in card4["positions"][k]]
+           for k in dryrun.PER_POSITION if k != "temp_size_in_bytes"}
+    for k, v in got.items():
+        if v != pred4["per_position"][k]:
+            raise AssertionError(f"[dryrun] olmo_1b (2, 2) mesh: {k} per "
+                                 f"position {v} on the card vs "
+                                 f"{pred4['per_position'][k]} predicted")
+    log(f"[dryrun] olmo_1b [train] cell over the (2, 2) mesh of the card: "
+        f"argument bytes per position {got['argument_size_in_bytes']} == "
+        f"predicted; parameters and moments held "
+        + ", ".join(f"{b / 2**30:.4f}" for b in held)
+        + f" GiB (position_bytes + moments); all-gather "
+        f"{got['collective_bytes/all-gather']} and reduce-scatter "
+        f"{got['collective_bytes/reduce-scatter']} B per position == "
+        f"predicted; dot FLOPs per position "
+        f"{[int(x) for x in card4['positions']['dot_flops']]} | {smi}")
+    del sp, opt4, card4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dryrun_decode(smi: str) -> None:
+    """OLMo-1B sharded prefill and decode over the (2, 2) mesh of the
+    card: the prefill's logits against the one-position forward (within
+    LM_BF16_ULPS bf16 ulps of the scale); DRYRUN_DECODE's tokens against
+    the one-position steps' from the same cache, each row up to its first
+    near-tie (DRYRUN_TOKEN_TIE)."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve, steps, tuning
+    from repro_torch.models import model, sharding
+    from repro_torch.models.sharded import ShardedCache, ShardedModel
+    cfg = configs.get("olmo_1b")
+    batch, prompt, gen = DRYRUN_DECODE
+    mesh = _shard_mesh(DEV)
+    with torch.inference_mode():
+        params, prompts, _ = serve.load(cfg, batch, prompt, 0,
+                                        torch.device(DEV))
+        pspecs, dspec = tuning.mesh_specs(params, cfg, mesh, batch, "2d")
+        sp = ShardedModel.from_model(params, mesh, pspecs)
+        full = model.forward(params, prompts, cfg)[0]
+        out = steps.make_prefill_step(cfg, mesh=mesh, pspecs=pspecs,
+                                      dspec=dspec)(sp, prompts)
+        got = sharding.Sharding(mesh, tuple(dspec) + (None,)).gather(out, DEV)
+        pre_ulps = _ulps_of_scale(full, got, 7)
+        pre, caches, _ = model.prefill(params, prompts, cfg,
+                                       prompt + gen + 4)
+        cspecs = sharding.cache_specs(caches, cfg, mesh, batch)
+        sc = ShardedCache.from_cache(caches, mesh, cspecs)
+        one = steps.make_serve_step(cfg)
+        shd = steps.make_serve_step(cfg, mesh=mesh, pspecs=pspecs,
+                                    dspec=dspec, cspecs=cspecs)
+        x1 = x2 = torch.argmax(pre[:, -1], -1).to(torch.int32)[:, None]
+        toks1, toks2, ties = [], [], []
+        for _ in range(gen):
+            logits, _ = model.decode_step(params, x1, caches, cfg)
+            top = torch.topk(logits[:, -1].float(), 2).values
+            ulp = 2.0 ** (torch.floor(torch.log2(top[:, 0].abs())) - 7)
+            ties.append(((top[:, 0] - top[:, 1]) / ulp <= DRYRUN_TOKEN_TIE)
+                        .cpu())
+            x1, caches = one(params, x1, caches)
+            x2, sc = shd(sp, x2, sc)
+            toks1.append(x1.cpu())
+            toks2.append(x2.cpu())
+    t1, t2 = torch.cat(toks1, 1), torch.cat(toks2, 1)
+    tie = torch.stack(ties, 1)
+    held = 0
+    for r in range(batch):
+        stop = int(tie[r].nonzero()[0]) + 1 if tie[r].any() else gen
+        if not torch.equal(t1[r, :stop], t2[r, :stop]):
+            raise AssertionError(f"[dryrun] olmo_1b sharded decode row {r}: "
+                                 f"{t2[r].tolist()} vs one position's "
+                                 f"{t1[r].tolist()} (near-ties "
+                                 f"{tie[r].tolist()})")
+        held += stop
+    if pre_ulps > LM_BF16_ULPS or not torch.isfinite(got).all():
+        raise AssertionError(f"[dryrun] olmo_1b sharded prefill: "
+                             f"{pre_ulps:.3g} bf16 ulps of the scale from "
+                             f"the one-position forward")
+    log(f"[dryrun] olmo_1b over the (2, 2) mesh of the card, batch {batch}, "
+        f"prompt {prompt}: sharded prefill logits {pre_ulps:.3g} bf16 ulps "
+        f"of the scale from one position's (<= {LM_BF16_ULPS}); {gen} "
+        f"sharded decode tokens {t2.tolist()} against one position's "
+        f"{t1.tolist()}: {held} of {batch * gen} held (each row up to its "
+        f"first top-2 near-tie, <= {DRYRUN_TOKEN_TIE} bf16 ulps) | {smi}")
+    del params, sp, sc, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dryrun_colony(launches: dict, smi: str) -> None:
+    """The city-sharded colony (n = DRYRUN_COLONY_N, AS, m = n) on a (2, 4)
+    mesh of the card with the ants over ``data`` and the edge-stream
+    pheromone_update (K2) on every slab: its collective bytes by kind and
+    count, counted on the card, against the ``meta`` trace's; then the
+    ``ants_bf16`` variant's state after two steps, card against CPU:
+    tours and lengths bitwise, tau ulp-close (rtol 1e-5 / atol 1e-7)."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.analysis import ops as aops
+    from repro_torch.core import aco, islands, tsp
+    from repro_torch.kernels import ops
+    from repro_torch.launch import aco_dryrun
+    n = DRYRUN_COLONY_N
+    cfg = aco.ACOConfig(use_pallas=True, seed=4)
+
+    def colony(dev, cfg, n, **options):
+        inst = tsp.random_instance(n, seed=13)
+        mesh = _mesh_of((2, 4), ("data", "model"),
+                        None if dev == DEV else torch.device(dev))
+        d = torch.from_numpy(inst.distances()).to(dev)
+        dl = islands.shard_columns(d, mesh)
+        el = islands.shard_columns(tsp.heuristic_matrix(d), mesh)
+        st = islands.init_sharded_colony(inst, cfg, mesh)
+        step = islands.sharded_colony_step_fn(mesh, n, cfg, "model",
+                                              cfg.use_pallas, **options)
+        return mesh, step, dl, el, st
+
+    mesh, step, dl, el, st = colony(DEV, cfg, n, ants_axis="data")
+    _sync()
+    ops.reset_launch_counts()
+    card = aops.accumulate(step, dl, el, st, mesh=mesh)
+    _sync()
+    counts = ops.launch_counts()
+    _check_counts("[dryrun] sharded colony", counts,
+                  {"pheromone_update": mesh.size})
+    launches["pheromone_update"] = launches.get("pheromone_update", 0) + \
+        counts["pheromone_update"]
+    pred = aco_dryrun.trace_colony(_mesh_of((2, 4), ("data", "model"),
+                                            torch.device("meta")), n, cfg,
+                                   use_pallas=True, ants_axis="data")
+    keys = [f"collective_bytes/{k}" for k in aops.COLLECTIVES] + [
+        "collective_count"]
+    for k in keys:
+        a = [int(round(v)) for v in card["positions"][k]]
+        b = [int(round(v)) for v in pred["positions"][k]]
+        if a != b:
+            raise AssertionError(f"[dryrun] sharded colony {k}: card {a} vs "
+                                 f"meta trace {b}")
+    log(f"[dryrun] city-sharded colony n = m = {n}, (2, 4) mesh of the card, "
+        f"ants over data, edge-stream K2 launched "
+        f"{counts['pheromone_update']} times: collectives "
+        f"{card['collective_bytes']} B in {card['collective_count']} per "
+        f"position on the card == the meta trace's ({pred['collective_bytes']}"
+        f", its construction traced for {aco_dryrun.SAMPLE} steps and "
+        f"scaled) | {smi}")
+    bf = aco.ACOConfig(seed=4)
+    got = {}
+    for dev in ("cpu", DEV):
+        mesh, step, dl, el, st = colony(dev, bf, DRYRUN_BF16_N,
+                                        ants_axis="data",
+                                        choice_dtype=torch.bfloat16)
+        for _ in range(2):
+            st, _ = step(dl, el, st)
+        got[dev] = convert.sharded_state_to_numpy(st, mesh)
+    for f in ("best_tour", "best_len", "iteration", "key"):
+        if not np.array_equal(got["cpu"][f], got[DEV][f]):
+            raise AssertionError(f"[dryrun] ants_bf16 colony: {f} differs, "
+                                 "card vs CPU")
+    # the slab deposits of several ants on one cell are summed by
+    # index_put_'s accumulation, in another order on the card: multi-ant
+    # AS tau is held ulp-close (the reference's contract, as [mesh] holds
+    # the kernel route's)
+    np.testing.assert_allclose(got[DEV]["tau"], got["cpu"]["tau"],
+                               rtol=1e-5, atol=1e-7)
+    diff = float(np.abs(got[DEV]["tau"] - got["cpu"]["tau"]).max())
+    log(f"[dryrun] ants_bf16 colony (bf16 choice slabs and draws), n = "
+        f"{DRYRUN_BF16_N}, "
+        f"(2, 4) mesh, two steps: best tour and length, key card == CPU "
+        f"bitwise (best {float(got[DEV]['best_len']):.1f}); tau max abs "
+        f"diff {diff:.3e} (rtol 1e-5 / atol 1e-7)")
+
+
+def phase_dryrun(launches: dict, smi: str) -> None:
+    """The analysis tools and dry runs (ROADMAP item 18.7) held against
+    the card: OLMo-1B's [train] cell on one position and over the (2, 2)
+    mesh, its sharded prefill and decode, and the city-sharded colony's
+    collectives with the edge-stream K2."""
+    t0 = time.perf_counter()
+    parts = {}
+    for part, args in ((_dryrun_train, (smi,)), (_dryrun_decode, (smi,)),
+                       (_dryrun_colony, (launches, smi))):
+        t1 = time.perf_counter()
+        part(*args)
+        parts[part.__name__] = time.perf_counter() - t1
+    log(f"[dryrun] phase took {time.perf_counter() - t0:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+
+
 def phase_sparse_split() -> None:
     """Where one sparse MMAS iteration over an int8 store goes at
     n = 2392, k = 16, m = 64 (host clock between synchronisations, median
@@ -5733,6 +6032,7 @@ def main() -> int:
                         (phase_mesh, (launches, results)),
                         (phase_ladder, (launches,)), (phase_lm, (smi,)),
                         (phase_train, (smi,)), (phase_shard, (smi,)),
+                        (phase_dryrun, (launches, smi)),
                         (phase_profile, ()),
                         (phase_split, ()), (phase_sparse_split, ())):
         t0 = time.perf_counter()

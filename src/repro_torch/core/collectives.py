@@ -25,6 +25,13 @@ in any order.
 
 The results may share storage with the inputs and with each other where
 two positions share a device; callers treat them as read-only.
+
+Inside an ``analysis.ops`` accumulator each collective reports every
+position's output bytes under the reference's HLO kind: ``psum``,
+``pmean``, ``pmax`` and ``pmin`` are an ``all-reduce``, ``all_gather``
+an ``all-gather`` and ``ppermute`` a ``collective-permute``; a group's
+reduction is attributed to its first member, each copy out to the
+position that receives it.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..analysis import ops
 from . import floatops
 
 Axis = Union[str, Sequence[str]]
@@ -67,13 +75,18 @@ def axis_index(axis: Axis, mesh) -> list[int]:
     return out
 
 
-def _each_group(xs, axis, mesh, fn) -> list:
+def _each_group(xs, axis, mesh, fn, kind: str) -> list:
     out = list(xs)
+    sizes = []
     for g in _groups(axis, mesh, len(xs)):
-        res = fn([xs[i] for i in g])
+        with ops.at_position(g[0]):
+            res = fn([xs[i] for i in g])
         for k, i in enumerate(g):
-            out[i] = res[k] if isinstance(res, list) else \
-                res.to(xs[i].device)
+            with ops.at_position(i):
+                out[i] = res[k] if isinstance(res, list) else \
+                    res.to(xs[i].device)
+            sizes.append((i, ops.nbytes(out[i])))
+    ops.collective(kind, sizes)
     return out
 
 
@@ -87,7 +100,8 @@ def _fold(members: list, op) -> torch.Tensor:
 
 def psum(xs: Sequence[torch.Tensor], axis: Axis, mesh) -> list:
     """Sum within each group, left to right."""
-    return _each_group(xs, axis, mesh, lambda ms: _fold(ms, torch.add))
+    return _each_group(xs, axis, mesh, lambda ms: _fold(ms, torch.add),
+                       "all-reduce")
 
 
 def pmean(xs: Sequence[torch.Tensor], axis: Axis, mesh) -> list:
@@ -96,21 +110,23 @@ def pmean(xs: Sequence[torch.Tensor], axis: Axis, mesh) -> list:
         s = _fold(ms, torch.add)
         return s * floatops.const(float(np.float32(1.0) / np.float32(
             len(ms))), s)
-    return _each_group(xs, axis, mesh, mean)
+    return _each_group(xs, axis, mesh, mean, "all-reduce")
 
 
 def pmax(xs: Sequence[torch.Tensor], axis: Axis, mesh) -> list:
-    return _each_group(xs, axis, mesh, lambda ms: _fold(ms, torch.maximum))
+    return _each_group(xs, axis, mesh, lambda ms: _fold(ms, torch.maximum),
+                       "all-reduce")
 
 
 def pmin(xs: Sequence[torch.Tensor], axis: Axis, mesh) -> list:
-    return _each_group(xs, axis, mesh, lambda ms: _fold(ms, torch.minimum))
+    return _each_group(xs, axis, mesh, lambda ms: _fold(ms, torch.minimum),
+                       "all-reduce")
 
 
 def all_gather(xs: Sequence[torch.Tensor], axis: Axis, mesh) -> list:
     """Each position gets its group's values stacked on a new axis 0."""
     return _each_group(xs, axis, mesh, lambda ms: torch.stack(
-        [x.to(ms[0].device) for x in ms]))
+        [x.to(ms[0].device) for x in ms]), "all-gather")
 
 
 def ppermute(xs: Sequence[torch.Tensor], axis: Axis,
@@ -124,4 +140,4 @@ def ppermute(xs: Sequence[torch.Tensor], axis: Axis,
             got[dst] = ms[src].to(ms[dst].device)
         return [torch.zeros_like(ms[k]) if g is None else g
                 for k, g in enumerate(got)]
-    return _each_group(xs, axis, mesh, move)
+    return _each_group(xs, axis, mesh, move, "collective-permute")

@@ -46,6 +46,7 @@ import torch
 
 from .. import device as _device
 from .. import tree
+from ..analysis import ops
 from . import aco, collectives, floatops, pheromone, quant, sampling
 from . import strategies, tsp
 
@@ -273,69 +274,80 @@ def _sharded_construct(dist_l: list, choice_l: list, keys: list, m: int,
     st = []                     # per group: its stacked state
     for g in groups:
         dev = dist_l[g[0]].device
-        col0 = torch.tensor([[sidx[p] * nl] for p in g], dtype=torch.int32,
-                            device=dev)                          # (P, 1)
-        ks = sampling.split(torch.stack([keys[p] for p in g]))   # (P, 2, 2)
-        start = sampling.randint(ks[:, 0], (m,), 0, n)            # (P, m)
-        own = (start >= col0) & (start < col0 + nl)
-        loc = torch.clamp(start - col0, 0, nl - 1).long()
-        vis = torch.zeros((len(g), m, nl), dtype=torch.bool, device=dev)
-        vis.scatter_(2, loc[..., None], own[..., None])
-        st.append(dict(
-            dist=torch.stack([dist_l[p] for p in g]).reshape(len(g), -1),
-            choice=torch.stack([choice_l[p] for p in g]),
-            sidx=torch.tensor([sidx[p] for p in g], dtype=torch.int64,
-                              device=dev),
-            col0=col0, kc=ks[:, 1], start=start, cur=start, vis=vis,
-            lens=torch.zeros((len(g), m), dtype=torch.float32, device=dev),
-            steps=[]))
-    for t in range(1, n):
+        with ops.at_position(*g):
+            col0 = torch.tensor([[sidx[p] * nl] for p in g],
+                                dtype=torch.int32, device=dev)    # (P, 1)
+            ks = sampling.split(torch.stack([keys[p] for p in g]))
+            start = sampling.randint(ks[:, 0], (m,), 0, n)        # (P, m)
+            own = (start >= col0) & (start < col0 + nl)
+            loc = torch.clamp(start - col0, 0, nl - 1).long()
+            vis = torch.zeros((len(g), m, nl), dtype=torch.bool, device=dev)
+            vis.scatter_(2, loc[..., None], own[..., None])
+            tours = torch.empty((len(g), m, n), dtype=torch.int32,
+                                device=dev)
+            tours[:, :, 0] = start
+            st.append(dict(
+                dist=torch.stack([dist_l[p] for p in g]).reshape(len(g), -1),
+                choice=torch.stack([choice_l[p] for p in g]),
+                sidx=torch.tensor([sidx[p] for p in g], dtype=torch.int64,
+                                  device=dev),
+                col0=col0, kc=ks[:, 1], start=start, cur=start, vis=vis,
+                lens=torch.zeros((len(g), m), dtype=torch.float32,
+                                 device=dev),
+                tours=tours))
+    for t in ops.trip(range(1, n)):
         pv, pi = [None] * npos, [None] * npos
         for g, a in zip(groups, st):
-            k = sampling.fold_in_rows(sampling.fold_in_rows(a["kc"], t),
-                                      a["sidx"])
-            rows = a["cur"].long()[..., None].expand(-1, -1, nl)
-            w = a["choice"].gather(1, rows) * (~a["vis"])
-            v = w * sampling.uniform(k, (m, nl), 1e-6, 1.0)
-            vmax, vidx = v.max(dim=2).values, v.argmax(dim=2)
-            vidx = vidx.to(torch.int32) + a["col0"]
+            with ops.at_position(*g):
+                k = sampling.fold_in_rows(sampling.fold_in_rows(a["kc"], t),
+                                          a["sidx"])
+                rows = a["cur"].long()[..., None].expand(-1, -1, nl)
+                w = a["choice"].gather(1, rows) * (~a["vis"])
+                v = w * sampling.uniform(k, (m, nl), 1e-6, 1.0, w.dtype)
+                vmax = v.max(dim=2).values.to(torch.float32)
+                vidx = v.argmax(dim=2).to(torch.int32) + a["col0"]
             for r, p in enumerate(g):
                 pv[p], pi[p] = vmax[r], vidx[r]
         # the paper's final argmax as two (m,) reductions over the shards:
         # the largest value, then the smallest index among its holders
         gmax = collectives.pmax(pv, axis, mesh)
-        cand = [torch.where(v == x, i, torch.full_like(i, _INT_MAX))
-                for v, x, i in zip(pv, gmax, pi)]
+        cand = []
+        for p, (v, x, i) in enumerate(zip(pv, gmax, pi)):
+            with ops.at_position(p):
+                cand.append(torch.where(v == x, i,
+                                        torch.full_like(i, _INT_MAX)))
         nxt = collectives.pmin(cand, axis, mesh)
         for g, a in zip(groups, st):
-            nx = torch.stack([nxt[p] for p in g])                 # (P, m)
-            col0 = a["col0"]
-            own = (nx >= col0) & (nx < col0 + nl)
-            loc = torch.clamp(nx - col0, 0, nl - 1).long()
-            a["vis"].scatter_(2, loc[..., None], (a["vis"].gather(
-                2, loc[..., None]) | own[..., None]))
-            # the owner of nxt's column adds the edge cur -> nxt
-            dloc = a["dist"].gather(1, a["cur"].long() * nl + loc)
-            a["lens"] = a["lens"] + torch.where(own, dloc,
-                                                torch.zeros_like(dloc))
-            a["cur"] = nx
-            a["steps"].append(nx)
+            with ops.at_position(*g):
+                nx = torch.stack([nxt[p] for p in g])             # (P, m)
+                col0 = a["col0"]
+                own = (nx >= col0) & (nx < col0 + nl)
+                loc = torch.clamp(nx - col0, 0, nl - 1).long()
+                a["vis"].scatter_(2, loc[..., None], (a["vis"].gather(
+                    2, loc[..., None]) | own[..., None]))
+                # the owner of nxt's column adds the edge cur -> nxt
+                dloc = a["dist"].gather(1, a["cur"].long() * nl + loc)
+                a["lens"] = a["lens"] + torch.where(own, dloc,
+                                                    torch.zeros_like(dloc))
+                a["cur"] = nx
+                a["tours"][:, :, t] = nx
     tours, lens = [None] * npos, [None] * npos
     for g, a in zip(groups, st):
-        col0, start = a["col0"], a["start"]
-        ownc = (start >= col0) & (start < col0 + nl)
-        dl = a["dist"].gather(1, a["cur"].long() * nl + torch.clamp(
-            start - col0, 0, nl - 1).long())
-        total = a["lens"] + torch.where(ownc, dl, torch.zeros_like(dl))
-        tr = torch.stack([start] + a["steps"], dim=2)             # (P, m, n)
+        with ops.at_position(*g):
+            col0, start = a["col0"], a["start"]
+            ownc = (start >= col0) & (start < col0 + nl)
+            dl = a["dist"].gather(1, a["cur"].long() * nl + torch.clamp(
+                start - col0, 0, nl - 1).long())
+            total = a["lens"] + torch.where(ownc, dl, torch.zeros_like(dl))
         for r, p in enumerate(g):
-            tours[p], lens[p] = tr[r], total[r]
+            tours[p], lens[p] = a["tours"][r], total[r]
     return tours, collectives.psum(lens, axis, mesh)
 
 
 def sharded_colony_step_fn(mesh, n: int, cfg: aco.ACOConfig,
                            axis: str = "model", use_pallas: bool = False,
-                           ants_axis: Optional[str] = None):
+                           ants_axis: Optional[str] = None,
+                           choice_dtype: torch.dtype = torch.float32):
     """The city-sharded colony step for this mesh and instance size:
     ``step(dist_slabs, eta_slabs, state) -> (state, iteration best)``,
     the slabs per mesh position (``shard_columns``).
@@ -345,7 +357,10 @@ def sharded_colony_step_fn(mesh, n: int, cfg: aco.ACOConfig,
     slab's column frame and -1 outside it; otherwise through
     ``index_put_``.  ``ants_axis`` additionally splits the ants over that
     axis (m/|ants_axis| per row): the iteration best is all-gathered over
-    it and the slab deposits are summed over it."""
+    it and the slab deposits are summed over it.  ``choice_dtype``
+    bfloat16 holds the choice slabs in bfloat16 (half the bytes of each
+    step's row gather): each step's draw and product are bfloat16 too,
+    and each partial maximum is compared in float32 across the shards."""
     s = mesh.shape[axis]
     nl = n // s
     m = cfg.num_ants(n)
@@ -360,8 +375,11 @@ def sharded_colony_step_fn(mesh, n: int, cfg: aco.ACOConfig,
     decay = float(np.float32(1.0 - cfg.rho))
 
     def step(dist_l: list, eta_l: list, st: ShardedColonyState):
-        choice = [strategies.choice_matrix(t, e, cfg.alpha, cfg.beta)
-                  for t, e in zip(st.tau, eta_l)]
+        choice = []
+        for p, (t, e) in enumerate(zip(st.tau, eta_l)):
+            with ops.at_position(p):
+                choice.append(strategies.choice_matrix(
+                    t, e, cfg.alpha, cfg.beta).to(choice_dtype))
         ks = sampling.split(st.key)
         key, k_t = ks[0], ks[1]
         keys = [k_t.to(d) for d in devs]
@@ -370,17 +388,20 @@ def sharded_colony_step_fn(mesh, n: int, cfg: aco.ACOConfig,
         tours, lengths = _sharded_construct(dist_l, choice, keys, m_l, n, nl,
                                             axis, mesh)
         it_len, it_tour = [], []
-        for tr, ln in zip(tours, lengths):
-            ib = torch.argmin(ln)
-            it_len.append(ln[ib])
-            it_tour.append(tr[ib])
+        for p, (tr, ln) in enumerate(zip(tours, lengths)):
+            with ops.at_position(p):
+                ib = torch.argmin(ln).reshape(1)    # a device index
+                it_len.append(ln.index_select(0, ib)[0])
+                it_tour.append(tr.index_select(0, ib)[0])
         if ants_axis:
             # global iteration-best across ant shards: a tiny all-gather
             lens_all = collectives.all_gather(it_len, ants_axis, mesh)
             tours_all = collectives.all_gather(it_tour, ants_axis, mesh)
-            gb = [torch.argmin(la) for la in lens_all]
-            it_len = [la[g] for la, g in zip(lens_all, gb)]
-            it_tour = [ta[g] for ta, g in zip(tours_all, gb)]
+            for p, (la, ta) in enumerate(zip(lens_all, tours_all)):
+                with ops.at_position(p):
+                    g = torch.argmin(la).reshape(1)
+                    it_len[p] = la.index_select(0, g)[0]
+                    it_tour[p] = ta.index_select(0, g)[0]
         home = st.best_len.device
         il, itr = it_len[0].to(home), it_tour[0].to(home)
         better = il < st.best_len
@@ -389,44 +410,49 @@ def sharded_colony_step_fn(mesh, n: int, cfg: aco.ACOConfig,
         # owner-local column-slab deposit
         deps = []
         for p, (tr, ln) in enumerate(zip(tours, lengths)):
-            c0 = sidx[p] * nl
-            frm = tr.reshape(-1)
-            to = torch.roll(tr, -1, dims=-1).reshape(-1)
-            wrep = torch.repeat_interleave(floatops.const(cfg.q, ln) / ln, n)
-            f2 = torch.cat([frm, to])
-            t2 = torch.cat([to, frm]) - c0          # local column frame
-            w2 = torch.cat([wrep, wrep])
-            t2 = torch.where((t2 >= 0) & (t2 < nl), t2,
-                             torch.full_like(t2, -1))
-            tau = st.tau[p]
-            if use_pallas:
-                from ..kernels import ops as kops
-                out = kops.pheromone_update_edges(tau, f2, t2, w2, cfg.rho)
-                deps.append(out - floatops.const(decay, tau) * tau)
-                continue
-            valid = t2 >= 0
-            zero = torch.zeros_like(f2)
-            idx = (torch.where(valid, f2, zero).long(),
-                   torch.where(valid, t2, zero).long())
-            w2 = torch.where(valid, w2, torch.zeros_like(w2))
-            if ants_axis:
-                deps.append(torch.zeros_like(tau).index_put_(
-                    idx, w2, accumulate=True))
-            else:
-                # XLA scatters the deposits straight onto the evaporated
-                # slab when nothing sits between the two
-                deps.append((floatops.const(decay, tau) * tau).index_put_(
-                    idx, w2, accumulate=True))
+            with ops.at_position(p):
+                deps.append(deposit(p, st.tau[p], tr, ln))
         if ants_axis:
             deps = collectives.psum(deps, ants_axis, mesh)
         if use_pallas or ants_axis:
             # (1 - rho) * tau + dep, one rounding (XLA's fused form)
-            new_tau = [torch.addcmul(d, floatops.const(decay, t), t)
-                       for t, d in zip(st.tau, deps)]
+            new_tau = []
+            for p, (t, d) in enumerate(zip(st.tau, deps)):
+                with ops.at_position(p):
+                    new_tau.append(torch.addcmul(
+                        d, floatops.const(decay, t), t))
         else:
             new_tau = deps
         return ShardedColonyState(new_tau, best_tour, best_len,
                                   st.iteration + 1, key), il
+
+    def deposit(p: int, tau: torch.Tensor, tr: torch.Tensor,
+                ln: torch.Tensor) -> torch.Tensor:
+        """Position p's owner-local slab deposit: onto the evaporated
+        slab where XLA scatters onto it, else the deposit alone."""
+        c0 = sidx[p] * nl
+        frm = tr.reshape(-1)
+        to = torch.roll(tr, -1, dims=-1).reshape(-1)
+        wrep = torch.repeat_interleave(floatops.const(cfg.q, ln) / ln, n)
+        f2 = torch.cat([frm, to])
+        t2 = torch.cat([to, frm]) - c0          # local column frame
+        w2 = torch.cat([wrep, wrep])
+        t2 = torch.where((t2 >= 0) & (t2 < nl), t2, torch.full_like(t2, -1))
+        if use_pallas:
+            from ..kernels import ops as kops
+            out = kops.pheromone_update_edges(tau, f2, t2, w2, cfg.rho)
+            return out - floatops.const(decay, tau) * tau
+        valid = t2 >= 0
+        zero = torch.zeros_like(f2)
+        idx = (torch.where(valid, f2, zero).long(),
+               torch.where(valid, t2, zero).long())
+        w2 = torch.where(valid, w2, torch.zeros_like(w2))
+        if ants_axis:
+            return torch.zeros_like(tau).index_put_(idx, w2, accumulate=True)
+        # XLA scatters the deposits straight onto the evaporated slab when
+        # nothing sits between the two
+        return (floatops.const(decay, tau) * tau).index_put_(
+            idx, w2, accumulate=True)
 
     return step
 
@@ -435,11 +461,13 @@ def run_sharded_colony(instance: tsp.TSPInstance, cfg: aco.ACOConfig,
                        mesh, axis: str = "model",
                        iterations: Optional[int] = None,
                        state: Optional[ShardedColonyState] = None,
-                       ants_axis: Optional[str] = None
+                       ants_axis: Optional[str] = None,
+                       choice_dtype: torch.dtype = torch.float32
                        ) -> ShardedColonyState:
     """``iterations`` (default ``cfg.iterations``) city-sharded colony
     steps; ``cfg.use_pallas`` deposits through the edge-stream kernel,
-    ``ants_axis`` splits the ants over that axis as well."""
+    ``ants_axis`` splits the ants over that axis as well, and
+    ``choice_dtype`` is the choice slabs' (``sharded_colony_step_fn``)."""
     if quant.is_quantised(cfg.tau_dtype):
         raise _quantised_route(
             "the city-sharded colony cannot run over a quantised pheromone "
@@ -454,7 +482,7 @@ def run_sharded_colony(instance: tsp.TSPInstance, cfg: aco.ACOConfig,
     if state is None:
         state = init_sharded_colony(instance, cfg, mesh, axis)
     step = sharded_colony_step_fn(mesh, n, cfg, axis, cfg.use_pallas,
-                                  ants_axis)
+                                  ants_axis, choice_dtype)
     for _ in range(iterations or cfg.iterations):
         state, _ = step(dist_l, eta_l, state)
     return state

@@ -166,11 +166,25 @@ def uniform_span(draw_mode: str, minval: float, maxval: float) -> float:
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``; its
-    span is ``float32(maxval) - float32(minval)``."""
-    return _uniform_from_bits(random_bits(key, shape), minval,
-                              uniform_span("packed", minval, maxval))
+            maxval: float = 1.0, dtype: torch.dtype = torch.float32
+            ) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)``, float32
+    or bfloat16; the float32 span is ``float32(maxval) -
+    float32(minval)``.  bfloat16 has 7 mantissa bits, so jax draws 8 bits
+    a value (the low byte of ``y0 ^ y1``), shifts one off into [1, 2),
+    subtracts 1 and scales with the bounds rounded to bfloat16, each
+    operation rounded to bfloat16 (eager jax and XLA's CPU compiler
+    alike)."""
+    if dtype == torch.float32:
+        return _uniform_from_bits(random_bits(key, shape), minval,
+                                  uniform_span("packed", minval, maxval))
+    if dtype != torch.bfloat16:
+        raise ValueError(f"uniform draws float32 or bfloat16, not {dtype}")
+    bits = random_bits(key, shape) & 0xFF
+    flo = ((bits >> 1) | 0x3F80).to(torch.int16).view(torch.bfloat16) - 1.0
+    lo, hi = (torch.tensor(v, dtype=torch.bfloat16, device=key.device)
+              for v in (minval, maxval))
+    return torch.maximum(lo, flo * (hi - lo) + lo)
 
 
 def counter_uniform(key: torch.Tensor, shape: Sequence[int],

@@ -261,6 +261,8 @@ def pheromone_update_edges(tau: torch.Tensor, frm: torch.Tensor,
                            rho: float) -> torch.Tensor:
     if _plain(tau):
         return _pu.pheromone_update_plain(tau, frm, to, w, rho)
+    if tau.device.type == "meta":
+        return _pu.pheromone_update_shapes(tau, frm, to, w)
     return _pu.pheromone_update(tau, frm, to, w, rho)
 
 

@@ -46,6 +46,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..analysis import ops
 from ..core import floatops
 from . import _build
 
@@ -83,10 +84,21 @@ def pheromone_update(tau: torch.Tensor, frm: torch.Tensor, to: torch.Tensor,
                   to.data_ptr(), w.data_ptr(), out.data_ptr(), n0, n1, e,
                   _decay(rho))
     _build.count(pheromone_update)
+    ops.kernel((tau, frm, to, w), (out,))
     return out
 
 
 pheromone_update.launches = 0
+
+
+def pheromone_update_shapes(tau: torch.Tensor, frm: torch.Tensor,
+                            to: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel's output on ``meta`` tensors (shapes only, nothing
+    launched or counted as a launch): its bytes reported as the launch
+    reports them."""
+    out = torch.empty_like(tau)
+    ops.kernel((tau, frm, to, w), (out,))
+    return out
 
 
 def pheromone_update_tours_plain(tau: torch.Tensor, tours: torch.Tensor,

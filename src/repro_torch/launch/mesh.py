@@ -65,6 +65,15 @@ class Mesh:
         """Every position's device in row-major position order."""
         return list(self.devices.flat)
 
+    def coords(self, pos: int) -> dict:
+        """Position ``pos``'s coordinate along each axis."""
+        table = self.__dict__.get("_coords")
+        if table is None:
+            grid = np.unravel_index(np.arange(self.size), self.devices.shape)
+            table = self.__dict__["_coords"] = [
+                dict(zip(self.axis_names, map(int, c))) for c in zip(*grid)]
+        return table[pos]
+
     def axis_devices(self, axis: str) -> list:
         """The devices along ``axis`` at coordinate 0 of every other axis:
         the positions a 1-D layout over that axis uses."""

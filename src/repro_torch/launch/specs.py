@@ -58,11 +58,12 @@ def cell_applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
     return True, ""
 
 
-def input_specs(cfg: ModelConfig, shape: str) -> dict:
+def input_specs(cfg: ModelConfig, shape) -> dict:
     """The cell's step inputs as ``meta`` tensors: "tokens" (and "labels"
     for training, "enc_frames" for an encoder-decoder), or a decode
-    step's "token" and "caches"."""
-    cell = SHAPES[shape]
+    step's "token" and "caches".  ``shape`` is a name of ``SHAPES`` or a
+    ``ShapeCell``."""
+    cell = shape if isinstance(shape, ShapeCell) else SHAPES[shape]
     b, s = cell.global_batch, cell.seq_len
     out: dict = {}
     if cell.kind in ("train", "prefill"):

@@ -123,7 +123,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     freqs = rope_freqs(x.shape[-1], theta, x.device)
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))          # (half,)
+        torch.tensor(sections, device=x.device),
+        output_size=half)                                 # (half,)
     ang = positions3.to(torch.float32)[sec_id]            # (half, B, S)
     return _rotate(x, torch.movedim(ang, 0, -1) * freqs)
 

@@ -14,9 +14,10 @@ encoder's layers (``enc_blocks``) are unrolled the same way.
 
 ``loss_fn`` runs the layers with the parameters' gradients on (training
 sets ``requires_grad``; serving leaves it off).  ``remat=True``
-checkpoints each layer (``torch.utils.checkpoint``, non-reentrant), where
-the reference checkpoints its scanned period body: the backward recomputes
-a layer's activations instead of keeping them.  deepseek-v3's
+leaves the prefix layers plain and checkpoints each period of the body
+as one unit (``torch.utils.checkpoint``, non-reentrant), as the
+reference checkpoints its scanned period body: the backward recomputes a
+period's activations instead of keeping them.  deepseek-v3's
 multi-token-prediction head (``Model.mtp``) runs only in the loss, as in
 the reference.
 """
@@ -202,29 +203,54 @@ def _run_body(params: Model, x: torch.Tensor, cfg: ModelConfig,
               enc_out: Optional[torch.Tensor] = None, remat: bool = False
               ) -> tuple[torch.Tensor, Optional[list], torch.Tensor]:
     """Every layer in order -> (x, new caches or None, the layers' summed
-    aux loss).  ``remat`` checkpoints each layer (full sequence only).
-    The token stream passes through ``sharding.constrain_tokens`` where
-    the reference's scanned period body starts and ends."""
+    aux loss).  The prefix layers run plainly; the body runs one period
+    (the ``len(cfg.period)`` layers of one step of the reference's scan)
+    at a time, and ``remat`` (full sequence only) checkpoints each period
+    as one unit, where the reference checkpoints its scanned body."""
     new_caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    every = params.all_layers()
     n_prefix, period = len(cfg.prefix), len(cfg.period)
-    for i, layer in enumerate(params.all_layers()):
-        j = i - n_prefix                          # index in the body
-        if j >= 0 and j % period == 0:
-            x = sharding.constrain_tokens(x)
-        if remat:
-            x, c, aux = _checkpoint.checkpoint(
-                layer, x, cfg, positions, None, enc_out, use_reentrant=False,
-                context_fn=_record_once)
-        else:
-            x, c, aux = layer(x, cfg, positions,
-                              None if caches is None else caches[i], enc_out)
-        if j >= 0 and j % period == period - 1:
-            x = sharding.constrain_tokens(x)
+    for i in range(n_prefix):
+        x, c, aux = every[i](x, cfg, positions,
+                             None if caches is None else caches[i], enc_out)
         new_caches.append(c)
         if aux is not None:
             aux_total = aux_total + aux
+    for start in range(n_prefix, len(every), period):
+        unit = every[start:start + period]
+        if remat:
+            x, cs, auxs = _checkpoint.checkpoint(
+                _run_period, unit, x, cfg, positions, None, enc_out,
+                use_reentrant=False, context_fn=_record_once)
+        else:
+            x, cs, auxs = _run_period(
+                unit, x, cfg, positions,
+                None if caches is None else caches[start:start + period],
+                enc_out)
+        new_caches.extend(cs)
+        for aux in auxs:
+            if aux is not None:
+                aux_total = aux_total + aux
     return x, (None if caches is None else new_caches), aux_total
+
+
+def _run_period(unit: list, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, caches: Optional[list],
+                enc_out: Optional[torch.Tensor]
+                ) -> tuple[torch.Tensor, list, list]:
+    """One period of the body -> (x, each layer's new cache or None, each
+    layer's aux or None).  The token stream passes through
+    ``sharding.constrain_tokens`` where the reference's scanned period
+    body starts and ends."""
+    x = sharding.constrain_tokens(x)
+    cs, auxs = [], []
+    for k, layer in enumerate(unit):
+        x, c, aux = layer(x, cfg, positions,
+                          None if caches is None else caches[k], enc_out)
+        cs.append(c)
+        auxs.append(aux)
+    return sharding.constrain_tokens(x), cs, auxs
 
 
 @contextlib.contextmanager
@@ -234,7 +260,7 @@ def _not_recording(aux_parts: bool):
 
 
 def _record_once():
-    """A checkpointed layer's contexts: its forward as it is, its
+    """A checkpointed period's contexts: its forward as it is, its
     recomputation in the backward without MoE routing, aux-part or
     activation-constraint records (the forward recorded them once
     already), computing the aux parts where the forward did."""

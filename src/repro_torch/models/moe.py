@@ -227,7 +227,10 @@ def moe_layer(p: MoE, x: torch.Tensor, cfg: ModelConfig,
         record.append((probs, idx))
 
     # load-balance auxiliary (Switch-style): E * sum_e f_e * P_e
-    counts = torch.bincount(idx.reshape(-1), minlength=e).to(torch.float32)
+    # counted by a scatter of ones (``bincount`` has no meta kernel)
+    flat = idx.reshape(-1).long()
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
+        0, flat, torch.ones_like(flat)).to(torch.float32)
     parts = _AUX_PARTS.get()
     if parts is None:
         me = probs.mean((0, 1))

@@ -20,9 +20,14 @@ reference stacks the periodic body and the encoder over a leading axis
 and evaluates its rules on those stacked shapes; the port's layers are
 unrolled, so each rule here reads the reference's stacked shape and the
 period axis is dropped from the spec it gives (the decode cache's too).
-Where a rule shards that period axis itself (a 2-D MLP ``wo`` stacked to
-3-D matches the attention ``wo`` rule, and OLMo-1B's 16 periods split
-over ``model``), each unrolled layer is replicated over that axis.
+Where a rule shards that period axis itself (a 2-D MLP or MLA ``wo``
+stacked to 3-D matches the attention ``wo`` rule, so OLMo-1B's 16
+periods split over ``model``), the spec is a ``HeldSpec``: layer i's
+copy of the leaf is held whole along the period axis, its other axes as
+the rule says, only on the positions whose coordinate over the period
+entry's axes is ``p(i) // (P / parts)`` (p(i) its period index, P the
+periods, parts the entry's size), as the reference's period chunk
+places it; every other position holds an empty shard of it.
 
 A ``Sharding`` (``to_shardings``) is the port's ``NamedSharding``: a mesh
 of ``torch.device`` positions (``launch.mesh.Mesh``) and a spec.  A value
@@ -48,6 +53,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..analysis import ops
 from .config import ModelConfig
 
 
@@ -184,20 +190,44 @@ def _rule(path: str, shape: Sequence[int], mesh, fa, ma) -> tuple:
     return ()
 
 
+class HeldSpec(tuple):
+    """The spec of one layer of a stacked leaf whose period axis the
+    reference's rule shards: the entries of the layer's own axes (as a
+    tuple, it equals the plain spec with the period axis dropped), and
+    ``held`` = (the period entry's axes, the chunk of them that holds
+    this layer)."""
+
+    def __new__(cls, spec: Sequence, held: tuple):
+        out = super().__new__(cls, spec)
+        out.held = held
+        return out
+
+    def __repr__(self) -> str:
+        return f"HeldSpec({tuple(self)}, held={self.held})"
+
+
 def param_specs(params: nn.Module, cfg: ModelConfig, mesh,
                 fsdp_axis=("data",),
                 model_axis: Optional[str] = "model") -> dict:
     """{parameter name: spec}, from the shapes only.  ``fsdp_axis`` may be
     one axis or a tuple (pure FSDP shards weights over both); model_axis
-    None turns tensor parallelism off."""
+    None turns tensor parallelism off.  A layer of a leaf whose period
+    axis the rule shards gets a ``HeldSpec``."""
     from . import model     # model.py imports this module
     fa = tuple(a for a in axes_of(fsdp_axis) if a in mesh.shape) or None
     out = {}
     for name, p in params.named_parameters():
-        path, _, stack = model.reference_path(name, cfg)
+        path, index, stack = model.reference_path(name, cfg)
         shape = ((stack,) if stack else ()) + tuple(p.shape)
         spec = _rule("/".join(map(str, path)), shape, mesh, fa, model_axis)
-        out[name] = spec[1:] if stack and len(spec) == len(shape) else spec
+        if not (stack and len(spec) == len(shape)):
+            out[name] = spec
+        elif spec[0] is None:
+            out[name] = spec[1:]
+        else:
+            axes = axes_of(spec[0])
+            per = stack // int(np.prod([mesh.shape[a] for a in axes]))
+            out[name] = HeldSpec(spec[1:], (axes, index // per))
     return out
 
 
@@ -266,15 +296,36 @@ class Sharding:
     product of its axes; a position's chunk index along a dimension is
     its row-major coordinate over that dimension's axes, in the order the
     entry names them.  Positions whose chunks agree in every dimension
-    hold copies of the same slice.  On a mesh of ``meta`` positions it
-    gives shapes only."""
+    hold copies of the same slice.  A ``HeldSpec``'s ``held`` (axes,
+    chunk) limits the holders to the positions whose coordinate over
+    those axes is that chunk; the others hold an empty shard (``shard``:
+    dimension 0 of size 0).  On a mesh of ``meta`` positions it gives
+    shapes only."""
 
     def __init__(self, mesh, spec: Sequence):
         self.mesh = mesh
         self.spec = tuple(spec)
+        self.held = getattr(spec, "held", None)
+        self._distinct = None
 
     def __repr__(self) -> str:
-        return f"Sharding({self.mesh.shape}, {self.spec})"
+        held = "" if self.held is None else f", held={self.held}"
+        return f"Sharding({self.mesh.shape}, {self.spec}{held})"
+
+    def holds(self, pos: int) -> bool:
+        """Whether position ``pos`` holds a slice (not an empty shard)."""
+        if self.held is None:
+            return True
+        axes, chunk = self.held
+        coords = self.mesh.coords(pos)
+        k = 0
+        for a in axes:
+            k = k * self.mesh.shape[a] + int(coords[a])
+        return k == chunk
+
+    def empty_shape(self, shape: Sequence[int]) -> tuple:
+        """The shard shape of a position that holds nothing."""
+        return (0,) + self.shard_shape(shape)[1:]
 
     def _parts(self, entry) -> int:
         return int(np.prod([self.mesh.shape[a] for a in axes_of(entry)]))
@@ -296,8 +347,7 @@ class Sharding:
     def chunk(self, pos: int) -> tuple:
         """Position ``pos``'s chunk index along each dimension of the
         spec."""
-        coords = dict(zip(self.mesh.axis_names, np.unravel_index(
-            pos, self.mesh.devices.shape)))
+        coords = self.mesh.coords(pos)
         out = []
         for entry in self.spec:
             k = 0
@@ -313,29 +363,48 @@ class Sharding:
                      for k, n in zip(self.chunk(pos), part))
 
     def distinct(self) -> list[int]:
-        """The first position holding each distinct chunk, in position
-        order: where a replicated slice is counted once."""
-        seen: dict = {}
-        for pos in range(self.mesh.size):
-            seen.setdefault(self.chunk(pos), pos)
-        return list(seen.values())
+        """The first holder of each distinct chunk, in position order:
+        where a replicated slice is counted once."""
+        if self._distinct is None:
+            seen: dict = {}
+            for pos in range(self.mesh.size):
+                if self.holds(pos):
+                    seen.setdefault(self.chunk(pos), pos)
+            self._distinct = list(seen.values())
+        return list(self._distinct)
 
     def shard(self, t: torch.Tensor) -> list:
         """``t`` cut into each position's slice, a contiguous copy on that
         position's device (a replicated slice copied to every position
-        holding it)."""
+        holding it; an empty shard where a position holds nothing)."""
+        devices = self.mesh.device_list()
+        if t.device.type == "meta" and all(d.type == "meta" for d in devices):
+            # shapes only (each position its own tensor all the same)
+            held, empty = self.shard_shape(t.shape), self.empty_shape(t.shape)
+            return [t.new_empty(held if self.holds(pos) else empty)
+                    for pos in range(len(devices))]
         return [t[self.slices(pos, t.shape)].to(
             dev, memory_format=torch.contiguous_format, copy=True)
-            for pos, dev in enumerate(self.mesh.device_list())]
+            if self.holds(pos) else
+            t.new_empty(self.empty_shape(t.shape), device=dev)
+            for pos, dev in enumerate(devices)]
+
+    def whole_shape(self, shards: Sequence[torch.Tensor]) -> tuple:
+        """The whole tensor's shape from the per-position ``shards``."""
+        part = tuple(shards[self.distinct()[0]].shape)
+        return tuple(n * (self._parts(self.spec[d]) if d < len(self.spec)
+                          else 1) for d, n in enumerate(part))
 
     def gather(self, shards: Sequence[torch.Tensor],
                device) -> torch.Tensor:
         """The whole tensor on ``device`` from the per-position
         ``shards`` (each distinct slice read once)."""
-        part = tuple(shards[0].shape)
-        shape = tuple(n * (self._parts(self.spec[d]) if d < len(self.spec)
-                           else 1) for d, n in enumerate(part))
+        shape = self.whole_shape(shards)
         out = torch.empty(shape, dtype=shards[0].dtype, device=device)
+        if out.device.type == "meta":
+            # shapes only: the copies' bytes are reported, not dispatched
+            ops.kernel([shards[pos] for pos in self.distinct()], [out])
+            return out
         for pos in self.distinct():
             out[self.slices(pos, shape)] = shards[pos]
         return out

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..analysis import ops
 from ..core import floatops
 from ..models import model
 
@@ -138,8 +139,9 @@ def global_norm(grads: dict, params: nn.Module) -> torch.Tensor:
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    # the card's float32 sqrt is correctly rounded; the CPU's is not
-    return torch.sqrt(x) if x.is_cuda else floatops.sqrt(x)
+    # the card's float32 sqrt is correctly rounded; the CPU's is not (a
+    # ``meta`` trace takes the card's path)
+    return floatops.sqrt(x) if x.device.type == "cpu" else torch.sqrt(x)
 
 
 def _pow(base: float, step: torch.Tensor) -> torch.Tensor:
@@ -224,16 +226,21 @@ def global_norm_sharded(grads: dict, params) -> torch.Tensor:
     def squares(name: str) -> torch.Tensor:
         total = None
         for pos in params.shardings[name].distinct():
+            if grads[name][pos] is None:      # not run (``ops.runs``)
+                continue
             sq = _sum_squares(grads[name][pos]).to(root)
             total = sq if total is None else total + sq
         return total
 
     total = None
     for _, _, names in reference_leaves(params.meta):
-        leaf = squares(names[0])
-        for name in names[1:]:
-            leaf = leaf + squares(name)
-        total = leaf if total is None else total + leaf
+        leaf = None
+        for name in names:
+            sq = squares(name)
+            if sq is not None:            # None: not run (``ops.runs``)
+                leaf = sq if leaf is None else leaf + sq
+        if leaf is not None:
+            total = leaf if total is None else total + leaf
     return _sqrt(total)
 
 
@@ -241,7 +248,9 @@ def global_norm_sharded(grads: dict, params) -> torch.Tensor:
 def adamw_update_sharded(cfg: AdamWConfig, grads: dict, state: AdamWState,
                          params) -> tuple[object, AdamWState, dict]:
     """``adamw_update`` on every position's shard, from the gradients'
-    shards; the norm is the whole gradient's (``global_norm_sharded``)."""
+    shards; the norm is the whole gradient's (``global_norm_sharded``).
+    A position with no gradient for a parameter (it holds an empty shard
+    of it) leaves that shard as it is."""
     step = state.step + 1
     gnorm = global_norm_sharded(grads, params)
     k = _constants(cfg, step, gnorm)
@@ -249,11 +258,14 @@ def adamw_update_sharded(cfg: AdamWConfig, grads: dict, state: AdamWState,
     decay = decays(params.meta)
     for name, shards in params.shards.items():
         for pos, p in enumerate(shards):
+            if grads[name][pos] is None:
+                continue
             kd = on.get(p.device)
             if kd is None:
                 kd = on[p.device] = {key: v.to(p.device)
                                      for key, v in k.items()}
-            _apply(p, grads[name][pos], state.mu[name][pos],
-                   state.nu[name][pos], decay[name], kd)
+            with ops.at_position(pos):
+                _apply(p, grads[name][pos], state.mu[name][pos],
+                       state.nu[name][pos], decay[name], kd)
     return params, AdamWState(state.mu, state.nu, step), {
         "grad_norm": gnorm, "lr": k["lr"]}

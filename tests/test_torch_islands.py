@@ -65,13 +65,15 @@ ISLANDS = {
                dict(exchange_every=2, rounds=2, mix_lambda=0.1)),
 }
 # sharded colony cases: (name, mesh shape (data, model), ants_axis,
-# use_pallas); n = 48, random_instance(48, seed=7), rho 0.1, seed 3
+# use_pallas, bfloat16 choice slabs); n = 48, random_instance(48, seed=7),
+# rho 0.1, seed 3
 SHARDED = {
-    "s4": ((1, 4), None, False),
-    "ants": ((2, 4), "data", False),
-    "s3": ((1, 3), None, False),
-    "s4_kernel": ((1, 4), None, True),
-    "ants_kernel": ((2, 4), "data", True),
+    "s4": ((1, 4), None, False, False),
+    "ants": ((2, 4), "data", False, False),
+    "s3": ((1, 3), None, False, False),
+    "s4_kernel": ((1, 4), None, True, False),
+    "ants_kernel": ((2, 4), "data", True, False),
+    "ants_bf16": ((2, 4), "data", False, True),
 }
 SC_N, SC_STEPS = 48, 2
 COLLECTIVE_DS = (2, 3, 4, 8)
@@ -84,6 +86,7 @@ from functools import partial
 from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from repro import checkpoint as ck
+from repro.analysis import hlo
 from repro.core import aco, islands, tsp
 from repro.optim import compression
 ISLANDS, SHARDED, SC_N, SC_STEPS, DS = eval(sys.argv[2])
@@ -116,7 +119,7 @@ for n_new in (2, 4, 6):
     for f in r._fields:
         out[f"reshard{n_new}_{f}"] = np.asarray(getattr(r, f))
 inst = tsp.random_instance(SC_N, seed=7)
-for name, (shape, ants, up) in SHARDED.items():
+for name, (shape, ants, up, bf16) in SHARDED.items():
     mesh = jax.make_mesh(shape, ("data", "model"))
     cfg = aco.ACOConfig(rho=0.1, seed=3)
     st = islands.init_sharded_colony(inst, cfg, mesh, "model")
@@ -124,8 +127,16 @@ for name, (shape, ants, up) in SHARDED.items():
     d = jnp.asarray(inst.distances())
     eta = tsp.heuristic_matrix(d)
     d, eta = jax.device_put(d, sh), jax.device_put(eta, sh)
-    step = islands.sharded_colony_step_fn(mesh, SC_N, cfg, "model",
-                                          use_pallas=up, ants_axis=ants)
+    step = islands.sharded_colony_step_fn(
+        mesh, SC_N, cfg, "model", use_pallas=up, ants_axis=ants,
+        choice_dtype=jnp.bfloat16 if bf16 else jnp.float32)
+    step = step.lower(d, eta, st).compile()
+    acc = hlo.accumulate(step.as_text())
+    for kind, b in acc["collective_bytes"].items():
+        out[f"sc_{name}_coll_{kind}"] = np.asarray(b)
+    out[f"sc_{name}_coll_count"] = np.asarray(acc["collective_count"])
+    out[f"sc_{name}_args"] = np.asarray(
+        step.memory_analysis().argument_size_in_bytes)
     for t in range(SC_STEPS):
         st, il = step(d, eta, st)
         out[f"sc_{name}_{t}_il"] = np.asarray(il)
@@ -291,8 +302,10 @@ def test_sharded_colony_step_equals_reference(ref, name):
     best, best tour and length and key bitwise; tau bitwise on the plain
     slab deposit (index_put_ onto the evaporated slab, or, over an ants
     axis, the psum'd deposit added with one rounding), at rtol 1e-5 /
-    atol 1e-7 through the edge-stream kernel's route."""
-    shape, ants, up = SHARDED[name]
+    atol 1e-7 through the edge-stream kernel's route.  ``ants_bf16``
+    holds the choice slabs, each step's draw and product in bfloat16 (the
+    draw ``jax.random.uniform``'s at bfloat16) and is bitwise too."""
+    shape, ants, up, bf16 = SHARDED[name]
     mesh = _mesh(shape, ("data", "model"))
     inst = ttsp.random_instance(SC_N, seed=7)
     cfg = taco.ACOConfig(rho=0.1, seed=3)
@@ -300,8 +313,9 @@ def test_sharded_colony_step_equals_reference(ref, name):
     d = torch.from_numpy(inst.distances())
     dl = islands.shard_columns(d, mesh)
     el = islands.shard_columns(ttsp.heuristic_matrix(d), mesh)
-    step = islands.sharded_colony_step_fn(mesh, SC_N, cfg, "model",
-                                          use_pallas=up, ants_axis=ants)
+    step = islands.sharded_colony_step_fn(
+        mesh, SC_N, cfg, "model", use_pallas=up, ants_axis=ants,
+        choice_dtype=torch.bfloat16 if bf16 else torch.float32)
     for t in range(SC_STEPS):
         st, il = step(dl, el, st)
         p = f"sc_{name}_{t}_"
@@ -424,3 +438,58 @@ def test_compress_grads_equals_reference(ref, tag):
     assert all(float(e.abs().max()) == 0.0 for e in init.error.values())
     bf = compression.dequantize_int8(q["w"], s["w"], torch.bfloat16)
     assert bf.dtype == torch.bfloat16
+
+
+def test_uniform_bf16_is_jax_random_uniform():
+    """``sampling.uniform(..., dtype=bfloat16)`` is ``jax.random.uniform``
+    at bfloat16 bit for bit, eager and jitted, over 10^5 draws a key and
+    range (8 random bits a draw, the bounds rounded to bfloat16, one
+    rounding of the scaled value)."""
+    import jax
+    import jax.numpy as jnp
+    shape = (100, 1000)
+    for seed, lo, hi in ((0, 0.0, 1.0), (7, 1e-6, 1.0), (3, -2.5, 3.0)):
+        key = jax.random.PRNGKey(seed)
+        got = sampling.uniform(sampling.prng_key(seed), shape, lo, hi,
+                               torch.bfloat16)
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == shape
+        for fn in (jax.random.uniform, jax.jit(jax.random.uniform,
+                                               static_argnums=(1, 2))):
+            want = np.asarray(fn(key, shape, jnp.bfloat16, lo, hi).astype(
+                jnp.float32))
+            assert_bitwise(want, got.float(), f"seed {seed} [{lo}, {hi})")
+
+
+@pytest.mark.parametrize("name", sorted(SHARDED))
+def test_colony_trace_collectives_equal_the_references_hlo(ref, name):
+    """``launch.aco_dryrun.trace_colony`` of each SHARDED step on a meta
+    mesh of its shape (the construction traced for two steps and
+    scaled): every collective's bytes by kind and their count per
+    position equal ``hlo.accumulate`` of the reference's compiled step
+    (pmax and pmin of each step's partial best, the lengths' psum; over
+    an ants axis the best tours' all-gather and the deposit's psum).
+    The largest position's argument bytes are the reference's
+    ``memory_analysis().argument_size_in_bytes`` plus 8: the port holds
+    the key's two uint32 words in int64 (``core/sampling.py``), on the
+    first position, beside the column slabs."""
+    from repro_torch.launch import aco_dryrun
+    shape, ants, up, bf16 = SHARDED[name]
+    rec = aco_dryrun.trace_colony(
+        _mesh_of(shape, torch.device("meta")), SC_N,
+        taco.ACOConfig(rho=0.1, seed=3), use_pallas=up, ants_axis=ants,
+        choice_dtype=torch.bfloat16 if bf16 else torch.float32)
+    want = {k[len(f"sc_{name}_coll_"):]: int(v) for k, v in ref.items()
+            if k.startswith(f"sc_{name}_coll_") and not k.endswith("count")}
+    assert rec["collective_bytes"] == want
+    assert rec["collective_count"] == int(ref[f"sc_{name}_coll_count"])
+    for kind, per in rec["positions"].items():
+        if kind.startswith("collective_bytes/"):
+            assert len(set(per)) == 1, kind        # every position alike
+    assert rec["memory"]["argument_size_in_bytes"] == \
+        int(ref[f"sc_{name}_args"]) + 8
+
+
+def _mesh_of(shape, dev):
+    devs = np.empty(int(np.prod(shape)), dtype=object)
+    devs[:] = [dev] * devs.size
+    return Mesh(devs.reshape(shape), ("data", "model"))

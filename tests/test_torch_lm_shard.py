@@ -363,28 +363,35 @@ def _model(arch, dtype="float32"):
 def test_shards_hold_only_their_slices():
     """Each position holds its ``shard_shape`` slice of every parameter
     and moment, and nothing whole: the bytes a position holds are the sum
-    of its slices'."""
+    of its slices'.  A layer of a leaf whose period axis the reference
+    shards (deepseek-v3's MLA ``wo`` over ``model``) is held by the
+    positions of its period chunk only; the others hold an empty
+    shard."""
     whole = _model("deepseek_v3_671b")
     mesh = _mesh((2, 2))
     specs = tsh.param_specs(whole, whole.cfg, mesh)
     params = ShardedModel.from_model(whole, mesh, specs)
     opt = ta.adamw_init_sharded(params)
     want_bytes = [0] * mesh.size
-    split = 0
+    split = empty = 0
     for name, p in whole.named_parameters():
         sh = params.shardings[name]
         shape = sh.shard_shape(p.shape)
         split += shape != tuple(p.shape)
         for pos, (s, m, v) in enumerate(zip(params.shards[name],
                                             opt.mu[name], opt.nu[name])):
+            held = sh.holds(pos)
+            empty += not held
             assert tuple(s.shape) == tuple(m.shape) == tuple(v.shape) \
-                == shape, name
+                == (shape if held else sh.empty_shape(p.shape)), name
             assert m.dtype == v.dtype == torch.float32
-            assert_bitwise(p.detach()[sh.slices(pos, p.shape)], s, name)
+            if held:
+                assert_bitwise(p.detach()[sh.slices(pos, p.shape)], s, name)
             want_bytes[pos] += s.numel() * s.element_size()
     assert params.position_bytes() == want_bytes
     total = sum(p.numel() * p.element_size() for p in whole.parameters())
-    assert split > 0 and max(want_bytes) < total / 2, (want_bytes, total)
+    assert split > 0 and empty > 0 and max(want_bytes) < total / 2, (
+        want_bytes, total)
     back = params.to_model(CPU)
     for (name, a), (_, b) in zip(whole.named_parameters(),
                                  back.named_parameters()):
@@ -404,7 +411,7 @@ def test_replicated_copies_stay_bitwise_equal():
     copies = 0
     for name, sh in params.shardings.items():
         first = {}
-        for pos in range(params.mesh.size):
+        for pos in filter(sh.holds, range(params.mesh.size)):
             src = first.setdefault(sh.chunk(pos), pos)
             if src == pos:
                 continue
@@ -468,8 +475,9 @@ def test_compress_scale_is_the_leafs_global_max():
     got = tsteps._compress_roundtrip_sharded(
         {n: params.shardings[n].shard(g) for n, g in grads.items()}, params)
     for n, g in want.items():
-        for pos, s in enumerate(got[n]):
-            assert_bitwise(g[params.shardings[n].slices(pos, g.shape)], s, n)
+        for pos in filter(params.shardings[n].holds, range(mesh.size)):
+            assert_bitwise(g[params.shardings[n].slices(pos, g.shape)],
+                           got[n][pos], n)
     q, scale = tcomp.quantize_int8(grads[name].float())
     assert float(scale) == np.float32(7.0) / np.float32(127.0)
 
@@ -494,7 +502,7 @@ def test_adamw_on_shards_is_bitwise_the_unsharded_update():
         assert float(m["grad_norm"]) < 1e3
     for name, p in whole.named_parameters():
         sh = params.shardings[name]
-        for pos in range(mesh.size):
+        for pos in filter(sh.holds, range(mesh.size)):
             cut = sh.slices(pos, p.shape)
             assert_bitwise(p.detach()[cut], params.shards[name][pos], name)
             assert_bitwise(opt1.mu[name][cut], opt.mu[name][pos], name)
